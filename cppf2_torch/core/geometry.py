@@ -1,0 +1,84 @@
+"""Core geometry: backprojection, the fibonacci sphere, quaternion rotations.
+
+Counterpart of `cppf2_tpu/core/geometry.py` (reference: utils/util.py:191-208,
+2586-2607; eval.py:320-355).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def backproject_masked(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torch.Tensor):
+    """Dense pinhole backprojection of a masked depth map, fixed shape.
+
+    Args:
+        depth: (H, W) float32 meters.
+        intrinsics: (3, 3) pinhole K.
+        mask: (H, W) bool instance mask.
+    Returns:
+        points (H*W, 3) float32 with zeros where invalid, pixel_yx (H*W, 2)
+        int32 (row, col), valid (H*W,) bool. x and y are negated (the
+        reference's OpenGL convention, utils/util.py:2604-2605).
+    """
+    h, w = depth.shape
+    dev = depth.device
+    vv, uu = torch.meshgrid(
+        torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
+    valid = (depth > 0) & mask
+    k_inv = pinhole_inverse(intrinsics)
+    u = uu.to(depth.dtype)
+    v = vv.to(depth.dtype)
+    # uv1 @ k_inv.T, written out per component (no matmul precision question)
+    rays = torch.stack(
+        [u * k_inv[r, 0] + v * k_inv[r, 1] + k_inv[r, 2] for r in range(3)], dim=-1)
+    pts = rays * (depth / rays[..., 2])[..., None]
+    pts = pts * torch.tensor([-1.0, -1.0, 1.0], dtype=depth.dtype, device=dev)
+    pts = torch.where(valid[..., None], pts, torch.zeros((), dtype=depth.dtype, device=dev))
+    pixel_yx = torch.stack([vv, uu], dim=-1).to(torch.int32)
+    return pts.reshape(-1, 3), pixel_yx.reshape(-1, 2), valid.reshape(-1)
+
+
+def pinhole_inverse(k: torch.Tensor) -> torch.Tensor:
+    """Inverse of an upper-triangular pinhole K by back substitution with
+    reciprocal pivots, the order XLA's LU-based inverse takes, so the rays
+    (and the voxel keys built from them) agree to the bit."""
+    if bool(torch.any(k[1, 0] != 0) | torch.any(k[2, :2] != 0)):
+        raise ValueError("intrinsics must be upper triangular (a pinhole K)")
+    eye = torch.eye(3, dtype=k.dtype, device=k.device)
+    rows = [None, None, None]
+    for i in (2, 1, 0):
+        acc = eye[i]
+        for j in range(i + 1, 3):
+            acc = acc - k[i, j] * rows[j]
+        rows[i] = acc * (1.0 / k[i, i])
+    return torch.stack(rows)
+
+
+def fibonacci_sphere(samples: int) -> np.ndarray:
+    """Evenly spread unit directions on the golden-angle spiral, (S, 3) float32."""
+    i = np.arange(samples, dtype=np.float64)
+    phi = np.pi * (3.0 - np.sqrt(5.0))
+    y = 1.0 - (i / (samples - 1)) * 2.0
+    radius = np.sqrt(np.maximum(0.0, 1.0 - y * y))
+    theta = phi * i
+    return np.stack([np.cos(theta) * radius, y, np.sin(theta) * radius], axis=-1).astype(np.float32)
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix from an (x, y, z, w) quaternion, normalized inside.
+
+    Differentiable: the alignment optimizer takes its gradient."""
+    q = q / (torch.sqrt(torch.sum(q * q)) + 1e-12)
+    x, y, z, w = q[0], q[1], q[2], q[3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)]),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)]),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]),
+    ])
+
+
+def norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm as sqrt(sum(x * x)), the formula XLA lowers `norm` to."""
+    return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))

@@ -1,0 +1,58 @@
+"""Point-pair vote parameterization (counterpart of `cppf2_tpu/core/pairs.py`).
+
+Every (a, b) pair is described, w.r.t. a center and the canonical axes, by
+its signed projection length, its orthogonal distance from the center and
+the angle of its unit direction to each axis (reference dataset.py:118-135).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from cppf2_torch.core.geometry import norm
+
+_EPS = 1e-7
+
+
+class PairTargets(NamedTuple):
+    tr: torch.Tensor           # (N, 2): [proj_len, odist]
+    up_angle: torch.Tensor     # (N,)
+    right_angle: torch.Tensor  # (N,)
+    front_angle: torch.Tensor  # (N,)
+
+
+def pair_targets(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    up: torch.Tensor,
+    right: torch.Tensor,
+    front: torch.Tensor,
+    center: Optional[torch.Tensor] = None,
+) -> PairTargets:
+    """Vote targets for pairs (a, b), (N, 3) each; axes and center are (3,)."""
+    if center is None:
+        center = torch.zeros(3, dtype=a.dtype, device=a.device)
+    pdist = a - b
+    unit = pdist / (norm(pdist, keepdim=True) + _EPS)
+    rel = a - center
+    proj_len = torch.sum(rel * unit, dim=-1)
+    oc = rel - proj_len[..., None] * unit
+    odist = norm(oc)
+    tr = torch.stack([proj_len, odist], dim=-1)
+
+    def _angle(axis):
+        return torch.arccos(torch.clamp(torch.sum(unit * axis, dim=-1), -1.0, 1.0))
+
+    return PairTargets(tr, _angle(up), _angle(right), _angle(front))
+
+
+def _comb_indices(k: int):
+    """Index lists (ii, jj) of itertools.combinations(range(k), 2)."""
+    ii, jj = [], []
+    for i in range(k):
+        for j in range(i + 1, k):
+            ii.append(i)
+            jj.append(j)
+    return tuple(ii), tuple(jj)

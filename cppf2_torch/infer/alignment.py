@@ -1,0 +1,159 @@
+"""SE(3) alignment refinement and the yaw micro-sweep.
+
+Counterpart of `cppf2_tpu/infer/alignment.py` (reference eval.py:319-355):
+Adam over (translation, delta quaternion) minimizing the L1 distance between
+the observed kept pairs brought into canonical space and the predicted
+canonical pairs. The Adam step is written out with optax's constants
+(b1 0.9, b2 0.999, eps 1e-8, eps_root 0); the quaternion gradient is scaled
+by pi/180 before each step (eval.py:338).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from cppf2_torch.core.geometry import norm, quat_to_matrix
+
+_B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
+# yaw_sweep: +-10 deg micro sweep in 41 steps, a 10-degree full-circle ring
+# that must win by 25%, and the feature-mass gate
+_YAW_SPAN_DEG, _YAW_NUM, _YAW_MIN_MASS, _YAW_RING_STEP_DEG, _YAW_RING_MARGIN = (
+    10.0, 41, 0.005, 10.0, 0.25)
+
+
+class AlignResult(NamedTuple):
+    rotation: torch.Tensor     # (3, 3)
+    translation: torch.Tensor  # (3,)
+    loss: torch.Tensor         # ()
+
+
+def align_pose(
+    points: torch.Tensor,
+    pair_idx: torch.Tensor,
+    pair_weight: torch.Tensor,
+    pred_pairs_scaled: torch.Tensor,
+    rotation: torch.Tensor,
+    translation: torch.Tensor,
+    up_sym: bool,
+    up_axis: int = 1,
+    steps: int = 100,
+    lr: float = 1e-2,
+) -> AlignResult:
+    """Refine (R, T) by minimizing |canon(pc)[pairs] - pred_pairs_scaled|.
+
+    Under `up_sym` only the canonical `up_axis` coordinate enters the loss."""
+    dt = points.dtype
+    w = (pair_weight > 0).to(dt)
+    w_pairs = w[:, None, None]
+    denom = torch.clamp(torch.sum(w), min=1.0)
+    pair_pts = points[pair_idx]                                  # (K, 2, 3)
+    rotation = rotation.detach()
+
+    def loss_fn(trans, quat):
+        rot = quat_to_matrix(quat) @ rotation
+        canon = (pair_pts - trans) @ rot
+        diff = torch.abs(canon - pred_pairs_scaled)
+        if up_sym:
+            return torch.sum(diff[..., up_axis] * w_pairs[..., 0]) / (denom * 2.0)
+        return torch.sum(diff * w_pairs) / (denom * 6.0)
+
+    params = [translation.detach().clone(),
+              torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt, device=points.device)]
+    mu = [torch.zeros_like(p) for p in params]
+    nu = [torch.zeros_like(p) for p in params]
+    grad_scale = (1.0, math.pi / 180.0)
+    with torch.enable_grad():
+        for step in range(1, steps + 1):
+            leaves = [p.requires_grad_(True) for p in params]
+            grads = torch.autograd.grad(loss_fn(*leaves), leaves)
+            new = []
+            for i, (p, g) in enumerate(zip(params, grads)):
+                g = g * grad_scale[i]
+                mu[i] = _B1 * mu[i] + (1 - _B1) * g
+                nu[i] = _B2 * nu[i] + (1 - _B2) * g * g
+                mu_hat = mu[i] / (1 - _B1 ** step)
+                nu_hat = nu[i] / (1 - _B2 ** step)
+                update = mu_hat / (torch.sqrt(nu_hat) + _ADAM_EPS)
+                new.append(p.detach() + (-lr) * update)
+            params = new
+    trans, quat = params
+    with torch.no_grad():
+        rot = quat_to_matrix(quat) @ rotation
+        loss = loss_fn(trans, quat)
+    return AlignResult(rot, trans, loss)
+
+
+def _axis_rotations(deltas: torch.Tensor, axis: int) -> torch.Tensor:
+    """(S, 3, 3) rotations by `deltas` radians about canonical axis `axis`."""
+    c, s = torch.cos(deltas), torch.sin(deltas)
+    i, j = [k for k in range(3) if k != axis]
+    rots = torch.zeros((deltas.shape[0], 3, 3), dtype=deltas.dtype, device=deltas.device)
+    rots[:, axis, axis] = 1.0
+    rots[:, i, i] = c
+    rots[:, j, j] = c
+    rots[:, i, j] = -s
+    rots[:, j, i] = s
+    return rots
+
+
+def yaw_sweep(
+    points: torch.Tensor,
+    pair_idx: torch.Tensor,
+    pair_weight: torch.Tensor,
+    pred_pairs_scaled: torch.Tensor,
+    pred_pairs_canon: torch.Tensor,
+    rotation: torch.Tensor,
+    translation: torch.Tensor,
+    up_axis_index: int,
+) -> torch.Tensor:
+    """Feature-weighted yaw refinement about the canonical up axis; returns
+    the refined (3, 3) rotation (see the JAX counterpart for the design)."""
+    span_deg, num, min_feature_mass = _YAW_SPAN_DEG, _YAW_NUM, _YAW_MIN_MASS
+    ring_step_deg, ring_margin = _YAW_RING_STEP_DEG, _YAW_RING_MARGIN
+    dt = points.dtype
+    dev = points.device
+    ax = up_axis_index
+    others = [k for k in range(3) if k != ax]
+    valid = (pair_weight > 0).to(dt)
+
+    r = norm(pred_pairs_canon[..., others])                      # (K, 2)
+    r_pair = torch.amax(r, dim=-1)
+    nan = torch.full_like(r_pair, float("nan"))
+    r_med = torch.nanquantile(torch.where(valid > 0, r_pair, nan), 0.5)
+    w_feat = torch.clamp(r_pair - r_med, min=0.0) * valid
+    mass = torch.sum(w_feat) / torch.clamp(torch.sum(valid), min=1.0)
+    w = w_feat[:, None, None]
+
+    canon = (points[pair_idx] - translation) @ rotation          # (K, 2, 3)
+
+    def sweep(deltas):
+        rots = _axis_rotations(deltas, ax)
+        canon_s = torch.einsum("ktc,scd->sktd", canon, rots)
+        return (torch.sum(torch.abs(canon_s - pred_pairs_scaled[None]) * w[None], dim=(1, 2, 3))
+                / torch.clamp(torch.sum(w) * 6.0, min=1e-6))
+
+    def const(x):
+        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+
+    tiebreak = 3e-5 * 180.0 / np.pi
+    micro = const(np.linspace(-span_deg, span_deg, num) * (np.pi / 180.0))
+    loss_micro_raw = torch.amin(sweep(micro))
+
+    ring_np = np.arange(1, int(round(360.0 / ring_step_deg))) * ring_step_deg
+    ring_np = np.where(ring_np > 180.0, ring_np - 360.0, ring_np)
+    ring_np = ring_np[np.abs(ring_np) > span_deg + 1e-6]
+    ring = const(np.radians(ring_np))
+    loss_ring = sweep(ring)
+    br = torch.argmin(loss_ring)
+    ring_wins = (loss_ring[br] < (1.0 - ring_margin) * loss_micro_raw) & (mass > 2.0 * min_feature_mass)
+    center = torch.where(ring_wins, ring[br], torch.zeros((), dtype=dt, device=dev))
+
+    deltas2 = center + micro
+    loss2 = sweep(deltas2) + tiebreak * torch.abs(micro)
+    delta = torch.where(mass > min_feature_mass, deltas2[torch.argmin(loss2)],
+                        torch.zeros((), dtype=dt, device=dev))
+    return rotation @ _axis_rotations(delta[None], ax)[0]

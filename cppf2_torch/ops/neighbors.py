@@ -1,0 +1,81 @@
+"""Fixed-K radius-bounded nearest neighbors (counterpart of
+`cppf2_tpu/ops/neighbors.py`; reference src_shot/shot.cpp:28,70,139).
+
+Selection is on the same packed key as the JAX default path:
+round(clip(d2, 0, r2) * levels / r2) * n + col, exact in float32, so the k
+smallest keys name the neighbors (nearest first, ties to the lower column).
+The port selects them exactly with torch.topk; the reference's
+approx_min_k is exact on the CPU, where the tests compare the two.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from cppf2_torch.core.geometry import norm
+
+
+_QUERY_CHUNK = 8192  # queries per (chunk, N) distance block
+
+
+class Neighbors(NamedTuple):
+    idx: torch.Tensor    # (N, K) int64 neighbor indices, nearest first (self included)
+    dist: torch.Tensor   # (N, K) float32 distances
+    valid: torch.Tensor  # (N, K) bool: within radius and query valid
+    rel: torch.Tensor    # (N, K, 3) neighbor - query offsets
+
+
+def _sum_sq_fma(x: torch.Tensor) -> torch.Tensor:
+    """x0*x0 + x1*x1 + x2*x2 as a chain of fused multiply-adds, emulated in
+    float64 (the product is exact there; the sum rounds once more, which
+    differs from a true fma only at an exact float32 midpoint). The packed
+    keys round d2, so one ulp of a norm can move a key."""
+    s = x[:, 0] * x[:, 0]
+    for i in (1, 2):
+        xi = x[:, i].double()
+        s = (xi * xi + s.double()).float()
+    return s
+
+
+def knn_radius_neighbors(
+    points: torch.Tensor,
+    valid: torch.Tensor,
+    radius: float,
+    k: int,
+) -> Neighbors:
+    """K nearest neighbors within `radius` of every point, fixed shape.
+
+    Invalid points are parked at 1e6 so they fail every radius test. The
+    (chunk, N) distance block is the only quadratic buffer."""
+    n = points.shape[0]
+    k = min(k, n)
+    query_chunk = min(_QUERY_CHUNK, max(-(-n // 256) * 256, 256))
+    park = torch.tensor(1e6, dtype=points.dtype, device=points.device)
+    pts = torch.where(valid[:, None], points, park)
+    # column norms as a plain sum, query norms as an fma chain: the two
+    # roundings XLA's CPU fusions give them, so the packed keys agree
+    sq = torch.sum(pts * pts, dim=-1)
+    q_sq = _sum_sq_fma(pts)
+    r2 = radius * radius
+    levels = max((1 << 24) // max(n, 1) - 1, 1)
+    col = torch.arange(n, dtype=torch.float32, device=points.device)
+
+    dists, idxs, rels = [], [], []
+    for start in range(0, n, query_chunk):
+        q = pts[start:start + query_chunk]
+        qsq = q_sq[start:start + query_chunk]
+        cross = q @ pts.t()
+        d2 = qsq[:, None] + sq[None, :] - 2.0 * cross
+        qd2 = torch.round(torch.clamp(d2, 0.0, r2) * (levels / r2))
+        enc = qd2 * n + col[None, :]
+        enc_k = torch.topk(enc, k, dim=-1, largest=False, sorted=True).values
+        idx = torch.remainder(enc_k, float(n)).to(torch.int64)
+        diff = pts[idx] - q[:, None, :]
+        dists.append(norm(diff))
+        idxs.append(idx)
+        rels.append(diff)
+    dist = torch.cat(dists)
+    nb_valid = (dist <= radius) & valid[:, None]
+    return Neighbors(torch.cat(idxs), dist, nb_valid, torch.cat(rels))

@@ -1,0 +1,120 @@
+"""SHOT-352 local descriptor (counterpart of `cppf2_tpu/ops/shot.py`;
+reference src_shot/shot.cpp:45-100 through PCL, radii cfg.res * 10).
+
+The descriptor is assembled as a dense product of soft binning weights,
+desc[n, v, c] = sum_k Wspatial[n, k, v] * Wcos[n, k, c], over 32 spatial
+volumes (8 azimuth x 2 elevation x 2 radial) and 11 cosine bins. The color
+variant (CSHOT) is not part of this slice.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from cppf2_torch.core.geometry import norm
+from cppf2_torch.ops.eig3 import sym_eig3x3
+from cppf2_torch.ops.neighbors import Neighbors, knn_radius_neighbors
+from cppf2_torch.ops.normals import estimate_normals
+
+_EPS = 1e-12
+
+N_AZIMUTH = 8
+N_ELEVATION = 2
+N_RADIAL = 2
+N_COS_BINS = 11
+SHOT_DIM = N_AZIMUTH * N_ELEVATION * N_RADIAL * N_COS_BINS  # 352
+
+
+def shot_lrf(points: torch.Tensor, neighbors: Neighbors, radius: float) -> torch.Tensor:
+    """(N, 3, 3) local reference frames, rows [x, y, z]."""
+    rel = neighbors.rel
+    w = torch.clamp(radius - neighbors.dist, min=0.0) * neighbors.valid
+    wsum = torch.sum(w, dim=-1, keepdim=True)
+    cov = torch.einsum("nk,nki,nkj->nij", w, rel, rel) / torch.clamp(wsum[..., None], min=_EPS)
+    _, vecs = sym_eig3x3(cov)
+    x, z = vecs[..., 0], vecs[..., 2]
+
+    def disamb(axis):
+        proj = torch.sum(rel * axis[:, None, :], dim=-1)
+        vote = torch.where(proj >= 0, 1.0, -1.0)
+        score = torch.sum(torch.where(neighbors.valid, vote, torch.zeros_like(vote)), dim=-1)
+        return axis * torch.where(score >= 0, 1.0, -1.0)[:, None]
+
+    x, z = disamb(x), disamb(z)
+    y = torch.linalg.cross(z, x, dim=-1)
+    return torch.stack([x, y, z], dim=-2)
+
+
+def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
+    return F.one_hot(idx, n).to(dtype)
+
+
+def _soft_bins_centers_half(u: torch.Tensor, n_bins: int, circular: bool) -> torch.Tensor:
+    """Linear soft binning of u in [0, n_bins], bin centers at i + 0.5."""
+    shifted = u - 0.5
+    i0f = torch.floor(shifted)
+    frac = shifted - i0f
+    i0 = i0f.to(torch.int64)
+    if circular:
+        b0, b1 = torch.remainder(i0, n_bins), torch.remainder(i0 + 1, n_bins)
+    else:
+        b0, b1 = torch.clamp(i0, 0, n_bins - 1), torch.clamp(i0 + 1, 0, n_bins - 1)
+    return (_one_hot(b0, n_bins, u.dtype) * (1.0 - frac)[..., None]
+            + _one_hot(b1, n_bins, u.dtype) * frac[..., None])
+
+
+def _soft_bins_centers_int(u: torch.Tensor, n_bins: int) -> torch.Tensor:
+    """Linear soft binning of u in [0, n_bins - 1], centers at integers."""
+    i0f = torch.floor(u)
+    frac = u - i0f
+    i0 = i0f.to(torch.int64)
+    b0, b1 = torch.clamp(i0, 0, n_bins - 1), torch.clamp(i0 + 1, 0, n_bins - 1)
+    return (_one_hot(b0, n_bins, u.dtype) * (1.0 - frac)[..., None]
+            + _one_hot(b1, n_bins, u.dtype) * frac[..., None])
+
+
+def _lrf_spatial_weights(points, neighbors: Neighbors, radius: float):
+    """LRF frames and the (N, K, 32) soft spatial-binning weights."""
+    frames = shot_lrf(points, neighbors, radius)
+    local = torch.einsum("nab,nkb->nka", frames, neighbors.rel)
+    d = neighbors.dist
+    safe_d = torch.clamp(d, min=_EPS)
+    azimuth = torch.atan2(local[..., 1], local[..., 0])
+    a_cont = (azimuth + math.pi) / (2.0 * math.pi) * N_AZIMUTH
+    cos_incl = torch.clamp(local[..., 2] / safe_d, -1.0, 1.0)
+    e_cont = 1.0 - cos_incl
+    r_cont = torch.clamp(d / (radius / 2.0), 0.0, 2.0)
+    A = _soft_bins_centers_half(a_cont, N_AZIMUTH, circular=True)
+    E = _soft_bins_centers_half(e_cont, N_ELEVATION, circular=False)
+    R = _soft_bins_centers_half(r_cont, N_RADIAL, circular=False)
+    w_spatial = torch.einsum("nka,nke,nkr->nkaer", A, E, R).reshape(
+        A.shape[0], A.shape[1], N_AZIMUTH * N_ELEVATION * N_RADIAL)
+    return frames, w_spatial
+
+
+def compute_shot(points: torch.Tensor, normals: torch.Tensor, neighbors: Neighbors,
+                 radius: float) -> torch.Tensor:
+    """(N, 352) SHOT descriptors, L2-normalized per point (zero rows when empty)."""
+    frames, w_spatial = _lrf_spatial_weights(points, neighbors, radius)
+    d = neighbors.dist
+    nb_normal = normals[neighbors.idx]
+    has_normal = torch.sum(nb_normal * nb_normal, dim=-1) > 0.5
+    contrib = neighbors.valid & (d > _EPS) & has_normal
+    cw = contrib.to(points.dtype)
+    cosine = torch.clamp(torch.sum(nb_normal * frames[:, None, 2, :], dim=-1), -1.0, 1.0)
+    c_cont = (1.0 + cosine) * (N_COS_BINS - 1) / 2.0
+    C = _soft_bins_centers_int(c_cont, N_COS_BINS)
+    desc = torch.einsum("nkv,nkc->nvc", w_spatial * cw[..., None], C).reshape(-1, SHOT_DIM)
+    dn = norm(desc, keepdim=True)
+    return torch.where(dn > _EPS, desc / torch.clamp(dn, min=_EPS), torch.zeros_like(desc))
+
+
+def compute_shot_features(points: torch.Tensor, valid: torch.Tensor, radius: float, k: int = 96):
+    """Normals and SHOT in one call (the reference's shot.compute with
+    normal_r == shot_r). Returns (shot (N, 352), normals (N, 3))."""
+    nbrs = knn_radius_neighbors(points, valid, radius, k)
+    normals = estimate_normals(points, nbrs)
+    return compute_shot(points, normals, nbrs, radius), normals

@@ -1,0 +1,56 @@
+"""The port stands alone: no module of `cppf2_torch` and no line of
+`chip_smoke.py` imports JAX, flax, optax or the JAX package."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+BLOCKED = ("jax", "jaxlib", "flax", "optax", "orbax", "cppf2_tpu")
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = textwrap.dedent(f"""
+        import sys
+        for name in {BLOCKED!r}:
+            sys.modules[name] = None
+        import importlib, pkgutil
+        import cppf2_torch
+        names = [m.name for m in pkgutil.walk_packages(cppf2_torch.__path__, "cppf2_torch.")]
+        for name in names:
+            importlib.import_module(name)
+        leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED!r}
+                        and sys.modules[m] is not None)
+        assert not leaked, leaked
+        print(len(names))
+    """)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip()) >= 25
+
+
+def _imports(path: pathlib.Path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        (ROOT / "cppf2_torch").rglob("*.py")) + ["chip_smoke.py"])
+def test_no_source_imports_the_reference(path):
+    mods = {m.split(".")[0] for m in _imports(ROOT / path)}
+    assert not mods & set(BLOCKED), (path, mods & set(BLOCKED))
+
+
+def test_chip_smoke_names_none_of_them():
+    text = (ROOT / "chip_smoke.py").read_text()
+    for name in BLOCKED:
+        assert name not in text, name
