@@ -26,6 +26,12 @@ from cppf2_torch.models.cppf import DinoBranch, ShotBranch
 from cppf2_torch.models.dinov2 import DinoViT, bbox_crop_descriptors
 from cppf2_torch.models.porting import load_branch
 
+# REAL275 evaluation intrinsics (eval.py:82)
+REAL275_INTRINSICS = np.array(
+    [[591.0125, 0, 322.525], [0, 590.16775, 244.11084], [0, 0, 1]], np.float32
+)
+
+
 @dataclass
 class CategoryModels:
     shot: ShotBranch
@@ -50,6 +56,13 @@ def load_category_models(ckpt_root: Optional[str], categories: Sequence[str] = N
                 load_branch(module, load_params_msgpack(path))
         out[name] = CategoryModels(shot.to(dev).eval(), dino.to(dev).eval())
     return out
+
+
+def _cloud_extent(pc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Per-axis extent (3,) of the valid points of a padded cloud."""
+    mx = torch.amax(torch.where(valid[:, None], pc, -torch.inf), dim=0)
+    mn = torch.amin(torch.where(valid[:, None], pc, torch.inf), dim=0)
+    return mx - mn
 
 
 class InstanceDraws(NamedTuple):

@@ -1,8 +1,9 @@
-"""Hough voting: center pyramid, noisy-pair filter, closed-form rotation votes.
+"""Hough voting: center pyramid, noisy-pair filter, rotation votes.
 
 Counterpart of `cppf2_tpu/ops/voting.py` (reference train_dino.py:171-239,
 eval.py:37-51, 252-293). `vote_center` runs its per-level histogram through
-kernel K2 (`ops/hist16.py`), looked up on the module at call time.
+kernel K2 (`ops/hist16.py`) and `sphere_vote` its accumulation through kernel
+K3 (`ops/sphere.py`), each looked up on its module at call time.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ import numpy as np
 import torch
 
 from cppf2_torch.core.geometry import norm
-from cppf2_torch.ops import hist16
+from cppf2_torch.ops import hist16, sphere
 
 _EPS = 1e-7
 _COARSE_SAMPLES = 16   # arc samples per pair at the coarse levels
@@ -167,6 +168,60 @@ def backvote_filter(
     counts = counts / torch.clamp(torch.amax(counts), min=1.0)
     pair_wt = counts[pair_idx[:, 0]] + counts[pair_idx[:, 1]] + imp_wt_margin
     return BackvoteResult(keep, torch.where(keep, pair_wt, torch.zeros_like(pair_wt)), top_idx)
+
+
+def vote_rotation(
+    points: torch.Tensor,
+    angle_preds: torch.Tensor,
+    pair_idx: torch.Tensor,
+    pair_valid: torch.Tensor,
+    num_rots: int = 180,
+):
+    """Candidate axis directions per pair and sweep angle (train_dino.py:
+    218-239): every direction at the predicted angle alpha to the unit pair
+    direction, `num_rots` steps around its cone,
+    up = tan(alpha) * offset + sign(tan(alpha)) * ab_unit, normalized.
+
+    Returns (dirs (P * num_rots, 3), valid (P * num_rots,) bool).
+    """
+    a = points[pair_idx[:, 0]]
+    b = points[pair_idx[:, 1]]
+    abu, ab_len, x0, y0 = _pair_frames(a, b)
+    ok = pair_valid & (ab_len > _EPS)
+
+    steps = torch.arange(num_rots, dtype=points.dtype, device=points.device)
+    angles = steps / num_rots * 2 * torch.pi
+    cosv, sinv = torch.cos(angles), torch.sin(angles)
+    offset = cosv[None, :, None] * x0[:, None, :] + sinv[None, :, None] * y0[:, None, :]
+    tan = torch.tan(angle_preds)
+    sign = torch.where(tan > 0, 1.0, -1.0).to(points.dtype)
+    up = tan[:, None, None] * offset + sign[:, None, None] * abu[:, None, :]
+    up = up / torch.clamp(norm(up, keepdim=True), min=_EPS)
+    w = ok[:, None].expand(ok.shape[0], num_rots)
+    return up.reshape(-1, 3), w.reshape(-1)
+
+
+def sphere_vote(
+    dirs: torch.Tensor,
+    weights: torch.Tensor,
+    sphere_pts: torch.Tensor,
+    angle_tol_deg: float,
+    topk: int = 1,
+):
+    """Spherical accumulator of candidate directions (eval.py:37-51):
+    counts[s] = sum_v weights[v] * [dirs_v . sphere_s > cos(2 * tol)],
+    through kernel K3. The weights are rounded to bf16 first and summed in
+    f32, as the JAX counterpart's bf16 product does on the TPU.
+
+    Returns (the `topk` sphere directions (topk, 3), their counts (topk,)),
+    highest count first, ties to the lower sphere index.
+    """
+    w = weights.to(torch.float32).to(torch.bfloat16).to(torch.float32)
+    counts = sphere.sphere_accumulate(dirs.to(torch.float32)[None], w[None],
+                                      sphere_pts.to(torch.float32), angle_tol_deg)[0]
+    _, order = torch.sort(counts, descending=True, stable=True)
+    idx = order[:topk]
+    return sphere_pts[idx], counts[idx]
 
 
 def sphere_vote_cone(
