@@ -7,11 +7,20 @@ Phases, each printing its own lines; any failure exits non-zero:
   1. the card (nvidia-smi name and power limit) and the kernel build: every
      `cppf2_torch/csrc/*.cu` compiled with nvcc for sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the same inputs on the
-     card, with its time (CUDA events, after warm-up) beside the plain
-     version's, one PyTorch library call's and the bound of the card:
-       K2 hist16_peak at 100k and 400k votes with a forced peak tie: exact;
-       K1 mha at (16, 1025, 64), (16, 1152, 64) with t_real 1025 and
-       (16, 4097, 64), bf16: atol 2e-2 (about 2 bf16 ulps of |o| < 1);
+     card, with its time beside the plain version's, one PyTorch library
+     call's and the bound of the card. Every time is taken two ways: back to
+     back (CUDA events around 20 calls through the wrapper, as the path calls
+     it; for K1 and K2 the wrapper's host time exceeds the kernel's, so this
+     moves with the host's load) and on the device alone (the device time of
+     the call's kernels as torch.profiler records them). A kernel time below
+     the card's bound fails the run:
+       K2 hist16_peak at 100k and 400k votes with a forced peak tie, twice in
+       a row on one stream (the kernel leaves its scratch zeroed): exact;
+       K1 mha at T = 1, 64, 65 (the edges of one tile, untimed), then at
+       (16, 1025, 64), (16, 1152, 64) with t_real 1025 and (16, 4097, 64),
+       bf16 and f32 output: atol 2e-2 (about 2 bf16 ulps of |o| < 1);
+       strided (h, T, 64) views of a (T, 3 * 1024) tensor equal the
+       contiguous call;
   3. the slice at full width: `estimate_instance` for one mug on a 480x640
      synthetic frame (REAL275 K), 8192 points, 50,000 pairs, 1-degree
      sphere, 100 alignment steps, ViT-L/14 at stride 8 with seeded random
@@ -19,7 +28,11 @@ Phases, each printing its own lines; any failure exits non-zero:
      are zeroed just before it and read just after: 24 K1 launches (one ViT
      forward) and 8 K2 launches (4 levels x 2 branches). It runs again with
      every kernel swapped for its plain version and the same draws, and the
-     two poses must agree. Then the e2e time per instance.
+     two poses must agree. Then the e2e time per instance, the stage
+     breakdown and the device-busy share. Then the fused level
+     (hist16_level_peak) against its plain version on the inputs of all 8
+     levels of that instance (both branches): the same peak cell and the
+     same count, exactly; timed at level 0, a coarse arc level and a fine one.
   4. the multi-device path, on a world-1 NCCL process group (FileStore in a
      temporary directory, no network):
        K3 sphere_accumulate against its plain version at (1, 900k, 720) and
@@ -37,7 +50,9 @@ Phases, each printing its own lines; any failure exits non-zero:
        the frame's ground truth, so the second (same seed) must score finite
        APs of 1; the time per instance of the second run.
 
-Before the last line: one JSON object with every kernel's numbers, then the
+Before the last line: one JSON object with every kernel's numbers (K2 is one
+row: the 8 launches of the slice, all through the fused entry, with a fine
+level's times; the candidate-array entry's times stand inside it), then the
 card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -64,6 +79,17 @@ PEAK_BF16_FLOPS = 989e12   # H100 SXM dense bf16 tensor-core rate
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3 bandwidth
 PEAK_F32_INSTR = 67e12 / 2  # H100 SXM f32 instructions/s: 67 TFLOP/s counts an FMA as two
 K3_INSTR = 7               # f32 instructions per (vote, point): 3 FMUL, 2 FADD, FSETP, FADD
+# f32 instructions per vote of a fused K2 level: 15 for the candidate (5 per
+# axis), 3 x (FSUB, an IEEE division of about 8, FADD, floor) for the cell,
+# 6 compares; an arc level adds 2 for theta and two library trig calls of
+# about 40 each on the fast path.
+LEVEL_INSTR_CIRCLE = 15 + 3 * 11 + 6
+LEVEL_INSTR_ARC = LEVEL_INSTR_CIRCLE + 2 + 2 * 40
+# What the kernels that K1 and K2 replaced (mma.sync attention; count kernel,
+# peak kernel and a memset per histogram) read back to back in this script on
+# an H100 80GB HBM3 at 700 W, keyed by T and by the number of votes.
+K1_REPLACED_MS = {1025: 0.0750, 4097: 0.642}
+K2_REPLACED_MS = {100_000: 0.0819, 400_000: 0.0708}
 REAL275_K = np.array([[591.0125, 0.0, 322.525], [0.0, 590.16775, 244.11084], [0.0, 0.0, 1.0]],
                      np.float32)
 
@@ -78,20 +104,60 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters=20, warmup=3) -> float:
-    """Mean device time of one call, by CUDA events around `iters` calls."""
+def time_ms(fn, iters=20, warmup=3, repeats=5) -> float:
+    """Time of one call, back to back: CUDA events around `iters` calls, the
+    median of `repeats` such windows. Where the wrapper's host time exceeds
+    the kernel's, this is the host time, which varies with the host's load."""
     import torch
 
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
+    windows = []
+    for _ in range(repeats):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        windows.append(start.elapsed_time(end) / iters)
+    return statistics.median(windows)
+
+
+def device_ms(fn, iters=20) -> float:
+    """Time of one call on the device alone: the device time of every kernel,
+    copy and memset that `iters` calls ran, as torch.profiler records them,
+    over `iters`. No host time is in it, whatever the wrapper costs."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    if total_us <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    return total_us / 1e3 / iters
+
+
+def timed(fn, iters=20, repeats=5):
+    """(back-to-back ms, device-only ms) of one call of `fn`."""
+    return time_ms(fn, iters=iters, repeats=repeats), device_ms(fn, iters=iters)
+
+
+def above_bound(name, bound_ms, **times):
+    """No kernel runs faster than the card can: a time below the bound means
+    the measurement is wrong, and the run fails."""
+    for what, ms in times.items():
+        if ms < bound_ms:
+            raise AssertionError(f"{name}: {what} {ms:.5f} ms is below the card's bound "
+                                 f"{bound_ms:.5f} ms")
 
 
 def make_frame(rng, h=480, w=640, radius=0.11, center=(0.05, -0.02, 0.82)):
@@ -144,31 +210,46 @@ def check_hist16(dev):
     rows = []
     for v in (100_000, 400_000):
         cand, ok, lo, cell = hist16_votes(v, dev, seed=v)
-        c_k, n_k = hist16.hist16_peak(cand, ok, lo, cell)
         c_p, n_p = hist16.hist16_peak_plain(cand, ok, lo, cell)
         counts = hist16.hist16_counts_plain(cand, ok, lo, cell)
-        torch.cuda.synchronize()
-        err = float(torch.max(torch.abs(c_k - c_p)))
-        if err != 0.0 or float(n_k) != float(n_p):
-            raise AssertionError(f"hist16 V={v}: kernel {c_k.tolist()} {float(n_k)} "
-                                 f"vs plain {c_p.tolist()} {float(n_p)}")
         best = int(torch.argmax(counts))
         want = [best // 256, (best // 16) % 16, best % 16]
-        got = torch.round((c_k - lo) / cell).long().tolist()
-        if got != want or want != [2, 12, 7] or float(n_k) != float(counts.max()):
-            raise AssertionError(f"hist16 V={v}: peak {got}, plain argmax {want}, tie at [2, 12, 7]")
+        # twice in a row on one stream: the second call finds the scratch the
+        # first one left, so any count left behind would show in its result
+        for call in range(2):
+            c_k, n_k = hist16.hist16_peak(cand, ok, lo, cell)
+            torch.cuda.synchronize()
+            err = max(float(torch.max(torch.abs(c_k - c_p))), abs(float(n_k) - float(n_p)))
+            if err != 0.0:
+                raise AssertionError(f"hist16 V={v} call {call}: kernel {c_k.tolist()} "
+                                     f"{float(n_k)} vs plain {c_p.tolist()} {float(n_p)}")
+            got = torch.round((c_k - lo) / cell).long().tolist()
+            if got != want or want != [2, 12, 7] or float(n_k) != float(counts.max()):
+                raise AssertionError(f"hist16 V={v}: peak {got}, plain argmax {want}, "
+                                     f"tie at [2, 12, 7]")
         flat, inside = hist16._quantize(cand, ok, lo, cell)
         w = inside.float()
-        ms = time_ms(lambda: hist16.hist16_peak(cand, ok, lo, cell))
-        plain_ms = time_ms(lambda: hist16.hist16_peak_plain(cand, ok, lo, cell))
-        lib_ms = time_ms(lambda: torch.bincount(flat, weights=w, minlength=4096))
+        ms, dev_ms = timed(lambda: hist16.hist16_peak(cand, ok, lo, cell))
+        plain_ms, plain_dev_ms = timed(lambda: hist16.hist16_peak_plain(cand, ok, lo, cell), iters=10)
+        lib_ms, lib_dev_ms = timed(lambda: torch.bincount(flat, weights=w, minlength=4096))
         bytes_moved = v * (3 * 4 + 1) + 2 * 3 * 4 + 4 * 4
         bound_ms = bytes_moved / PEAK_BYTES * 1e3
-        say(f"[K2 hist16_peak] V={v} peak={got} count={int(n_k)} exact  kernel {ms:.4f} ms  "
-            f"plain {plain_ms:.4f} ms  bincount {lib_ms:.4f} ms  bound {bound_ms:.5f} ms (bytes)")
-        rows.append(dict(v=v, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms))
+        above_bound(f"hist16_peak V={v}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K2 hist16_peak] V={v} peak={got} count={int(n_k)} exact, two calls in a row equal  "
+            f"back to back / on the device alone, ms: kernel {ms:.4f} / {dev_ms:.4f}  "
+            f"plain {plain_ms:.4f} / {plain_dev_ms:.4f}  bincount {lib_ms:.4f} / {lib_dev_ms:.4f}  "
+            f"replaced kernels {K2_REPLACED_MS[v]:.4f} back to back  bound {bound_ms:.5f} ms (bytes)")
+        rows.append(dict(v=v, err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms))
     return rows
+
+
+def mha_inputs(t, dev):
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(t)
+    q, k, v = (torch.randn((16, t, 64), generator=g, device=dev) for _ in range(3))
+    return (q / 8.0).bfloat16(), k.bfloat16(), v.bfloat16()
 
 
 def check_mha(dev):
@@ -177,29 +258,53 @@ def check_mha(dev):
 
     from cppf2_torch.ops import attention
 
-    rows = []
-    for t, t_real in ((1025, 1025), (1152, 1025), (4097, 4097)):
-        g = torch.Generator(device=dev).manual_seed(t)
-        q, k, v = (torch.randn((16, t, 64), generator=g, device=dev) for _ in range(3))
-        q = (q / 8.0).bfloat16()
-        k, v = k.bfloat16(), v.bfloat16()
-        out_k = attention.mha(q, k, v, t_real=t_real)
-        out_p = attention.mha_plain(q, k, v, t_real=t_real)
+    def max_err(q, k, v, t_real, out_dtype):
+        out_k = attention.mha(q, k, v, t_real=t_real, out_dtype=out_dtype)
+        out_p = attention.mha_plain(q, k, v, t_real=t_real, out_dtype=out_dtype)
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(out_k.float() - out_p.float())[:, :t_real]))
         if not math.isfinite(err) or err > 2e-2:
-            raise AssertionError(f"mha T={t} t_real={t_real}: max |kernel - plain| = {err}")
-        ms = time_ms(lambda: attention.mha(q, k, v, t_real=t_real))
-        plain_ms = time_ms(lambda: attention.mha_plain(q, k, v, t_real=t_real), iters=5)
+            raise AssertionError(f"mha T={q.shape[1]} t_real={t_real} {out_dtype}: "
+                                 f"max |kernel - plain| = {err}")
+        return err
+
+    # the edges of one tile, untimed
+    edge = {t: max(max_err(*mha_inputs(t, dev), t, dt) for dt in (torch.bfloat16, torch.float32))
+            for t in (1, 64, 65)}
+    say(f"[K1 mha] h=16 T=1, 64, 65 bf16 and f32 out: max_abs_err "
+        f"{', '.join(f'{e:.3g}' for e in edge.values())}")
+
+    # (h, T, 64) views of a (T, 3 * 1024) projection are read in place
+    g = torch.Generator(device=dev).manual_seed(7)
+    qkv = torch.randn((1025, 3 * 1024), generator=g, device=dev).bfloat16()
+    views = [x.reshape(1025, 16, 64).transpose(0, 1) for x in torch.split(qkv, 1024, dim=-1)]
+    if not all(attention._tma_readable(x) and not x.is_contiguous() for x in views):
+        raise AssertionError("the projection's views are not read in place")
+    if not torch.equal(attention.mha(*views), attention.mha(*(x.contiguous() for x in views))):
+        raise AssertionError("mha on strided views differs from the contiguous call")
+    say("[K1 mha] strided views of a (1025, 3072) projection equal the contiguous call")
+
+    rows = []
+    for t, t_real in ((1025, 1025), (1152, 1025), (4097, 4097)):
+        q, k, v = mha_inputs(t, dev)
+        err = max(edge.values()) if not rows else 0.0
+        err = max(err, max_err(q, k, v, t_real, torch.bfloat16), max_err(q, k, v, t_real, torch.float32))
+        ms, dev_ms = timed(lambda: attention.mha(q, k, v, t_real=t_real))
+        plain_ms, plain_dev_ms = timed(lambda: attention.mha_plain(q, k, v, t_real=t_real),
+                                       iters=5, repeats=1)
         qs, ks, vs = (x[None, :, :t_real].contiguous() for x in (q, k, v))
-        lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0))
+        lib_ms, lib_dev_ms = timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0))
         flops = 4 * 16 * t * t_real * 64
         bytes_moved = 4 * 16 * t * 64 * 2
         bound_ms = max(flops / PEAK_BF16_FLOPS, bytes_moved / PEAK_BYTES) * 1e3
-        say(f"[K1 mha] h=16 T={t} t_real={t_real} max_abs_err={err:.3g}  kernel {ms:.4f} ms "
-            f"({flops / ms / 1e9:.1f} TFLOP/s)  plain {plain_ms:.4f} ms  sdpa {lib_ms:.4f} ms  "
-            f"bound {bound_ms:.5f} ms (operations)")
-        rows.append(dict(t=t, t_real=t_real, err=err, ms=ms, plain_ms=plain_ms,
+        above_bound(f"mha T={t}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K1 mha] h=16 T={t} t_real={t_real} max_abs_err={err:.3g}  back to back / on the "
+            f"device alone, ms: kernel {ms:.4f} / {dev_ms:.4f} ({flops / dev_ms / 1e9:.1f} TFLOP/s "
+            f"on the device)  plain {plain_ms:.4f} / {plain_dev_ms:.4f}  sdpa {lib_ms:.4f} / "
+            f"{lib_dev_ms:.4f}  "
+            + (f"replaced kernel {K1_REPLACED_MS[t]:.4f} back to back  " if t in K1_REPLACED_MS else "")
+            + f"bound {bound_ms:.5f} ms (operations)")
+        rows.append(dict(t=t, t_real=t_real, err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=bound_ms))
     return rows
 
@@ -209,7 +314,8 @@ def check_mha(dev):
 # ---------------------------------------------------------------------------
 
 def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
-    """The slice through `estimate_instance`; returns (launches, e2e ms)."""
+    """The slice through `estimate_instance`; returns (launches, e2e ms, the
+    fused-level rows of `check_levels`)."""
     import torch
 
     from cppf2_torch.eval import driver
@@ -231,15 +337,18 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
         torch.cuda.synchronize()
         return est
 
-    attention.mha.launches = 0
-    hist16.hist16_peak.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     est = once()
     first_ms = (time.perf_counter() - t0) * 1e3
-    launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches}
+    # hist16_peak.launches counts every K2 launch, hist16_level_peak.launches
+    # the ones through the fused entry: on this path all of them
+    launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
+                "hist16_level_peak": hist16.hist16_level_peak.launches}
     say(f"[slice] first call {first_ms:.1f} ms, launches {launches}")
-    if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels * 2}:
-        raise AssertionError(f"launch counts {launches}: expected 24 K1 and 8 K2")
+    if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels * 2,
+                    "hist16_level_peak": pipe.vote_levels * 2}:
+        raise AssertionError(f"launch counts {launches}: expected 24 K1 and 8 K2, all fused levels")
 
     r = est.rotation.double().cpu().numpy()
     vals = [est.rotation, est.translation, est.scale, est.scale_norm, est.loss]
@@ -259,15 +368,16 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
         kernel_times.append((time.perf_counter() - t0) * 1e3)
 
     # the same draws with every kernel swapped for its plain version
-    saved = attention.mha, hist16.hist16_peak
+    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
     attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
+    hist16.hist16_level_peak = hist16.hist16_level_peak_plain
     try:
         plain = once()
         t0 = time.perf_counter()
         once()
         plain_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        attention.mha, hist16.hist16_peak = saved
+        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak = saved
     rp = plain.rotation.double().cpu().numpy()
     ang = math.degrees(math.acos(max(-1.0, min(1.0, (np.trace(r.T @ rp) - 1) / 2))))
     dt = float(torch.max(torch.abs(est.translation - plain.translation)))
@@ -283,9 +393,79 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     e2e_ms = statistics.median(kernel_times)
     say(f"[slice] e2e per instance: kernels {e2e_ms:.1f} ms (median of {kernel_times}), "
         f"plain {plain_ms:.1f} ms")
-    stage_breakdown(once)
+    level_rows = check_levels(once, pipe)
+    stage_breakdown(once, "fused levels")
+
+    def written_out(c, x0, y0, odist, ok, samples, lo, cell, theta_star=None, span=None):
+        # a level as it ran before the fusion: the candidates in device memory, read back by K2
+        cand, ok_v = hist16.level_candidates(c, x0, y0, odist, ok, samples, theta_star, span)
+        return hist16.hist16_peak(cand, ok_v, lo, cell)
+
+    fused, hist16.hist16_level_peak = hist16.hist16_level_peak, written_out
+    try:
+        stage_breakdown(once, "candidates written out, as before the fusion")
+    finally:
+        hist16.hist16_level_peak = fused
     device_busy(once, e2e_ms)
-    return launches, e2e_ms
+    return launches, e2e_ms, level_rows
+
+
+def check_levels(once, pipe):
+    """The fused K2 level against its plain version on the inputs of every
+    level of one instance (both branches): the same peak cell and the same
+    count, exactly. Then its time at level 0, a coarse arc level and a fine
+    level of the first branch. Returns one row per timed level."""
+    import torch
+
+    from cppf2_torch.ops import hist16
+
+    calls, errs = [], []
+    kernel = hist16.hist16_level_peak
+
+    def both(*args):
+        got = kernel(*args)
+        want = hist16.hist16_level_peak_plain(*args)
+        torch.cuda.synchronize()
+        calls.append(args)
+        errs.append(max(float(torch.max(torch.abs(got[0] - want[0]))),
+                        abs(float(got[1]) - float(want[1]))))
+        if errs[-1] != 0.0 or not torch.equal(got[0], want[0]):
+            raise AssertionError(f"fused level {len(calls) - 1}: kernel {got[0].tolist()} "
+                                 f"{float(got[1])} vs plain {want[0].tolist()} {float(want[1])}")
+        return got
+
+    hist16.hist16_level_peak = both
+    try:
+        once()
+    finally:
+        hist16.hist16_level_peak = kernel
+    levels = pipe.vote_levels
+    if len(calls) != 2 * levels:
+        raise AssertionError(f"{len(calls)} fused levels in one instance, expected {2 * levels}")
+    say(f"[K2 hist16_level_peak] {len(calls)} levels of both branches: peak cell and count equal "
+        f"the plain version's exactly")
+    rows = []
+    for level in (0, 1, levels - 1):
+        args = calls[level]
+        c, samples, theta_star = args[0], args[5], args[8] if len(args) > 8 else None
+        sub, n_smp, arc = c.shape[0], samples.shape[-1], theta_star is not None
+        ms, dev_ms = timed(lambda: kernel(*args))
+        plain_ms, plain_dev_ms = timed(lambda: hist16.hist16_level_peak_plain(*args), iters=10)
+        per_pair = (9 + 1 + (2 if arc else 0)) * 4 + 1
+        bytes_moved = sub * per_pair + samples.numel() * 4 + 2 * 3 * 4 + 4 * 4
+        ops = sub * n_smp * (LEVEL_INSTR_ARC if arc else LEVEL_INSTR_CIRCLE)
+        by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32_INSTR * 1e3
+        above_bound(f"hist16_level_peak level {level}", max(by_bytes, by_ops), ms=ms,
+                    device_ms=dev_ms)
+        say(f"[K2 hist16_level_peak] level {level} ({'arc' if arc else 'circle'}) {sub} pairs x "
+            f"{n_smp} samples  back to back / on the device alone, ms: kernel {ms:.4f} / "
+            f"{dev_ms:.4f}  plain {plain_ms:.4f} / {plain_dev_ms:.4f}  bound "
+            f"{max(by_bytes, by_ops):.5f} ms ({'operations' if by_ops > by_bytes else 'bytes'}; "
+            f"bytes {by_bytes:.5f}, operations {by_ops:.5f})")
+        rows.append(dict(level=level, err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=max(by_bytes, by_ops),
+                         bound_by="operations" if by_ops > by_bytes else "bytes"))
+    return rows
 
 
 @contextlib.contextmanager
@@ -316,22 +496,26 @@ def timed_calls(targets):
             setattr(mod, name, fn)
 
 
-def stage_breakdown(once):
+def stage_breakdown(once, label, repeats=3):
     """Host time of each stage of one instance, each stage bracketed by
-    device synchronizations (which add a little time of their own)."""
+    device synchronizations (which add a little time of their own): the
+    median over `repeats` instances, stage by stage."""
     from cppf2_torch.eval import driver
     from cppf2_torch.infer import pipeline
 
     targets = [(driver, "preprocess_frame"), (driver, "bbox_crop_descriptors"),
                (pipeline, "vote_center"), (pipeline, "backvote_filter"),
                (pipeline, "sphere_vote_cone"), (pipeline, "align_pose")]
-    with timed_calls(targets) as spent:
-        t0 = time.perf_counter()
-        once()
-        total = (time.perf_counter() - t0) * 1e3
-    rest = total - sum(spent.values())
-    parts = ", ".join(f"{k} {v:.1f}" for k, v in spent.items())
-    say(f"[slice] stages (ms, both branches summed): {parts}, rest {rest:.1f}, total {total:.1f}")
+    runs = []
+    for _ in range(repeats):
+        with timed_calls(targets) as spent:
+            t0 = time.perf_counter()
+            once()
+            total = (time.perf_counter() - t0) * 1e3
+        runs.append({**spent, "rest": total - sum(spent.values()), "total": total})
+    mid = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    parts = ", ".join(f"{k} {v:.1f}" for k, v in mid.items())
+    say(f"[slice] stages ({label}; ms, both branches summed, median of {repeats}): {parts}")
 
 
 def device_busy(once, e2e_ms):
@@ -430,17 +614,19 @@ def check_sphere(dev, votes, sph, tol):
                     out[i] += rand_w[i, lo:lo + sphere.PLAIN_CHUNK] @ hits
             return out
 
-        ms = time_ms(lambda: sphere.sphere_accumulate(dirs, rand_w, sph, tol))
-        plain_ms = time_ms(lambda: sphere.sphere_accumulate_plain(dirs, rand_w, sph, tol), iters=3)
-        lib_ms = time_ms(library, iters=5)
+        ms, dev_ms = timed(lambda: sphere.sphere_accumulate(dirs, rand_w, sph, tol))
+        plain_ms = time_ms(lambda: sphere.sphere_accumulate_plain(dirs, rand_w, sph, tol), iters=3, repeats=1)
+        lib_ms = time_ms(library, iters=5, repeats=1)
         bound_ms, ops = k3_bound_ms(b, v, sph.shape[0])
+        above_bound(f"sphere_accumulate B={b}", bound_ms, ms=ms, device_ms=dev_ms)
         say(f"[K3 sphere_accumulate] B={b} V={v} S={sph.shape[0]} 0/1 exact (peak "
             f"{int(c_k.max())} at {c_k.argmax(-1).tolist()}), f32 max_abs_err={err:.3g} "
-            f"max_rel={rel:.3g}  kernel {ms:.4f} ms ({ops / ms / 1e9:.2f} T f32 op/s)  "
+            f"max_rel={rel:.3g}  kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms on the device "
+            f"alone ({ops / ms / 1e9:.2f} T f32 op/s)  "
             f"plain {plain_ms:.4f} ms  two-matmul {lib_ms:.4f} ms  bound {bound_ms:.5f} ms "
             f"(operations)")
-        rows.append(dict(b=b, err=err, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                         bound_ms=bound_ms, tflops=ops / ms / 1e9))
+        rows.append(dict(b=b, err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         library_ms=lib_ms, bound_ms=bound_ms, tflops=ops / ms / 1e9))
     return rows
 
 
@@ -497,7 +683,8 @@ def write_real275_frame(root, h=480, w=640):
 def zero_counts():
     from cppf2_torch.ops import attention, hist16, sphere
 
-    attention.mha.launches = hist16.hist16_peak.launches = sphere.sphere_accumulate.launches = 0
+    attention.mha.launches = sphere.sphere_accumulate.launches = 0
+    hist16.hist16_peak.launches = hist16.hist16_level_peak.launches = 0
 
 
 def read_counts():
@@ -620,8 +807,8 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
 
     t0 = time.perf_counter()
-    paths = _build.build(verbose=True)
-    say(f"[build] {sorted(p.name for p in paths.values())} in {time.perf_counter() - t0:.1f} s")
+    paths = _build.build(verbose=True).values()   # one nvcc per source, all started at once
+    say(f"[build] {sorted(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
 
     k2 = check_hist16(dev)
     k1 = check_mha(dev)
@@ -631,7 +818,7 @@ def main() -> int:
     pipe = PipelineConfig()
     if (pipe.n_points, pipe.num_pairs, pipe.angle_tol_deg, pipe.opt_steps) != (8192, 50000, 1.0, 100):
         raise AssertionError(f"not the production configuration: {pipe}")
-    launches, e2e_ms = run_slice(dev, pipe, VIT_L14)
+    launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -640,21 +827,34 @@ def main() -> int:
         shutil.rmtree(tmp, ignore_errors=True)
 
     k1_main = k1[0]      # (16, 1025, 64): the ViT-L stride-8 shape
-    k2_main = k2[1]      # 400k votes: a fine level
+    k2_cand = k2[1]      # the candidate-array entry at 400k votes, which no path launches now
+    k2_level = k2_levels[-1]   # the last (fine) level of the slice's first branch
     k3_main = k3[0]      # (1, 900k, 720): one instance's sampled rotation votes
     kernels = [
         dict(name="mha", route="cuda", source=attention.SOURCE, replaces=attention.REPLACES,
              launches=launches["mha"], max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
-             bound_by="operations", library_ms=k1_main["library_ms"]),
+             bound_by="operations", library_ms=k1_main["library_ms"],
+             device_ms=k1_main["device_ms"]),
+        # One row for K2. The main path launches it 8 times, all through the
+        # fused entry hist16_level_peak, so the row's times and bound are those
+        # of a fine level of the slice; no single PyTorch call makes a level's
+        # candidates and histograms them. The candidate-array entry hist16_peak
+        # is the same kernel behind another reader; its numbers at 400k votes,
+        # with torch.bincount as the library call, stand beside it.
         dict(name="hist16_peak", route="cuda", source=hist16.SOURCE, replaces=hist16.REPLACES,
-             launches=launches["hist16_peak"], max_abs_err=max(r["err"] for r in k2),
-             ms=k2_main["ms"], plain_ms=k2_main["plain_ms"], bound_ms=k2_main["bound_ms"],
-             bound_by="bytes", library_ms=k2_main["library_ms"]),
+             entry="hist16_level_peak", launches=launches["hist16_peak"],
+             max_abs_err=max(r["err"] for r in k2 + k2_levels),
+             ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
+             bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
+             candidate_array_entry=dict(ms=k2_cand["ms"], device_ms=k2_cand["device_ms"],
+                                        plain_ms=k2_cand["plain_ms"], bound_ms=k2_cand["bound_ms"],
+                                        bound_by="bytes", library_ms=k2_cand["library_ms"])),
         dict(name="sphere_accumulate", route="cuda", source=sphere.SOURCE, replaces=sphere.REPLACES,
              launches=k3_launches, max_abs_err=max(r["err"] for r in k3),
              ms=k3_main["ms"], plain_ms=k3_main["plain_ms"], bound_ms=k3_main["bound_ms"],
-             bound_by="operations", library_ms=k3_main["library_ms"]),
+             bound_by="operations", library_ms=k3_main["library_ms"],
+             device_ms=k3_main["device_ms"]),
     ]
     say(f"[slice] e2e_ms_per_instance {e2e_ms:.1f}")
     say(f"[eval] evaluate_real275_parallel ms_per_instance {eval_ms:.1f}, without model loading "

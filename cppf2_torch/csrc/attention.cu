@@ -7,20 +7,38 @@
 // accumulates in f32; the output is divided by the f32 row sum at the end.
 //
 // Design. The TPU kernel keeps a head's whole K/V in VMEM and makes one pass.
-// A Hopper block has at most 227 KB of shared memory and far fewer registers
-// per row, so this kernel streams K/V through shared memory in 64-key tiles
-// with an online softmax (flash style): a running max and a running f32 sum
-// per query row, and the f32 output accumulator rescaled when the max grows.
-// One block of 4 warps owns 64 query rows of one head (16 rows per warp); the
-// products run on the tensor cores as mma.sync.m16n8k16 (bf16 in, f32
-// accumulate), with P kept in registers between the two products. V is
-// stored transposed in shared memory so each B fragment is one 32-bit load.
+// A Hopper block has at most 227 KB of shared memory, so this kernel streams
+// K/V through shared memory in 128-key tiles with an online softmax (flash
+// style): a running max and a running f32 sum per query row, and the f32
+// output accumulator rescaled when the max grows.
+//   * One block is one warpgroup (4 warps) that owns 64 query rows of one head.
+//     Both products are wgmma.mma_async: S = Q K^T as m64n128k16 with Q and
+//     K read from shared memory (K-major, 128-byte swizzle); O += P V as
+//     m64n64k16 with P, rounded to bf16, as the register A operand and V read
+//     from shared memory as it lies in memory (MN-major B): no transposed copy
+//     of V exists anywhere.
+//   * Q, K and V tiles arrive by TMA (cp.async.bulk.tensor on a 3-D tensor map
+//     over (h, T, 64) with the 128-byte swizzle that wgmma reads), completion
+//     on an mbarrier. Two K/V stages: while tile i is multiplied, tile i + 1
+//     is in flight or has landed; tile i + 2 is requested as soon as the
+//     warpgroup has left tile i. TMA fills rows past T with zeros, head by
+//     head, so the loads have no bounds branch; the t_real mask on the logits
+//     stays. The maps take strides, so q, k and v may be views.
+//   * The softmax works in base 2: exp(s - m) = exp2(s * log2e - m * log2e),
+//     one FFMA and one ex2.approx per logit. The row sum takes P before its
+//     bf16 rounding and the division comes after PV, as in the TPU kernel.
+//   * Several blocks are resident per SM (launch bounds), so one block's
+//     softmax overlaps another's products. At T = 1025 the grid is 17 x 16 =
+//     272 blocks, all resident at once on 132 SMs; the 16 blocks that own the
+//     one ragged query row run beside the full ones.
 //
 // Bound on the H100 at the ViT-L stride-8 shape (h 16, T 1025, hd 64): 4*h*T*T*hd
 // = 4.3 GFLOP per call against 8.4 MB of q/k/v/o traffic, so the tensor-core
-// rate bounds it (about 4.4 us at 989 TFLOP/s bf16). This first version has
-// no TMA, no wgmma and no copy/compute overlap; those are later work.
+// rate bounds it (about 4.4 us at 989 TFLOP/s bf16). Short of that bound the
+// kernel is held by the exponentials (16 per clock and SM, as long as the
+// products themselves) and by the barriers between a tile's two products.
 
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -30,17 +48,112 @@ namespace {
 
 constexpr int kHd = 64;
 constexpr int kBq = 64;
-constexpr int kBk = 64;
-constexpr int kLd = kHd + 8;  // padded row: conflict-free 32-bit fragment loads
+constexpr int kBk = 128;  // keys per K/V tile; the S product below is written for 128
+constexpr int kStages = 2;
 constexpr int kThreads = 128;
+constexpr int kMinBlocks = 3;                   // resident blocks per SM
+constexpr int kRowBytes = kHd * 2;              // one row = one 128-byte swizzle span
+constexpr int kQBytes = kBq * kRowBytes;
+constexpr int kTileBytes = kBk * kRowBytes;
+constexpr int kSmemBytes = kQBytes + kStages * 2 * kTileBytes + 1024;  // + alignment slack
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// One (rows x 64) box at (row, head) of a (h, T, 64) tensor map into shared memory.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int row, int head,
+                                         uint32_t bar) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor of a tile of 128-byte rows under the 128-byte
+// swizzle: groups of 8 rows lie 1024 bytes apart (the stride offset); the
+// leading offset is not used for a tile one swizzle span wide.
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) |
+         (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit_and_wait() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving a read or write of `x` across an asynchronous product.
+template <int N>
+__device__ __forceinline__ void pin(float (&x)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(x[i])::"memory");
+}
+
+#define CPPF2_F8(d, i)                                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x 128, f32) = or += A (64 x 16, shared, K-major) * B^T (128 x 16, shared, K-major)
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : CPPF2_F8(d, 0), CPPF2_F8(d, 8), CPPF2_F8(d, 16), CPPF2_F8(d, 24), CPPF2_F8(d, 32),
+        CPPF2_F8(d, 40), CPPF2_F8(d, 48), CPPF2_F8(d, 56)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (64 x 64, f32) += A (64 x 16, registers) * B (16 x 64, shared, MN-major: B as it lies
+// in memory, 16 rows of 64 contiguous values)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : CPPF2_F8(d, 0), CPPF2_F8(d, 8), CPPF2_F8(d, 16), CPPF2_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -48,13 +161,8 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 __device__ __forceinline__ void store2(float* p, float a, float b) {
-  p[0] = a;
-  p[1] = b;
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
 }
 
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
@@ -62,120 +170,137 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
 }
 
 template <typename OutT>
-__global__ void __launch_bounds__(kThreads)
-mha_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-               const __nv_bfloat16* __restrict__ v, OutT* __restrict__ o, int T,
-               int t_real) {
-  __shared__ __align__(16) __nv_bfloat16 ks[kBk][kLd];
-  __shared__ __align__(16) __nv_bfloat16 vt[kHd][kLd];  // V transposed: [dim][key]
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
+mha_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map, OutT* __restrict__ o, int T, int t_real) {
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[kStages + 1];  // K/V stage s at [s], Q at [kStages]
 
-  const size_t head_off = static_cast<size_t>(blockIdx.y) * T * kHd;
-  const __nv_bfloat16* qh = q + head_off;
-  const __nv_bfloat16* kh = k + head_off;
-  const __nv_bfloat16* vh = v + head_off;
-  OutT* oh = o + head_off;
+  // the swizzle is a function of the address: tiles start on 1024-byte boundaries
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t q_s = base;
+  const uint32_t kv_s = base + kQBytes;  // stage s: K at kv_s + s * 2 * kTileBytes, V after it
+  const uint32_t bar0 = smem_u32(bars);
+  const uint32_t bar_q = bar0 + 8 * kStages;
+
+  const int head = blockIdx.y;
+  const int q0 = blockIdx.x * kBq;
+  const int n_tiles = (t_real + kBk - 1) / kBk;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s <= kStages; ++s) mbar_init(bar0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    mbar_expect_tx(bar_q, kQBytes);
+    tma_load(q_s, &q_map, q0, head, bar_q);
+#pragma unroll
+    for (int s = 0; s < kStages; ++s) {
+      if (s < n_tiles) {
+        mbar_expect_tx(bar0 + 8 * s, 2 * kTileBytes);
+        tma_load(kv_s + s * 2 * kTileBytes, &k_map, s * kBk, head, bar0 + 8 * s);
+        tma_load(kv_s + s * 2 * kTileBytes + kTileBytes, &v_map, s * kBk, head, bar0 + 8 * s);
+      }
+    }
+  }
 
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row group
   const int t = lane & 3;   // thread in group
-  const int r0 = blockIdx.x * kBq + warp * 16 + g;
+  const int r0 = q0 + warp * 16 + g;
   const int r1 = r0 + 8;
-
-  // Q as A fragments for the 4 k-steps of hd = 64; rows past T read as 0.
-  uint32_t qa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int c = kk * 16 + t * 2;
-    qa[kk][0] = r0 < T ? ld32(qh + static_cast<size_t>(r0) * kHd + c) : 0u;
-    qa[kk][1] = r1 < T ? ld32(qh + static_cast<size_t>(r1) * kHd + c) : 0u;
-    qa[kk][2] = r0 < T ? ld32(qh + static_cast<size_t>(r0) * kHd + c + 8) : 0u;
-    qa[kk][3] = r1 < T ? ld32(qh + static_cast<size_t>(r1) * kHd + c + 8) : 0u;
-  }
 
   float m0 = -INFINITY, m1 = -INFINITY;  // running row max (rows r0, r1)
   float l0 = 0.f, l1 = 0.f;              // this thread's share of the row sums
-  float acc[8][4];
+  float acc[32];                         // acc[4n + {0,1}]: row r0, cols 8n + 2t + {0,1}; {2,3}: r1
 #pragma unroll
-  for (int n = 0; n < 8; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int i = 0; i < 32; ++i) acc[i] = 0.f;
 
-  const int n_tiles = (t_real + kBk - 1) / kBk;
+  const uint64_t q_desc = smem_desc(q_s);
+  mbar_wait(bar_q, 0);
+
   for (int tile = 0; tile < n_tiles; ++tile) {
+    const int stage = tile % kStages;
+    const uint32_t k_s = kv_s + stage * 2 * kTileBytes;
+    const uint32_t bar = bar0 + 8 * stage;
+    mbar_wait(bar, (tile / kStages) & 1);
+
+    // S = Q K^T: 4 steps of 16 along hd, each 32 bytes further into the 128-byte rows
+    float s[kBk / 2];
+    const uint64_t k_desc = smem_desc(k_s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kHd / 16; ++kk) wgmma_ss(s, q_desc + 2 * kk, k_desc + 2 * kk, kk > 0);
+    wgmma_commit_and_wait();
+    pin(s);
+
+    // key mask (only the last tile can hold keys at or beyond t_real) and the new row max
     const int kb = tile * kBk;
-    __syncthreads();  // the previous tile is consumed
-    for (int i = threadIdx.x; i < kBk * kHd / 8; i += kThreads) {
-      const int row = i >> 3;
-      const int c8 = (i & 7) * 8;
-      const int key = kb + row;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vv = make_uint4(0u, 0u, 0u, 0u);
-      if (key < T) {
-        kv = *reinterpret_cast<const uint4*>(kh + static_cast<size_t>(key) * kHd + c8);
-        vv = *reinterpret_cast<const uint4*>(vh + static_cast<size_t>(key) * kHd + c8);
-      }
-      *reinterpret_cast<uint4*>(&ks[row][c8]) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
+    if (kb + kBk > t_real) {
 #pragma unroll
-      for (int j = 0; j < 8; ++j) vt[c8 + j][row] = ve[j];
-    }
-    __syncthreads();
-
-    // S = Q K^T for this warp's 16 rows x 64 keys: 8 n-tiles of 8 keys.
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const __nv_bfloat16* kr = &ks[n * 8 + g][kk * 16 + t * 2];
-        mma_bf16(s[n], qa[kk], ld32(kr), ld32(kr + 8));
+      for (int n = 0; n < kBk / 8; ++n) {
+        const int col = kb + n * 8 + t * 2;
+        if (col >= t_real) { s[4 * n] = -INFINITY; s[4 * n + 2] = -INFINITY; }
+        if (col + 1 >= t_real) { s[4 * n + 1] = -INFINITY; s[4 * n + 3] = -INFINITY; }
       }
     }
-
-    // key mask and the new row max
     float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const int col = kb + n * 8 + t * 2;
-      if (col >= t_real) { s[n][0] = -INFINITY; s[n][2] = -INFINITY; }
-      if (col + 1 >= t_real) { s[n][1] = -INFINITY; s[n][3] = -INFINITY; }
-      mx0 = fmaxf(mx0, fmaxf(s[n][0], s[n][1]));
-      mx1 = fmaxf(mx1, fmaxf(s[n][2], s[n][3]));
+    for (int n = 0; n < kBk / 8; ++n) {
+      mx0 = fmaxf(mx0, fmaxf(s[4 * n], s[4 * n + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * n + 2], s[4 * n + 3]));
     }
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
     mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
     mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
 
-    // tile 0 always holds key 0 < t_real, so mx is finite from the first tile
-    const float alpha0 = expf(m0 - mx0);
-    const float alpha1 = expf(m1 - mx1);
+    // tile 0 always holds key 0 < t_real, so mx is finite from the first tile on
+    const float alpha0 = exp2_approx((m0 - mx0) * kLog2e);
+    const float alpha1 = exp2_approx((m1 - mx1) * kLog2e);
     m0 = mx0;
     m1 = mx1;
+    const float b0 = mx0 * kLog2e, b1 = mx1 * kLog2e;
     l0 *= alpha0;
     l1 *= alpha1;
+    uint32_t p[kBk / 16][4];  // bf16(P) as the A fragments of the second product
+#pragma unroll
+    for (int n = 0; n < kBk / 8; ++n) {
+      const float e0 = exp2_approx(fmaf(s[4 * n], kLog2e, -b0));
+      const float e1 = exp2_approx(fmaf(s[4 * n + 1], kLog2e, -b0));
+      const float e2 = exp2_approx(fmaf(s[4 * n + 2], kLog2e, -b1));
+      const float e3 = exp2_approx(fmaf(s[4 * n + 3], kLog2e, -b1));
+      l0 += e0 + e1;  // the sum takes P before its bf16 rounding
+      l1 += e2 + e3;
+      p[n / 2][(n & 1) * 2] = pack_bf16(e0, e1);
+      p[n / 2][(n & 1) * 2 + 1] = pack_bf16(e2, e3);
+    }
 #pragma unroll
     for (int n = 0; n < 8; ++n) {
-      acc[n][0] *= alpha0; acc[n][1] *= alpha0;
-      acc[n][2] *= alpha1; acc[n][3] *= alpha1;
-      s[n][0] = expf(s[n][0] - mx0); s[n][1] = expf(s[n][1] - mx0);
-      s[n][2] = expf(s[n][2] - mx1); s[n][3] = expf(s[n][3] - mx1);
-      l0 += s[n][0] + s[n][1];  // the sum takes P before its bf16 rounding
-      l1 += s[n][2] + s[n][3];
+      acc[4 * n] *= alpha0; acc[4 * n + 1] *= alpha0;
+      acc[4 * n + 2] *= alpha1; acc[4 * n + 3] *= alpha1;
     }
 
-    // O += bf16(P) V: 4 k-steps of 16 keys; P's C layout is the A layout.
+    // O += bf16(P) V: steps of 16 keys, each 16 rows (2048 bytes) further into the V tile
+    const uint64_t v_desc = smem_desc(k_s + kTileBytes);
+    pin(acc);
+    wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kk][0], s[2 * kk][1]), pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-          pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-          pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int n = 0; n < 8; ++n) {
-        const __nv_bfloat16* vr = &vt[n * 8 + g][kk * 16 + t * 2];
-        mma_bf16(acc[n], pa, ld32(vr), ld32(vr + 8));
-      }
+    for (int kk = 0; kk < kBk / 16; ++kk) wgmma_rs(acc, p[kk], v_desc + kk * (16 * kRowBytes >> 4));
+    wgmma_commit_and_wait();
+    pin(acc);
+
+    // every warp has left this stage: ask for the tile after next
+    __syncthreads();
+    if (threadIdx.x == 0 && tile + kStages < n_tiles) {
+      const int row = (tile + kStages) * kBk;
+      mbar_expect_tx(bar, 2 * kTileBytes);
+      tma_load(k_s, &k_map, row, head, bar);
+      tma_load(k_s + kTileBytes, &v_map, row, head, bar);
     }
   }
 
@@ -183,31 +308,86 @@ mha_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restr
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  OutT* oh = o + static_cast<size_t>(head) * T * kHd;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + t * 2;
-    if (r0 < T) store2(oh + static_cast<size_t>(r0) * kHd + c, acc[n][0] / l0, acc[n][1] / l0);
-    if (r1 < T) store2(oh + static_cast<size_t>(r1) * kHd + c, acc[n][2] / l1, acc[n][3] / l1);
+    if (r0 < T) store2(oh + static_cast<size_t>(r0) * kHd + c, acc[4 * n] / l0, acc[4 * n + 1] / l0);
+    if (r1 < T) store2(oh + static_cast<size_t>(r1) * kHd + c, acc[4 * n + 2] / l1, acc[4 * n + 3] / l1);
   }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime, so that nothing links against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess) {
+      p = nullptr;
+    }
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A map over x viewed as (h, T, 64) bf16 with the given strides (in elements;
+// the last axis is contiguous), boxes of `rows` x 64, 128-byte swizzle, zeros
+// past the end of every axis.
+CUresult make_map(CUtensorMap* map, const void* x, int h, int T, long long head_stride,
+                  long long row_stride, int rows) {
+  const cuuint64_t dims[3] = {kHd, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(h)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
+                                 static_cast<cuuint64_t>(head_stride) * 2};
+  const cuuint32_t box[3] = {kHd, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+                        strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+template <typename OutT>
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o, int h,
+           int T, int t_real, cudaStream_t st) {
+  // more than 48 KB of dynamic shared memory: allowed once per kernel and device
+  static bool allowed[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64 || !allowed[dev]) {
+    const cudaError_t attr = cudaFuncSetAttribute(
+        mha_fwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    if (dev >= 0 && dev < 64) allowed[dev] = true;
+  }
+  const dim3 grid((T + kBq - 1) / kBq, h);
+  mha_fwd_kernel<OutT><<<grid, kThreads, kSmemBytes, st>>>(qm, km, vm, static_cast<OutT*>(o), T,
+                                                          t_real);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v: (h, T, 64) bf16 contiguous; o: (h, T, 64) bf16 (out_f32 = 0) or
-// f32 (out_f32 = 1). Returns cudaGetLastError() after the launch.
-extern "C" int cppf2_mha_fwd(const void* q, const void* k, const void* v, void* o, int h,
-                             int T, int t_real, int out_f32, void* stream) {
-  const dim3 grid((T + kBq - 1) / kBq, h);
+// q, k, v: (h, T, 64) bf16 with a contiguous last axis, 16-byte aligned, and
+// strides (in elements) that are multiples of 8; o: (h, T, 64) contiguous,
+// bf16 (out_f32 = 0) or f32 (out_f32 = 1). Returns 0, the cudaError of the
+// launch, or 100000 + the CUresult of a tensor map that could not be made
+// (100000 alone: libcuda offers no cuTensorMapEncodeTiled).
+extern "C" int cppf2_mha_fwd(const void* q, const void* k, const void* v, void* o, int h, int T,
+                             int t_real, int out_f32, const long long* strides, void* stream) {
+  if (encode_tiled() == nullptr) return 100000;
+  CUtensorMap qm, km, vm;
+  CUresult res = make_map(&qm, q, h, T, strides[0], strides[1], kBq);
+  if (res == CUDA_SUCCESS) res = make_map(&km, k, h, T, strides[2], strides[3], kBk);
+  if (res == CUDA_SUCCESS) res = make_map(&vm, v, h, T, strides[4], strides[5], kBk);
+  if (res != CUDA_SUCCESS) return 100000 + static_cast<int>(res);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qb = static_cast<const __nv_bfloat16*>(q);
-  const auto* kb = static_cast<const __nv_bfloat16*>(k);
-  const auto* vb = static_cast<const __nv_bfloat16*>(v);
-  if (out_f32) {
-    mha_fwd_kernel<float><<<grid, kThreads, 0, st>>>(qb, kb, vb, static_cast<float*>(o), T,
-                                                     t_real);
-  } else {
-    mha_fwd_kernel<__nv_bfloat16><<<grid, kThreads, 0, st>>>(
-        qb, kb, vb, static_cast<__nv_bfloat16*>(o), T, t_real);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return out_f32 ? launch<float>(qm, km, vm, o, h, T, t_real, st)
+                 : launch<__nv_bfloat16>(qm, km, vm, o, h, T, t_real, st);
 }

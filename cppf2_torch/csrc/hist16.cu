@@ -1,4 +1,4 @@
-// Joint 16^3 vote histogram and its peak, hand-written for sm_90a.
+// Joint 16^3 vote histogram and its peak in one launch, hand-written for sm_90a.
 //
 // Replaces the Pallas TPU kernel cppf2_tpu/ops/pallas_kernels.py::_hist16_kernel
 // (pallas_call at :69) together with the quantization, in-window test and
@@ -8,103 +8,216 @@
 // lo + ids * cell of the fullest cell (ties go to the lowest flat index
 // x*256 + y*16 + z) and its exact count.
 //
-// Design. The TPU kernel builds one-hot factors and contracts them on the
-// MXU, because the TPU has no fast scatter. Hopper has fast shared-memory
-// atomics, so pass 1 keeps one 4096-bin int32 histogram per block in shared
-// memory, quantizes each vote in registers and adds it with a shared atomic,
-// then merges the block's nonzero bins into the global counts with global
-// atomics. Pass 2 is one block that takes the argmax over the 4096 counts as a
-// max over (count << 32 | 4095 - index), which breaks ties toward the lowest
-// index. Counts are integers, so the order of the atomics cannot change them.
-// The division is IEEE (no fast-math flags), as XLA divides.
+// Two entry points share the counting and the peak:
+//   cppf2_hist16_peak        votes read from a (V, 3) candidate array;
+//   cppf2_hist16_level_peak  one level of the center vote: every (pair, sample)
+//       candidate c + (cos t * x0 + sin t * y0) * odist is made in registers
+//       from the per-pair quantities and the level's sample table, quantized
+//       and counted; no candidate is ever written to device memory. Each
+//       product and sum is a separate round-to-nearest operation in the order
+//       of the plain PyTorch version, and cosf/sinf are the library's accurate
+//       ones, so that every vote falls into the same cell as there.
 //
-// Bound on the H100 at the fine-level size (V = 400k): the votes are 13 bytes
-// each (3 f32 + 1 bool), 5.2 MB read in all, about 1.6 us at 3.35 TB/s; the
-// call is bound by its two launches more than by memory. Votes pile onto a few
-// cells near the peak, so the shared atomics on those bins contend.
+// Design. The TPU kernel builds one-hot factors and contracts them on the MXU,
+// because the TPU has no fast scatter. Hopper has fast shared-memory atomics:
+// each block keeps a 4096-bin int32 histogram in shared memory and merges its
+// nonzero bins into the global counts with global atomics. The last block to
+// finish (an atomic ticket taken after a __threadfence) takes the argmax over
+// the 4096 counts as a max over (count << 32 | 4095 - index), which breaks
+// ties toward the lowest index, writes center and count, and clears the
+// counts and the ticket, so that the caller's scratch buffer is zero again
+// for the next call on the stream: one launch, no memset, no second kernel.
+// Counts are integers, so the order of the atomics cannot change them. The
+// division is IEEE (no fast-math flags), as XLA divides.
+//
+// Votes pile onto a few cells near the peak, and neighbouring samples of one
+// pair's arc mostly share a cell, so the adds to one shared word contend. The
+// lanes of a warp that hold the same bin (__match_any_sync) therefore send one
+// atomicAdd of their number. A private 16 KB histogram per warp, merged when
+// the block is done, was measured beside it on the card (H100 80GB HBM3 at
+// 700 W) and differed by at most 3 microseconds of a call's 9 to 15: the adds
+// are not what a call waits for. The fixed parts are the launch, the merge of
+// up to 4096 bins per block, and the last block's pass over the counts. The
+// aggregated adds stayed because they leave room for more blocks per SM.
+//
+// Bound on the H100 at the fine-level size (V = 400k): the candidate array is
+// 13 bytes a vote (3 f32 + 1 bool), 5.2 MB, about 1.6 us at 3.35 TB/s; the
+// fused level reads 49 bytes a pair (2.5 MB at 50,000 pairs) and is bound by
+// its arithmetic instead (two library trig calls a vote). Either way a call
+// is a few microseconds of work, and what it costs beyond that is the launch.
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
 constexpr int kBins = 4096;
-constexpr int kCountThreads = 256;
-constexpr int kPeakThreads = 1024;
+// 512 threads and up to two blocks per SM measured fastest (256 to 1024
+// threads, 66 to 264 blocks tried)
+constexpr int kThreads = 512;
+constexpr int kWarps = kThreads / 32;
+constexpr int kMaxBlocks = 264;
 
-__global__ void __launch_bounds__(kCountThreads)
-hist16_count_kernel(const float* __restrict__ cand, const uint8_t* __restrict__ ok, int n,
-                    const float* __restrict__ lo, const float* __restrict__ cell,
-                    int* __restrict__ counts) {
-  __shared__ int sh[kBins];
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) sh[i] = 0;
-  __syncthreads();
-  const float lx = lo[0], ly = lo[1], lz = lo[2];
-  const float cx = cell[0], cy = cell[1], cz = cell[2];
-  const int stride = gridDim.x * blockDim.x;
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
-    if (!ok[i]) continue;
-    const float fx = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(cand[3 * i + 0], lx), cx), 0.5f));
-    const float fy = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(cand[3 * i + 1], ly), cy), 0.5f));
-    const float fz = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(cand[3 * i + 2], lz), cz), 0.5f));
-    if (fx >= 0.f && fx < 16.f && fy >= 0.f && fy < 16.f && fz >= 0.f && fz < 16.f) {
-      const int bin = (static_cast<int>(fx) * 16 + static_cast<int>(fy)) * 16 + static_cast<int>(fz);
-      atomicAdd(&sh[bin], 1);
-    }
+struct Window {
+  float lx, ly, lz, cx, cy, cz;
+};
+
+// The flat cell of a point, or -1 outside the window.
+__device__ __forceinline__ int cell_of(float x, float y, float z, const Window& w) {
+  const float fx = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(x, w.lx), w.cx), 0.5f));
+  const float fy = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(y, w.ly), w.cy), 0.5f));
+  const float fz = floorf(__fadd_rn(__fdiv_rn(__fsub_rn(z, w.lz), w.cz), 0.5f));
+  if (fx >= 0.f && fx < 16.f && fy >= 0.f && fy < 16.f && fz >= 0.f && fz < 16.f) {
+    return (static_cast<int>(fx) * 16 + static_cast<int>(fy)) * 16 + static_cast<int>(fz);
   }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kBins; i += blockDim.x) {
-    if (sh[i]) atomicAdd(&counts[i], sh[i]);
-  }
+  return -1;
 }
 
-__global__ void __launch_bounds__(kPeakThreads)
-hist16_peak_kernel(const int* __restrict__ counts, const float* __restrict__ lo,
-                   const float* __restrict__ cell, float* __restrict__ center,
-                   float* __restrict__ peak) {
-  __shared__ unsigned long long warp_best[kPeakThreads / 32];
+// Votes read from memory.
+struct CandVotes {
+  const float* cand;
+  const uint8_t* ok;
+  __device__ __forceinline__ int operator()(int i, const Window& w) const {
+    if (!ok[i]) return -1;
+    return cell_of(cand[3 * i], cand[3 * i + 1], cand[3 * i + 2], w);
+  }
+};
+
+// Votes made on the fly: vote i is sample i % n_smp of pair i / n_smp. With
+// theta_star == nullptr the table holds cos (first n_smp) and sin (next n_smp)
+// of angles shared by all pairs; otherwise it holds the arc positions ts, and
+// the angle is theta_star + ts * span of the pair.
+struct LevelVotes {
+  const float* c;
+  const float* x0;
+  const float* y0;
+  const float* odist;
+  const uint8_t* ok;
+  const float* table;
+  const float* theta_star;
+  const float* span;
+  int n_smp;
+  __device__ __forceinline__ int operator()(int i, const Window& w) const {
+    const int pair = i / n_smp;
+    const int smp = i - pair * n_smp;
+    if (!ok[pair]) return -1;
+    float cs, sn;
+    if (theta_star == nullptr) {
+      cs = table[smp];
+      sn = table[n_smp + smp];
+    } else {
+      const float theta = __fadd_rn(theta_star[pair], __fmul_rn(table[smp], span[pair]));
+      cs = cosf(theta);
+      sn = sinf(theta);
+    }
+    const float od = odist[pair];
+    float p[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float dir = __fadd_rn(__fmul_rn(cs, x0[3 * pair + a]), __fmul_rn(sn, y0[3 * pair + a]));
+      p[a] = __fadd_rn(c[3 * pair + a], __fmul_rn(dir, od));
+    }
+    return cell_of(p[0], p[1], p[2], w);
+  }
+};
+
+// scratch: 4096 counts and a ticket, all zero on entry and on exit.
+// out: center x, y, z and the peak count.
+template <typename Votes>
+__global__ void __launch_bounds__(kThreads)
+hist16_kernel(Votes votes, int n, const float* __restrict__ lo, const float* __restrict__ cell,
+              int* __restrict__ scratch, float* __restrict__ out) {
+  __shared__ int sh[kBins];
+  __shared__ unsigned long long warp_best[kWarps];
+  __shared__ int is_last;
+  for (int i = threadIdx.x; i < kBins; i += kThreads) sh[i] = 0;
+  __syncthreads();
+
+  const Window w = {lo[0], lo[1], lo[2], cell[0], cell[1], cell[2]};
+  const int lane = threadIdx.x & 31;
+  // the bound is the same for a whole block: every lane reaches the match
+  for (int i0 = blockIdx.x * kThreads; i0 < n; i0 += gridDim.x * kThreads) {
+    const int i = i0 + threadIdx.x;
+    const int bin = i < n ? votes(i, w) : -1;
+    const unsigned peers = __match_any_sync(0xffffffffu, bin);
+    if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&sh[bin], __popc(peers));
+  }
+  __syncthreads();
+  int* counts = scratch;
+  int* ticket = scratch + kBins;
+  for (int b = threadIdx.x; b < kBins; b += kThreads) {
+    const int v = sh[b];
+    if (v) atomicAdd(&counts[b], v);
+  }
+  __threadfence();  // this block's counts are visible before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) is_last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  __syncthreads();
+  if (!is_last) return;
+  __threadfence();
+
+  // the last block: argmax, then leave the scratch zeroed
   unsigned long long best = 0ull;
-  for (int b = threadIdx.x; b < kBins; b += blockDim.x) {
+  for (int b = threadIdx.x; b < kBins; b += kThreads) {
+    const unsigned int v = static_cast<unsigned int>(__ldcg(&counts[b]));
+    counts[b] = 0;
     const unsigned long long key =
-        (static_cast<unsigned long long>(static_cast<unsigned int>(counts[b])) << 32) |
-        static_cast<unsigned int>(kBins - 1 - b);
+        (static_cast<unsigned long long>(v) << 32) | static_cast<unsigned int>(kBins - 1 - b);
     best = key > best ? key : best;
   }
   for (int off = 16; off > 0; off >>= 1) {
     const unsigned long long other = __shfl_xor_sync(0xffffffffu, best, off);
     best = other > best ? other : best;
   }
-  if ((threadIdx.x & 31) == 0) warp_best[threadIdx.x >> 5] = best;
+  if (lane == 0) warp_best[threadIdx.x >> 5] = best;
   __syncthreads();
   if (threadIdx.x == 0) {
-    for (int w = 1; w < kPeakThreads / 32; ++w) best = warp_best[w] > best ? warp_best[w] : best;
+    for (int k = 1; k < kWarps; ++k) best = warp_best[k] > best ? warp_best[k] : best;
     const int idx = kBins - 1 - static_cast<int>(best & 0xffffffffull);
     const int ids[3] = {idx >> 8, (idx >> 4) & 15, idx & 15};
     for (int a = 0; a < 3; ++a) {
-      center[a] = __fadd_rn(lo[a], __fmul_rn(static_cast<float>(ids[a]), cell[a]));
+      out[a] = __fadd_rn(lo[a], __fmul_rn(static_cast<float>(ids[a]), cell[a]));
     }
-    peak[0] = static_cast<float>(best >> 32);
+    out[3] = static_cast<float>(best >> 32);
+    *ticket = 0;
   }
+}
+
+template <typename Votes>
+int launch(const Votes& votes, int n, const void* lo, const void* cell, void* scratch, void* out,
+           void* stream) {
+  int blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
+  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
+  hist16_kernel<Votes><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      votes, n, static_cast<const float*>(lo), static_cast<const float*>(cell),
+      static_cast<int*>(scratch), static_cast<float*>(out));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// cand (n, 3) f32, ok (n,) uint8, lo/cell (3,) f32, counts (4096,) int32 zeroed
-// by the caller; writes center (3,) f32 and peak () f32. Returns
-// cudaGetLastError() after both launches.
+// cand (n, 3) f32, ok (n,) uint8, lo/cell (3,) f32; scratch (4097,) int32, zero
+// on entry and left zero; writes out (4,) f32: the center and the peak count.
+// Returns cudaGetLastError() after the launch.
 extern "C" int cppf2_hist16_peak(const void* cand, const void* ok, int n, const void* lo,
-                                 const void* cell, void* counts, void* center, void* peak,
-                                 void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int blocks = (n + 4 * kCountThreads - 1) / (4 * kCountThreads);
-  blocks = blocks < 1 ? 1 : (blocks > 264 ? 264 : blocks);
-  hist16_count_kernel<<<blocks, kCountThreads, 0, st>>>(
-      static_cast<const float*>(cand), static_cast<const uint8_t*>(ok), n,
-      static_cast<const float*>(lo), static_cast<const float*>(cell), static_cast<int*>(counts));
-  int err = static_cast<int>(cudaGetLastError());
-  if (err) return err;
-  hist16_peak_kernel<<<1, kPeakThreads, 0, st>>>(
-      static_cast<const int*>(counts), static_cast<const float*>(lo),
-      static_cast<const float*>(cell), static_cast<float*>(center), static_cast<float*>(peak));
-  return static_cast<int>(cudaGetLastError());
+                                 const void* cell, void* scratch, void* out, void* stream) {
+  const CandVotes votes = {static_cast<const float*>(cand), static_cast<const uint8_t*>(ok)};
+  return launch(votes, n, lo, cell, scratch, out, stream);
+}
+
+// c, x0, y0 (n_pairs, 3) f32, odist (n_pairs,) f32, ok (n_pairs,) uint8; table
+// (2 * n_smp,) f32 cos then sin when theta_star is null, else (n_smp,) arc
+// positions with theta_star and span (n_pairs,) f32. The rest as above.
+extern "C" int cppf2_hist16_level_peak(const void* c, const void* x0, const void* y0,
+                                       const void* odist, const void* ok, const void* table,
+                                       const void* theta_star, const void* span, int n_pairs,
+                                       int n_smp, const void* lo, const void* cell, void* scratch,
+                                       void* out, void* stream) {
+  const LevelVotes votes = {static_cast<const float*>(c),     static_cast<const float*>(x0),
+                            static_cast<const float*>(y0),    static_cast<const float*>(odist),
+                            static_cast<const uint8_t*>(ok),  static_cast<const float*>(table),
+                            static_cast<const float*>(theta_star),
+                            static_cast<const float*>(span),  n_smp};
+  return launch(votes, n_pairs * n_smp, lo, cell, scratch, out, stream);
 }

@@ -84,8 +84,8 @@ class Attention(nn.Module):
         kh = k.reshape(t, h, hd).transpose(0, 1)
         vh = v.reshape(t, h, hd).transpose(0, 1)
         bf = torch.bfloat16
-        o = attention.mha(qh.to(bf).contiguous(), kh.to(bf).contiguous(), vh.to(bf).contiguous(),
-                          t_real=t, out_dtype=dt)
+        # (h, T, hd) views of the projection's output: K1 reads them in place
+        o = attention.mha(qh.to(bf), kh.to(bf), vh.to(bf), t_real=t, out_dtype=dt)
         return self.proj(o.transpose(0, 1).reshape(t, d).to(dt))
 
 

@@ -18,7 +18,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -28,6 +28,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def _nvcc() -> str:
@@ -80,6 +81,42 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
+def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C function `symbol` of kernel `name`, returning an int (a CUDA
+    error code), with its argument types set once."""
+    key = (name, symbol)
+    fn = _functions.get(key)
+    if fn is None:
+        fn = getattr(load(name), symbol)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        _functions[key] = fn
+    return fn
+
+
+def launch(fn, dev, *args) -> int:
+    """Call the C function `fn(*args, stream)` with `dev` as the current
+    device and its current stream; returns the function's error code. The
+    device is switched only when it is not the current one already: the
+    switch costs more host time than a small kernel runs."""
+    import torch
+
+    idx = torch.cuda.current_device() if dev.index is None else dev.index
+    if idx == torch.cuda.current_device():
+        return fn(*args, raw_stream(idx))
+    with torch.cuda.device(idx):
+        return fn(*args, raw_stream(idx))
+
+
+def raw_stream(idx: int) -> int:
+    """The cudaStream_t of device `idx`'s current stream, as an int."""
+    import torch
+
+    return torch._C._cuda_getCurrentRawStream(idx)
+
+
 def check(err: int, what: str) -> None:
+    if err >= 100000:
+        raise RuntimeError(f"{what}: cuTensorMapEncodeTiled failed with CUresult {err - 100000}")
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

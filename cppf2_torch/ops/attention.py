@@ -6,12 +6,22 @@ pre-scaled by 1/sqrt(hd); keys at or beyond `t_real` are masked out;
 exp(logits - max) is rounded to bf16 before the PV product; the output is
 divided by the f32 row sum after PV.
 
-On the H100 (source `csrc/attention.cu`): 64-query blocks stream K/V through
-shared memory in 64-key tiles with an online softmax, products on the tensor
-cores via mma.sync. At ViT-L stride 8 (h 16, T 1025, hd 64) one call is
-4.3 GFLOP for 8.4 MB of traffic: bound by the tensor-core rate (about 4.4 us
-at 989 TFLOP/s bf16). The TPU kernel's whole-K/V-in-VMEM single pass does
-not fit a Hopper block and is not copied.
+On the H100 (source `csrc/attention.cu`): one warpgroup per 64 query rows of a
+head streams K/V tiles through two shared-memory stages by TMA (a tensor map
+per operand, 128-byte swizzle, completion on an mbarrier), so the next tile
+is in flight while this one is multiplied; both products are `wgmma` (Q and
+K from shared memory, bf16 P from registers, V from shared memory as it lies
+in memory: no transposed copy), the online softmax works in base 2, and
+several blocks per SM overlap one block's softmax with another's products.
+At ViT-L stride 8 (h 16, T 1025, hd 64) one call is 4.3 GFLOP for 8.4 MB of
+traffic: bound by the tensor-core rate (about 4.4 us at 989 TFLOP/s bf16);
+short of it the exponentials and the barriers between a tile's two products
+hold the kernel. The TPU kernel's whole-K/V-in-VMEM single pass does not fit
+a Hopper block and is not copied.
+
+The tensor maps take strides, so q, k and v may be (h, T, 64) views with a
+contiguous last axis (for one, the heads of a (T, 3 * h * 64) projection):
+such a view is read in place; any other layout is copied first.
 
 `mha` launches the kernel for CUDA tensors and uses the plain version only
 for CPU tensors; there is no fallback between the two.
@@ -76,19 +86,25 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_real: Optional[int]
         raise ValueError(f"the CUDA kernel takes head dim {_HD}, got {hd}")
     from cppf2_torch.ops import _build
 
-    lib = _build.load("attention")
-    fn = lib.cppf2_mha_fwd
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    fn = _build.function("attention", "cppf2_mha_fwd",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+    q, k, v = (x if _tma_readable(x) else x.contiguous() for x in (q, k, v))
+    strides = (ctypes.c_longlong * 6)(*(x.stride(i) for x in (q, k, v) for i in (0, 1)))
     out = torch.empty((h, t, hd), dtype=out_dtype, device=q.device)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    with torch.cuda.device(q.device):
-        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), h, t, t_real,
-                 int(out_dtype == torch.float32), stream)
+    err = _build.launch(fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                        h, t, t_real, int(out_dtype == torch.float32), strides)
     _build.check(err, "mha")
-    mha.launches += 1
+    _MHA.launches += 1
     return out
 
 
+def _tma_readable(x: torch.Tensor) -> bool:
+    """A tensor map needs a contiguous last axis, a 16-byte aligned base and
+    positive strides that are multiples of 16 bytes (8 bf16 values); an
+    expanded view (stride 0) is not one and is copied."""
+    return (x.stride(2) == 1 and all(x.stride(i) > 0 and x.stride(i) % 8 == 0 for i in (0, 1))
+            and x.data_ptr() % 16 == 0)
+
+
 mha.launches = 0
+_MHA = mha   # the counter stays on this function when a caller swaps the module's name

@@ -1,9 +1,10 @@
 """Hough voting: center pyramid, noisy-pair filter, rotation votes.
 
 Counterpart of `cppf2_tpu/ops/voting.py` (reference train_dino.py:171-239,
-eval.py:37-51, 252-293). `vote_center` runs its per-level histogram through
-kernel K2 (`ops/hist16.py`) and `sphere_vote` its accumulation through kernel
-K3 (`ops/sphere.py`), each looked up on its module at call time.
+eval.py:37-51, 252-293). `vote_center` runs each level through kernel K2's
+fused entry (`ops/hist16.py::hist16_level_peak`, which makes the level's
+candidates itself) and `sphere_vote` its accumulation through kernel K3
+(`ops/sphere.py`), each looked up on its module at call time.
 """
 
 from __future__ import annotations
@@ -65,7 +66,8 @@ def vote_center(
 
     Each pair votes along the circle of centers its (proj_len, odist)
     prediction allows; each level histograms arc samples near the current
-    window into a 16^3 grid (kernel K2) and shrinks the window 4x around the
+    window into a 16^3 grid (kernel K2, which samples the arcs itself from
+    the per-pair quantities computed here) and shrinks the window 4x around the
     peak, with the cell floored at `res`. `levels` and `fine_samples` have no
     defaults: the caller passes `PipelineConfig.vote_levels` and
     `vote_fine_samples`.
@@ -102,25 +104,18 @@ def vote_center(
         if level == 0:
             # the whole-cloud window: a shared full-circle angle table
             ang = torch.arange(n_smp, dtype=dt, device=dev) / n_smp * 2 * torch.pi
-            cosv, sinv = torch.cos(ang), torch.sin(ang)
-            offs = (cosv[None, :, None] * x0_l[:, None, :]
-                    + sinv[None, :, None] * y0_l[:, None, :]) * od_l[:, None, None]
+            center, count = hist16.hist16_level_peak(
+                c_l, x0_l, y0_l, od_l, ok_l, torch.stack([torch.cos(ang), torch.sin(ang)]), lo, cell)
         else:
             # arc samples around the point of each circle nearest the window center
-            ts_l = _linspace(n_smp, dev)
             window_half = torch.amax(cell) * (g / 2)
             rel = center[None, :] - c_l
             u = torch.sum(rel * x0_l, dim=-1)
             v = torch.sum(rel * y0_l, dim=-1)
             theta_star = torch.atan2(v, u)
             span = torch.clamp(spanf * window_half / torch.clamp(od_l, min=_EPS), 0.0, math.pi)
-            theta = theta_star[:, None] + ts_l[None, :] * span[:, None]
-            offs = (torch.cos(theta)[..., None] * x0_l[:, None, :]
-                    + torch.sin(theta)[..., None] * y0_l[:, None, :]) * od_l[:, None, None]
-        cand = (c_l[:, None, :] + offs).reshape(-1, 3)
-        ok_v = ok_l[:, None].expand(sub, n_smp).reshape(-1)
-
-        center, count = hist16.hist16_peak(cand, ok_v, lo, cell)
+            center, count = hist16.hist16_level_peak(
+                c_l, x0_l, y0_l, od_l, ok_l, _linspace(n_smp, dev), lo, cell, theta_star, span)
         cell = torch.clamp(cell / 4.0, min=res)
         lo = center - cell * (g / 2)
     return CenterVote(center, count)

@@ -1,9 +1,10 @@
 """Plain versions of the port's two kernels against the JAX package.
 
-K2 (`cppf2_torch.ops.hist16`) against the Pallas histogram in interpret mode
-and against the XLA twin `_hist16_matmul`; K1 (`cppf2_torch.ops.attention`)
-against the Pallas attention in interpret mode. On the CPU the port's
-wrappers take their plain versions, which is what runs here.
+K2 (`cppf2_torch.ops.hist16`, both entries) against the Pallas histogram in
+interpret mode and against the XLA twin `_hist16_matmul`; K1
+(`cppf2_torch.ops.attention`) against the Pallas attention in interpret mode.
+On the CPU the port's wrappers take their plain versions, which is what runs
+here.
 """
 
 import jax.numpy as jnp
@@ -81,6 +82,127 @@ def test_hist16_wrapper_checks_inputs():
         hist16.hist16_peak(cand, torch.ones(5, dtype=torch.bool), torch.zeros(3), torch.ones(3))
 
 
+def _level_inputs(rng, sub, arc):
+    """Per-pair quantities of one vote level, as `vote_center` makes them:
+    circle centers c around a 16-cell window, an orthonormal (x0, y0) per
+    pair, radii odist, a mask, and for an arc level theta_star and span."""
+    lo = np.array([-0.1, 0.05, 0.6], np.float32)
+    cell = np.array([0.011, 0.007, 0.013], np.float32)
+    c = (lo + cell * rng.uniform(2.0, 14.0, size=(sub, 3))).astype(np.float32)
+    x0 = rng.normal(size=(sub, 3))
+    x0 /= np.linalg.norm(x0, axis=-1, keepdims=True)
+    y0 = rng.normal(size=(sub, 3))
+    y0 -= np.sum(y0 * x0, -1, keepdims=True) * x0
+    y0 /= np.linalg.norm(y0, axis=-1, keepdims=True)
+    odist = rng.uniform(0.005, 0.08, sub).astype(np.float32)
+    ok = rng.uniform(size=sub) < 0.9
+    out = dict(c=c, x0=x0.astype(np.float32), y0=y0.astype(np.float32), odist=odist, ok=ok,
+               lo=lo, cell=cell)
+    if arc:
+        out["theta_star"] = rng.uniform(-np.pi, np.pi, sub).astype(np.float32)
+        out["span"] = np.clip(1.2 * 0.09 / odist, 0.0, np.pi).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("level,sub,n_smp", [("circle", 300, 16), ("coarse_arc", 300, 16),
+                                             ("fine_arc", 700, 8)])
+def test_hist16_level_peak_matches_candidates_written_out(level, sub, n_smp):
+    """The fused level's plain version equals hist16_peak_plain on candidates
+    built the way vote_center built them before the fusion, exactly; the same
+    candidates through hist16_pallas(interpret) and _hist16_matmul give the
+    same peak and count (counts stay below 256 a cell, where the XLA twin's
+    bf16 one-hot product is exact on the CPU)."""
+    x = _level_inputs(np.random.default_rng(11), sub, level != "circle")
+    c, x0, y0, od, ok, lo, cell = (x[k] for k in ("c", "x0", "y0", "odist", "ok", "lo", "cell"))
+    if level == "circle":
+        ang = torch.arange(n_smp, dtype=torch.float32) / n_smp * 2 * torch.pi
+        cosv, sinv = torch.cos(ang), torch.sin(ang)
+        samples, extra = torch.stack([cosv, sinv]), ()
+        offs = (cosv[None, :, None] * x0[:, None, :]
+                + sinv[None, :, None] * y0[:, None, :]) * od[:, None, None]
+    else:
+        from cppf2_torch.ops.voting import _linspace
+        samples, extra = _linspace(n_smp, "cpu"), (x["theta_star"], x["span"])
+        theta = x["theta_star"][:, None] + samples[None, :] * x["span"][:, None]
+        offs = (torch.cos(theta)[..., None] * x0[:, None, :]
+                + torch.sin(theta)[..., None] * y0[:, None, :]) * od[:, None, None]
+    cand = (c[:, None, :] + offs).reshape(-1, 3)
+    ok_v = ok[:, None].expand(sub, n_smp).reshape(-1)
+
+    want_c, want_n = hist16.hist16_peak_plain(cand, ok_v, lo, cell)
+    for fn in (hist16.hist16_level_peak, hist16.hist16_level_peak_plain):
+        got_c, got_n = fn(c, x0, y0, od, ok, samples, lo, cell, *extra)
+        torch.testing.assert_close(got_c, want_c, atol=0, rtol=0)
+        assert float(got_n) == float(want_n)
+    assert 0 < float(want_n) < 256
+
+    ids, inside = _pallas_ids(cand.numpy(), ok_v.numpy(), lo.numpy(), cell.numpy())
+    counts = np.asarray(hist16_pallas(ids, inside, interpret=True)).reshape(-1)
+    best = int(np.argmax(counts))   # the first maximum
+    peak = lo.numpy() + np.array([best // 256, (best // 16) % 16, best % 16], np.float32) * cell.numpy()
+    np.testing.assert_array_equal(want_c.numpy(), peak)
+    assert float(want_n) == float(counts[best])
+    jax_c, jax_n = _hist16_matmul(jnp.asarray(cand.numpy()), jnp.asarray(ok_v.numpy()),
+                                  jnp.asarray(lo.numpy()), jnp.asarray(cell.numpy()))
+    np.testing.assert_array_equal(want_c.numpy(), np.asarray(jax_c))
+    assert float(want_n) == float(jax_n)
+
+
+def test_hist16_level_wrapper_checks_inputs():
+    x = _level_inputs(np.random.default_rng(12), 8, True)
+    ts = torch.linspace(-1, 1, 4)
+    args = lambda **kw: [({**x, "samples": ts} | kw)[k] for k in
+                         ("c", "x0", "y0", "odist", "ok", "samples", "lo", "cell", "theta_star", "span")]
+    hist16.hist16_level_peak(*args())                                   # well-formed
+    hist16.hist16_level_peak(*args(samples=torch.ones(2, 4), theta_star=None, span=None))
+    for bad in (dict(c=x["c"].double()),                                # a wrong type
+                dict(ok=x["ok"].float()),
+                dict(x0=x["x0"][:5]),                                   # a wrong shape
+                dict(span=x["span"][:5]),
+                dict(samples=torch.ones(2, 4)),                         # a cos/sin table with arcs
+                dict(samples=ts, theta_star=None, span=None),           # arc positions without arcs
+                dict(span=None),                                        # half of the arc pair
+                dict(lo=torch.zeros(3, device="meta"))):                # several devices
+        with pytest.raises(ValueError):
+            hist16.hist16_level_peak(*args(**bad))
+
+
+@pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("t", [1, 64, 65])
+def test_mha_plain_matches_pallas_at_tile_edges(t, out_dtype):
+    """h 2, hd 64, T = t_real at the edges of one 64-row tile, with the
+    tolerances of test_mha_plain_matches_pallas."""
+    rng = np.random.default_rng(5)
+    q, k, v = (rng.normal(size=(2, t, 64)).astype(np.float32) for _ in range(3))
+    q = q / 8.0
+    jdt = jnp.bfloat16 if out_dtype == "bfloat16" else jnp.float32
+    want = mha_pallas(jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
+                      jnp.asarray(v, jnp.bfloat16), block_q=64, interpret=True, t_real=t,
+                      out_dtype=jdt)
+    tdt = getattr(torch, out_dtype)
+    got = attention.mha(torch.from_numpy(q).bfloat16(), torch.from_numpy(k).bfloat16(),
+                        torch.from_numpy(v).bfloat16(), t_real=t, out_dtype=tdt)
+    assert got.dtype == tdt and got.shape == (2, t, 64)
+    atol = 1.6e-2 if out_dtype == "bfloat16" else 2e-3
+    np.testing.assert_allclose(got.float().numpy(), np.asarray(want.astype(jnp.float32)), atol=atol)
+
+
+def test_mha_takes_strided_views():
+    """(h, T, 64) views of a (T, 3 * h * 64) projection give exactly what
+    their contiguous copies give, and are what the CUDA path reads in place."""
+    rng = np.random.default_rng(6)
+    t, h = 70, 4
+    qkv = torch.from_numpy(rng.normal(size=(t, 3 * h * 64)).astype(np.float32)).bfloat16()
+    views = [x.reshape(t, h, 64).transpose(0, 1) for x in torch.split(qkv, h * 64, dim=-1)]
+    assert all(attention._tma_readable(x) and not x.is_contiguous() for x in views)
+    assert not attention._tma_readable(qkv.reshape(t, 3 * h, 64).transpose(0, 1)[:, :, 1:9])
+    # an expanded view (stride 0) is no tensor map either: it is copied
+    assert not attention._tma_readable(views[0][:1].expand(h, t, 64))
+    got = attention.mha(*views, t_real=66, out_dtype=torch.float32)
+    want = attention.mha(*(x.contiguous() for x in views), t_real=66, out_dtype=torch.float32)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+
+
 @pytest.mark.parametrize("out_dtype", ["bfloat16", "float32"])
 def test_mha_plain_matches_pallas(out_dtype):
     """h 2, T 130, t_real 100, hd 64. Both take f32 logits of bf16 inputs and
@@ -133,6 +255,15 @@ def test_kernels_match_plain_on_card():
     c_p, n_p = hist16.hist16_peak_plain(cand, ok, lo, cell)
     torch.testing.assert_close(c_k, c_p, atol=0, rtol=0)
     assert float(n_k) == float(n_p)
+    for arc in (False, True):
+        x = {k: v.to(dev) for k, v in _level_inputs(np.random.default_rng(13), 5000, arc).items()}
+        samples = (torch.linspace(-1, 1, 8) if arc else torch.ones(2, 16) * 0.6).to(dev)
+        args = [x[k] for k in ("c", "x0", "y0", "odist", "ok")] + [samples, x["lo"], x["cell"]]
+        args += [x["theta_star"], x["span"]] if arc else []
+        c_k, n_k = hist16.hist16_level_peak(*args)
+        c_p, n_p = hist16.hist16_level_peak_plain(*args)
+        torch.testing.assert_close(c_k, c_p, atol=0, rtol=0)
+        assert float(n_k) == float(n_p)
     g = torch.Generator(device=dev).manual_seed(0)
     q, k, v = (torch.randn((4, 200, 64), generator=g, device=dev).bfloat16() for _ in range(3))
     torch.testing.assert_close(attention.mha(q, k, v, t_real=150).float(),

@@ -31,6 +31,9 @@ import sys
 for _name in ("jax", "jaxlib", "flax", "optax", "cppf2_tpu"):
     sys.modules[_name] = None
 import datetime
+import faulthandler
+import gc
+faulthandler.enable()   # an abort in native code prints every thread's Python stack
 import numpy as np
 import torch
 import torch.distributed as dist
@@ -38,16 +41,37 @@ torch.set_num_threads(1)
 RANK, WORLD, TMP = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
 dist.init_process_group("gloo", store=dist.FileStore(TMP + "/store", WORLD), rank=RANK,
                         world_size=WORLD, timeout=datetime.timedelta(seconds=120))
-try:
+_barrier, _destroy = dist.barrier, dist.destroy_process_group   # a body may patch dist's functions
+
+
+def _run():
 {body}
+
+
+# Teardown, in this order. The body's meshes, groups and tensors are locals of
+# _run and die with it: a mesh kept alive in module scope holds its gloo group
+# past destroy_process_group, and the group's three native threads then live
+# on into interpreter finalization (counted in /proc/self/task: 11 threads
+# after the destroy with the body at module level, 8, as before the group was
+# made, with the body in a function), where a thread that wakes to release a
+# tensor ends the process with "terminate called without an active exception"
+# (SIGABRT). The barrier holds every rank until all have finished their
+# collectives, so none closes its sockets under a peer that still reads.
+# destroy_process_group then joins gloo's threads while the interpreter is
+# whole, and the rank exits the ordinary way. A body that raises skips the
+# barrier and exits through the traceback with a non-zero code.
+try:
+    _run()
+    gc.collect()
+    _barrier()
 finally:
-    dist.destroy_process_group()
+    _destroy()
 """
 
 
 def run_ranks(world: int, body: str, tmp, timeout: float = 300.0):
     """Run `body` on `world` gloo ranks (RANK, WORLD, TMP and np/torch/dist
-    are in scope); fail with the stderr of a rank that failed."""
+    are in scope); fail with the stderr of every rank that failed."""
     code = _PRELUDE.format(body=textwrap.indent(textwrap.dedent(body), "    "))
     procs = [subprocess.Popen([sys.executable, "-c", code, str(r), str(world), str(tmp)], cwd=ROOT,
                               stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
@@ -63,8 +87,10 @@ def run_ranks(world: int, body: str, tmp, timeout: float = 300.0):
             if p.poll() is None:
                 p.kill()
     outs = [p.communicate() for p in procs]
-    for r, (p, (_, err)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
+    # every rank that failed, not the first alone: the rank at fault is often not the lowest
+    failed = [f"rank {r} exited {p.returncode}:\n{err[-4000:]}"
+              for r, (p, (_, err)) in enumerate(zip(procs, outs)) if p.returncode != 0]
+    assert not failed, "\n".join(failed)
     return [o for o, _ in outs]
 
 

@@ -60,6 +60,43 @@ def test_vote_center(levels, fine):
     np.testing.assert_allclose(got.center.numpy(), CENTER, atol=4e-3)
 
 
+def test_vote_center_goes_through_the_fused_level(monkeypatch):
+    """Every level of vote_center is one call of K2's fused entry, which gets
+    per-pair quantities and a sample table and never a candidate array; the
+    result equals the pyramid written with candidate arrays and
+    hist16_peak, exactly."""
+    from cppf2_torch.ops import hist16
+
+    pts, valid, pair_idx, tr, pv = _scene(seed=3)
+    args = (t(pts), t(valid), t(tr), t(pair_idx).long(), t(pv), 2e-3)
+    seen = []
+
+    def level(c, x0, y0, odist, ok, samples, lo, cell, theta_star=None, span=None):
+        seen.append((c.shape[0], tuple(samples.shape), theta_star is not None))
+        cand, ok_v = hist16.level_candidates(c, x0, y0, odist, ok, samples, theta_star, span)
+        return hist16.hist16_peak(cand, ok_v, lo, cell)
+
+    want = tvote.vote_center(*args, levels=4, fine_samples=8)
+    monkeypatch.setattr(hist16, "hist16_level_peak", level)
+    monkeypatch.setattr(hist16, "hist16_peak",
+                        lambda cand, ok, lo, cell: _peak_by_numpy(cand, ok, lo, cell))
+    got = tvote.vote_center(*args, levels=4, fine_samples=8)
+    assert seen == [(P, (2, 16), False), (P, (16,), True), (P, (8,), True), (P, (8,), True)]
+    torch.testing.assert_close(got.center, want.center, atol=0, rtol=0)
+    assert float(got.peak_count) == float(want.peak_count)
+
+
+def _peak_by_numpy(cand, ok, lo, cell):
+    """The 16^3 histogram peak of (V, 3) candidates, first maximum, in numpy."""
+    f = np.floor((cand.numpy() - lo.numpy()) / cell.numpy() + np.float32(0.5))
+    inside = np.all((f >= 0) & (f < 16), -1) & ok.numpy()
+    ids = f[inside].astype(np.int64)
+    counts = np.bincount((ids[:, 0] * 16 + ids[:, 1]) * 16 + ids[:, 2], minlength=4096)
+    best = int(np.argmax(counts))
+    cell_id = np.array([best // 256, (best // 16) % 16, best % 16], np.float32)
+    return torch.from_numpy(lo.numpy() + cell_id * cell.numpy()), torch.tensor(float(counts[best]))
+
+
 @pytest.mark.parametrize("n", [8, 12, 16])
 def test_vote_center_arc_table_within_one_ulp(n):
     """The arc-sample table against jnp.linspace: XLA contracts parts of its
