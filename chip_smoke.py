@@ -50,6 +50,35 @@ Phases, each printing its own lines; any failure exits non-zero:
        the frame's ground truth, so the second (same seed) must score finite
        APs of 1; the time per instance of the second run.
 
+  5. K1 on a batch of images: `mha` on the (B, 16, 1025, 64) views of a
+     (B, 1025, 3072) projection, B = 4 and 8, in one launch, against
+     `mha_plain` (max |diff| at most the single image's 0.00195) and against B
+     launches on single images (equal); its time beside B x the single-image
+     time, SDPA on the same shape and B x the single-image bound.
+  6. the frame driver: two REAL275-format frames written here (four instances
+     of four categories each, a 16-bit depth PNG and an 8-bit colour PNG)
+     through `evaluate_real275` at the production PipelineConfig, ViT-L/14 at
+     stride 8 (seeded random weights), bf16 branches from ckpts_r3, injected
+     draws. One ViT forward per frame: 24 K1 launches a frame, and 8 K2
+     launches an instance. Every instance is posed; each pose equals
+     `fetch_instances([dispatch_instance(...)])` on the same draws within R
+     1 degree, T 3 mm, with the same branch pick; the batched token grids
+     equal the single-image grids within 2e-2; the first frame's
+     `dispatch_frame` runs under torch.cuda.set_sync_debug_mode("warn") and
+     the profiler, and any device-to-host copy in it fails the run; a second
+     run scores AP 1 against the first run's poses. Then ms per frame and per
+     instance, the same eight instances one by one (each fetched before the
+     next is dispatched), the visual stage both ways, the device-busy share.
+  7. the trainer, on a world-1 NCCL group: 64 sphere-cap frames (2048 points)
+     written as record containers, then `train_category` for `shot` and
+     `dino` (40 steps, 10,000 tuples, full-width branches) and 10 steps of
+     `dino-e2e` (ViT-S/14, stride 8, 1025 tokens, "hbm" attention). Finite
+     metrics; the loss of the last 10 steps below the first 10; a checkpoint
+     restores to the same step and the same next-step loss, bit for bit;
+     the exported params.msgpack poses an instance; the backbone's
+     parameters move; no kernel of the port is launched by a train step, and
+     K1 raises when handed a tensor that requires grad. ms per step.
+
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 8 launches of the slice, all through the fused entry, with a fine
 level's times; the candidate-array entry's times stand inside it), then the
@@ -60,6 +89,7 @@ card's name and power limit. The last line:
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import math
 import os
@@ -71,6 +101,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import zlib
 
 import numpy as np
@@ -94,8 +125,12 @@ REAL275_K = np.array([[591.0125, 0.0, 322.525], [0.0, 590.16775, 244.11084], [0.
                      np.float32)
 
 
+_T0 = time.perf_counter()
+
+
 def say(*parts):
-    print(*parts, flush=True)
+    """One line of the report, with the seconds since the script started."""
+    print(f"[{time.perf_counter() - _T0:6.1f}s]", *parts, flush=True)
 
 
 def card_line() -> str:
@@ -127,23 +162,40 @@ def time_ms(fn, iters=20, warmup=3, repeats=5) -> float:
 
 def device_ms(fn, iters=20) -> float:
     """Time of one call on the device alone: the device time of every kernel,
-    copy and memset that `iters` calls ran, as torch.profiler records them,
-    over `iters`. No host time is in it, whatever the wrapper costs."""
+    copy and memset that `iters` calls ran, as torch.profiler records them.
+    No host time is in it, whatever the wrapper costs. The tracer now and
+    then drops records (a run once read half a kernel's true time from the
+    sum over `iters`), so each kind of record counts with its mean time,
+    times its number per call rounded up; a window without any record is
+    profiled again, up to three times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    if total_us <= 0:
-        raise AssertionError("the profiler recorded no device time")
-    return total_us / 1e3 / iters
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        records = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and e.count > 0]
+        per_call_us = sum(e.self_device_time_total / e.count * math.ceil(e.count / iters)
+                          for e in records)
+        if per_call_us > 0:
+            break
+        say(f"[profiler] window {attempt}: no device record at all, profiled again")
+    else:
+        # a tracer that records nothing three times over: CUDA events around the same
+        # calls, which include the wrapper's host time and so read no lower
+        ms = time_ms(fn, iters=iters, repeats=1)
+        say(f"[profiler] no device time in three windows: this row's time on the device alone "
+            f"is the back-to-back time of CUDA events, {ms:.4f} ms")
+        return ms
+    dropped = sorted(e.key[:40] for e in records if e.count % iters)
+    if dropped:
+        say(f"[profiler] records missing of {dropped}: their mean time per record is used")
+    return per_call_us / 1e3
 
 
 def timed(fn, iters=20, repeats=5):
@@ -284,6 +336,29 @@ def check_mha(dev):
         raise AssertionError("mha on strided views differs from the contiguous call")
     say("[K1 mha] strided views of a (1025, 3072) projection equal the contiguous call")
 
+    # ViT-S/14 at stride 8, the backbone the trainer's end-to-end step exports and
+    # `estimate_instance` then poses with: 6 heads, as a tensor of its own and as the heads of a
+    # (1025, 3 * 384) projection read in place, against the plain version at the
+    # single image's limit
+    g = torch.Generator(device=dev).manual_seed(6)
+    qkv = torch.randn((1025, 3 * 384), generator=g, device=dev)
+    qkv[:, :384] /= 8.0
+    qkv = qkv.bfloat16()
+    views = [x.reshape(1025, 6, 64).transpose(0, 1) for x in torch.split(qkv, 384, dim=-1)]
+    if not all(attention._tma_readable(x) and not x.is_contiguous() for x in views):
+        raise AssertionError("the 6-head projection's views are not read in place")
+    plain6 = attention.mha_plain(*views)
+    err6 = {}
+    for label, args in (("(6, 1025, 64)", [x.contiguous() for x in views]),
+                        ("heads of a (1025, 1152) projection", views)):
+        out6 = attention.mha(*args)
+        torch.cuda.synchronize()
+        err6[label] = float(torch.max(torch.abs(out6.float() - plain6.float())))
+        if not math.isfinite(err6[label]) or err6[label] > 2.0 ** -9:
+            raise AssertionError(f"mha h=6 {label}: max |kernel - plain| = {err6[label]}")
+    say("[K1 mha] h=6 T=1025 (ViT-S/14 stride 8): max_abs_err "
+        + ", ".join(f"{k} {e:.3g}" for k, e in err6.items()) + " (limit 2^-9)")
+
     rows = []
     for t, t_real in ((1025, 1025), (1152, 1025), (4097, 4097)):
         q, k, v = mha_inputs(t, dev)
@@ -394,7 +469,7 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     say(f"[slice] e2e per instance: kernels {e2e_ms:.1f} ms (median of {kernel_times}), "
         f"plain {plain_ms:.1f} ms")
     level_rows = check_levels(once, pipe)
-    stage_breakdown(once, "fused levels")
+    stage_breakdown(once, "fused levels", repeats=2)
 
     def written_out(c, x0, y0, odist, ok, samples, lo, cell, theta_star=None, span=None):
         # a level as it ran before the fusion: the candidates in device memory, read back by K2
@@ -403,7 +478,7 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
 
     fused, hist16.hist16_level_peak = hist16.hist16_level_peak, written_out
     try:
-        stage_breakdown(once, "candidates written out, as before the fusion")
+        stage_breakdown(once, "candidates written out, as before the fusion", repeats=1)
     finally:
         hist16.hist16_level_peak = fused
     device_busy(once, e2e_ms)
@@ -642,15 +717,32 @@ def write_png16(path, img):
                 + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
-def write_real275_frame(root, h=480, w=640):
+def write_png_rgb8(path, img):
+    """An 8-bit RGB PNG (filter 0 on every row) from zlib and struct."""
+    def chunk(kind, body):
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    h, w, _ = img.shape
+    raw = b"".join(b"\x00" + img[y].astype(np.uint8).tobytes() for y in range(h))
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+FRAME_CATS = ["bottle", "bowl", "can", "mug"]
+
+
+def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0.0, color=False):
     """One REAL275-format frame: four sphere caps of four categories at
-    0.8-0.9 m, their masks as detections, a depth PNG in millimetres."""
+    0.8-0.9 m (moved sideways by `shift` metres), their masks as detections, a
+    depth PNG in millimetres and, with `color`, a random 8-bit colour PNG."""
     from cppf2_torch.config import SYNSET_NAMES
 
-    cats = ["bottle", "bowl", "can", "mug"]
-    centers = [(-0.13, -0.08, 0.82), (0.12, -0.07, 0.88), (-0.11, 0.09, 0.85), (0.13, 0.08, 0.8)]
+    cats = FRAME_CATS
+    centers = [(-0.13 + shift, -0.08, 0.82), (0.12 + shift, -0.07, 0.88),
+               (-0.11 + shift, 0.09, 0.85), (0.13 + shift, 0.08, 0.8)]
     radii = [0.045, 0.07, 0.05, 0.06]
-    rng = np.random.default_rng(4)
+    rng = np.random.default_rng(seed)
     fx, fy = REAL275_K[0, 0], REAL275_K[1, 1]
     ys, xs = np.mgrid[0:h, 0:w]
     depth = np.zeros((h, w), np.float32)
@@ -665,17 +757,20 @@ def write_real275_frame(root, h=480, w=640):
         rt[:3, 3] = (cx, cy, cz)
         rts.append(rt)
         scales.append(np.full(3, 2 * r))
-    os.makedirs(os.path.join(root, "detections"))
-    os.makedirs(os.path.join(root, "images"))
-    write_png16(os.path.join(root, "images", "scene_1_0000_depth.png"),
+    os.makedirs(os.path.join(root, "detections"), exist_ok=True)
+    os.makedirs(os.path.join(root, "images"), exist_ok=True)
+    write_png16(os.path.join(root, "images", f"{name}_depth.png"),
                 np.round(depth * 1000).astype(np.uint16))
+    if color:
+        write_png_rgb8(os.path.join(root, "images", f"{name}_color.png"),
+                       rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8))
     ids = np.array([SYNSET_NAMES.index(c) for c in cats])
-    res = {"image_path": "data/real/test/scene_1_0000", "gt_class_ids": ids,
+    res = {"image_path": f"data/real/test/{name}", "gt_class_ids": ids,
            "gt_RTs": np.stack(rts), "gt_scales": np.stack(scales),
            "gt_handle_visibility": np.ones(4, np.int64), "pred_class_ids": ids,
            "pred_masks": np.stack(masks, -1), "pred_bboxes": np.zeros((4, 4), np.int64),
            "pred_scores": np.ones(4)}
-    with open(os.path.join(root, "detections", "results_scene_1_0000.pkl"), "wb") as f:
+    with open(os.path.join(root, "detections", f"results_{name}.pkl"), "wb") as f:
         pickle.dump(res, f)
     return os.path.join(root, "detections"), os.path.join(root, "images")
 
@@ -789,6 +884,490 @@ def run_multi_device(dev, pipe, tmp, backend="nccl", n_pairs=5000):
     return k3, k3_launches["sphere_accumulate"], launches, wall / 4, pose_ms / 4
 
 
+# ---------------------------------------------------------------------------
+# Phase 5: K1 on a batch of images
+# ---------------------------------------------------------------------------
+
+def check_mha_batched(dev, single):
+    """K1 at (B, 16, 1025, 64), the shape a frame's ViT forward gives it, for
+    B = 4 and 8. `single` is check_mha's row of the (16, 1025, 64) shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from cppf2_torch.ops import attention
+
+    rows = []
+    for b in (4, 8):
+        g = torch.Generator(device=dev).manual_seed(b)
+        qkv = torch.randn((b, 1025, 3 * 1024), generator=g, device=dev)
+        qkv[..., :1024] /= 8.0
+        qkv = qkv.bfloat16()
+        q, k, v = (x.reshape(b, 1025, 16, 64).transpose(1, 2) for x in torch.split(qkv, 1024, dim=-1))
+        if not all(attention._tma_readable(x) and not x.is_contiguous() for x in (q, k, v)):
+            raise AssertionError("the batched projection's views are not read in place")
+        before = attention.mha.launches
+        out = attention.mha(q, k, v)
+        if attention.mha.launches != before + 1:
+            raise AssertionError("a batch of images took more than one launch")
+        plain = torch.stack([attention.mha_plain(q[i], k[i], v[i]) for i in range(b)])
+        each = torch.stack([attention.mha(q[i], k[i], v[i]) for i in range(b)])
+        torch.cuda.synchronize()
+        err = float(torch.max(torch.abs(out.float() - plain.float())))
+        if not math.isfinite(err) or err > 2.0 ** -9:   # one bf16 ulp of |o| < 0.5, as the single image
+            raise AssertionError(f"mha B={b}: max |kernel - plain| = {err}")
+        if not torch.equal(out, each):
+            raise AssertionError(f"mha B={b}: one launch differs from {b} launches on single images")
+        ms, dev_ms = timed(lambda: attention.mha(q, k, v))
+        plain_ms = time_ms(lambda: [attention.mha_plain(q[i], k[i], v[i]) for i in range(b)],
+                           iters=3, repeats=1)
+        qs, ks, vs = (x.contiguous() for x in (q, k, v))
+        lib_ms, lib_dev_ms = timed(lambda: F.scaled_dot_product_attention(qs, ks, vs, scale=1.0))
+        bound_ms = b * single["bound_ms"]
+        above_bound(f"mha B={b}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K1 mha, batched] B={b} (B, 16, 1025, 64) views of a (B, 1025, 3072) projection, one "
+            f"launch: max_abs_err={err:.3g}, equal to {b} single-image launches  back to back / on "
+            f"the device alone, ms: kernel {ms:.4f} / {dev_ms:.4f}  B x the single image "
+            f"{b * single['ms']:.4f} / {b * single['device_ms']:.4f}  plain {plain_ms:.4f}  sdpa "
+            f"{lib_ms:.4f} / {lib_dev_ms:.4f}  bound {bound_ms:.5f} ms (operations)")
+        rows.append(dict(b=b, err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms, library_ms=lib_ms,
+                         bound_ms=bound_ms))
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the frame driver
+# ---------------------------------------------------------------------------
+
+def rt_angle_deg(a, b):
+    """Angle between the rotations of two NOCS RTs (R * |s| in the 3x3 block)."""
+    ra, rb = (x[:3, :3] / np.cbrt(np.linalg.det(x[:3, :3])) for x in (a, b))
+    return math.degrees(math.acos(max(-1.0, min(1.0, (np.trace(ra.T @ rb) - 1) / 2))))
+
+
+def dispatch_without_reads(dispatch):
+    """Run `dispatch()` with the sync debug mode on "warn" and under the
+    profiler (device records only); returns (its result, the warnings, the
+    device-to-host copies it made, the kinds of copy it made, the device time
+    of everything it queued in ms). Uploads of host arrays warn too (a
+    blocking copy is a synchronizing call); what must not be there is a copy
+    back."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = dispatch()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+    reads = [(e.key, e.count) for e in prof.key_averages() if "dtoh" in e.key.lower()]
+    memcpys = sorted({e.key for e in prof.key_averages() if "memcpy" in e.key.lower()})
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA) / 1e3
+    return out, syncs, reads, memcpys, busy_ms
+
+
+def run_frame_driver(dev, pipe, vit_cfg, tmp, hw=(480, 640), n_frames=2, stride=8, out_size=256):
+    """Phase 6; returns (launches of the timed run, ms per frame, ms per
+    instance one by one, visual stage ms per frame batched and one by one)."""
+    import torch
+
+    from cppf2_torch.eval import driver
+    from cppf2_torch.eval.pose_errors import pose_error_degree_cm
+    from cppf2_torch.models.dinov2 import DinoViT, bbox_crop_token_grid
+
+    root = os.path.join(tmp, "frames")
+    names = [f"scene_1_{i:04d}" for i in range(n_frames)]
+    for i, name in enumerate(names):
+        det_dir, img_dir = write_real275_frame(root, *hw, name=name, seed=10 + i, shift=0.01 * i,
+                                               color=True)
+    ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
+    models = driver.load_category_models(ckpts, FRAME_CATS, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    with torch.device(dev):
+        vit = DinoViT(vit_cfg).eval()
+    vit.init_random(gen).cast_for_inference()
+
+    frames, draws = [], []
+    for name in names:
+        with open(os.path.join(det_dir, f"results_{name}.pkl"), "rb") as f:
+            res = pickle.load(f)
+        rgb = driver.read_png_rgb8(os.path.join(img_dir, f"{name}_color.png"))
+        depth = driver.read_png16(os.path.join(img_dir, f"{name}_depth.png")).astype(np.float32) / 1000
+        dets = [(c, res["pred_masks"][:, :, i].astype(bool)) for i, c in enumerate(FRAME_CATS)]
+        frames.append((rgb, depth, dets))
+        draws.append([driver.draw_instance(depth.shape, m, c, pipe, dev, gen) for c, m in dets])
+    n_inst = sum(len(f[2]) for f in frames)
+    kw = dict(vit=vit, device=dev, stride=stride, out_size=out_size)
+
+    def evaluate(out):
+        with timed_calls([(driver, "compute_degree_cm_map")]) as spent:
+            t0 = time.perf_counter()
+            aps = driver.evaluate_real275(det_dir, img_dir, os.path.join(tmp, out), None, pipe=pipe,
+                                          draws=draws, models=models, **kw)
+            wall = (time.perf_counter() - t0) * 1e3
+        results = []
+        for name in names:
+            with open(os.path.join(tmp, out, f"results_{name}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return aps, results, wall - spent["compute_degree_cm_map"]
+
+    # run 0 poses the frames (and warms up); its poses become the ground truth
+    zero_counts()
+    _, first, _ = evaluate("frames0")
+    launches = read_counts()
+    want = {"mha": vit_cfg.depth * n_frames, "hist16_peak": 2 * pipe.vote_levels * n_inst,
+            "sphere_accumulate": 0}
+    say(f"[frames] evaluate_real275 on {n_frames} frames x {len(FRAME_CATS)} instances: launches "
+        f"{launches} (one ViT forward a frame: {vit_cfg.depth} K1 launches; "
+        f"{2 * pipe.vote_levels} K2 launches an instance)")
+    if launches != want:
+        raise AssertionError(f"launch counts {launches}: expected {want}")
+    for name, res in zip(names, first):
+        rts = res["pred_RTs"]
+        if not np.isfinite(rts).all() or any(np.allclose(rt, np.eye(4)) for rt in rts):
+            raise AssertionError(f"{name}: an instance was not posed: {rts}")
+
+    # each frame again through dispatch_frame (the first one watched for reads from the
+    # device), against its instances one by one on the same draws
+    worst = dict(r=0.0, t=0.0, grid=0.0, own=0.0, vis_r=0.0, vis_t=0.0)
+    all_picks = []
+    busy_ms = singles_ms = 0.0
+    for n, ((rgb, depth, dets), d, res) in enumerate(zip(frames, draws, first)):
+        def dispatch():
+            return driver.dispatch_frame(rgb, depth, dets, REAL275_K, models, pipe, draws=d, **kw)
+
+        if n == 0:
+            # the uploads of the frame's arrays are certain: a profile without any copy
+            # is a tracer that recorded nothing and proves nothing, so it is taken again
+            for attempt in range(3):
+                pends, syncs, reads, memcpys, busy_ms = dispatch_without_reads(dispatch)
+                if memcpys:
+                    break
+                say(f"[profiler] dispatch_frame, window {attempt}: no copy recorded, profiled again")
+            else:
+                raise AssertionError("the profiler recorded no copy in three dispatches of a frame")
+            where = sorted({f"{os.path.basename(w.filename)}:{w.lineno}" for w in syncs})
+            say(f"[frames] dispatch_frame under sync debug mode: {len(syncs)} synchronizing calls "
+                f"reported (blocking uploads of host arrays), at {where}; copies in the profile: "
+                f"{memcpys}; device-to-host copies: {reads}")
+            if reads:
+                raise AssertionError(f"dispatch_frame read from the device: {reads}")
+        else:
+            pends = dispatch()
+        got, picks = driver.fetch_frames(pends, return_picks=True)
+        # one by one, each fetched (a device sync) before the next is dispatched: the graph
+        # of estimate_instance, timed
+        singles, spicks = [], []
+        t0 = time.perf_counter()
+        for (c, m), di in zip(dets, d):
+            out, pick = driver.fetch_instances(
+                [driver.dispatch_instance(rgb, depth, m, REAL275_K, models[c], c, pipe, draws=di, **kw)],
+                return_picks=True)
+            singles.append(out[0])
+            spicks.append(pick[0])
+        singles_ms += (time.perf_counter() - t0) * 1e3
+        for i in range(len(dets)):
+            if got[i] is None or singles[i] is None:
+                raise AssertionError(f"instance {i} came back as None")
+            ang = rt_angle_deg(got[i][0], singles[i][0])
+            dt = float(np.max(np.abs(got[i][0][:3, 3] - singles[i][0][:3, 3])))
+            worst["r"], worst["t"] = max(worst["r"], ang), max(worst["t"], dt)
+            worst["own"] = max(worst["own"], float(np.max(np.abs(got[i][0] - res["pred_RTs"][i]))))
+            if ang > 1.0 or dt > 3e-3 or picks[i] != spicks[i]:
+                raise AssertionError(f"instance {i}: frame vs single R {ang:.3f} deg, T {dt * 1e3:.3f} mm, "
+                                     f"picks {picks[i]} vs {spicks[i]}")
+        all_picks.extend(int(picks[i]) for i in range(len(dets)))
+        # the same with the visual branch posing alone, so that the batched forward's
+        # grids decide every pose that is compared
+        vis_frame = driver.fetch_frames(
+            driver.dispatch_frame(rgb, depth, dets, REAL275_K, models, pipe, draws=d, use_geo=False, **kw))
+        vis_single = driver.fetch_instances(
+            [driver.dispatch_instance(rgb, depth, m, REAL275_K, models[c], c, pipe, draws=di,
+                                      use_geo=False, **kw) for (c, m), di in zip(dets, d)])
+        for i in range(len(dets)):
+            if vis_frame[i] is None or vis_single[i] is None:
+                raise AssertionError(f"instance {i}, visual branch alone: came back as None")
+            # the repo's symmetry-aware error: about its axis a bottle, bowl or can has no
+            # rotation to agree on, and the visual vote alone lands wherever its noise puts it
+            ang, cm = pose_error_degree_cm(vis_frame[i][0], vis_single[i][0], dets[i][0])
+            dt = cm / 100
+            worst["vis_r"], worst["vis_t"] = max(worst["vis_r"], ang), max(worst["vis_t"], dt)
+            if ang > 1.0 or dt > 3e-3:
+                raise AssertionError(f"instance {i}, visual branch alone: frame vs single R {ang:.3f} "
+                                     f"deg, T {dt * 1e3:.3f} mm")
+        rgb_t = torch.as_tensor(rgb, device=dev).float() / 255.0
+        masks_t = torch.as_tensor(np.stack([m for _, m in dets]), device=dev)
+        with torch.no_grad():
+            grids, _ = bbox_crop_token_grid(vit, rgb_t, masks_t, out_size=out_size, stride=stride)
+            for i in range(len(dets)):
+                g1, _ = bbox_crop_token_grid(vit, rgb_t, masks_t[i], out_size=out_size, stride=stride)
+                worst["grid"] = max(worst["grid"], float(torch.max(torch.abs(grids[i] - g1))))
+    say(f"[frames] frame vs instance by instance on the same draws: R {worst['r']:.4f} deg, T "
+        f"{worst['t'] * 1e3:.4f} mm, the same picks {all_picks} (0 visual, 1 geometric); with the "
+        f"visual branch posing alone (symmetry-aware error) R {worst['vis_r']:.4f} deg, T "
+        f"{worst['vis_t'] * 1e3:.4f} mm; "
+        f"batched vs single-image token grids max |diff| "
+        f"{worst['grid']:.3g}; dispatch_frame vs evaluate_real275's pkls max |diff| {worst['own']:.3g}")
+    if worst["grid"] > 2e-2:
+        raise AssertionError(f"batched token grids differ from single-image grids by {worst['grid']}")
+
+    # run 1 against run 0's poses as ground truth: AP 1; this is the timed run
+    for name, res in zip(names, first):
+        det_pkl = os.path.join(det_dir, f"results_{name}.pkl")
+        with open(det_pkl, "rb") as f:
+            det = pickle.load(f)
+        det["gt_RTs"], det["gt_scales"] = res["pred_RTs"], res["pred_scales"]
+        with open(det_pkl, "wb") as f:
+            pickle.dump(det, f)
+    zero_counts()
+    (iou_aps, pose_aps), _, frames_ms = evaluate("frames1")
+    timed_launches = read_counts()
+    if timed_launches != want:
+        raise AssertionError(f"launch counts {timed_launches}: expected {want}")
+    if not (np.isfinite(iou_aps[-1, :100]).all() and np.isfinite(pose_aps[-1]).all()
+            and iou_aps[-1, 50] == 1.0 and pose_aps[-1, 0, 0] == 1.0):
+        raise AssertionError(f"run 1 against run 0's poses: APs not finite or not 1 "
+                             f"(IoU50 {iou_aps[-1, 50]}, 5deg5cm {pose_aps[-1, 0, 0]})")
+
+    def visual(batched):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            for m in ([masks_t] if batched else list(masks_t)):
+                bbox_crop_token_grid(vit, rgb_t, m, out_size=out_size, stride=stride)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    vis_batched = statistics.median(visual(True) for _ in range(3))
+    vis_singles = statistics.median(visual(False) for _ in range(3))
+    say(f"[frames] evaluate_real275 without scoring: {frames_ms / n_frames:.1f} ms per frame, "
+        f"{frames_ms / n_inst:.1f} ms per instance; the same {n_inst} instances one by one (the "
+        f"graph of estimate_instance, each fetched before the next) {singles_ms / n_inst:.1f} ms per "
+        f"instance; visual stage per "
+        f"frame of {len(FRAME_CATS)} crops: one batched forward {vis_batched:.1f} ms, instance by "
+        f"instance {vis_singles:.1f} ms; mean 3D IoU AP@50 {iou_aps[-1, 50]:.3f}, 5deg5cm AP "
+        f"{pose_aps[-1, 0, 0]:.3f}")
+    frame_ms = frames_ms / n_frames
+    say(f"[frames] device busy {busy_ms:.1f} ms (the profile of the first frame's dispatch) of "
+        f"{frame_ms:.1f} ms wall per frame ({100 * busy_ms / frame_ms:.1f}% busy)")
+    return timed_launches, frames_ms / n_frames, singles_ms / n_inst, vis_batched, vis_singles
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: the trainer
+# ---------------------------------------------------------------------------
+
+def write_train_records(dev, tmp, vit, n_frames, n_points, hw=(480, 640), out_size=256):
+    """`n_frames` sphere-cap frames through `preprocess_frame`, with the
+    canonical cloud and the bound of the known pose (R = I, t = the cap's
+    center, s = its diameter on every axis), as three record containers: the
+    geometric features, the ViT's descriptors, and the crop with the cloud's
+    pixels in crop space. Returns their paths and the last frame."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.core.downsample import draw_downsample
+    from cppf2_torch.core.geometry import check_pinhole
+    from cppf2_torch.data.records import RecordWriter
+    from cppf2_torch.infer.frontend import auto_crop, crop_origin, preprocess_frame, window_shape
+    from cppf2_torch.models.dinov2 import (bbox_crop_image, crop_keypoints, interpolate_features,
+                                           resize_bilinear_matmul)
+
+    rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    res = get_category("mug").res
+    check_pinhole(REAL275_K)   # on the host: preprocess_frame does not read a device K back
+    k_t = torch.as_tensor(REAL275_K, device=dev)
+    base = {"pc": ((n_points, 3), np.float32), "pc_canon": ((n_points, 3), np.float32),
+            "bound": ((3,), np.float32), "count": ((), np.int32)}
+    d_vit = vit.cfg.embed_dim
+    schemas = {"shot": {**base, "shot": ((n_points, 352), np.float32), "normal": ((n_points, 3), np.float32)},
+               "dino": {**base, "desc": ((n_points, d_vit), np.float32)},
+               "dino-e2e": {**base, "crop": ((out_size, out_size, 3), np.float32),
+                            "kp": ((n_points, 2), np.float32)}}
+    paths = {b: os.path.join(tmp, f"{b}.rec") for b in schemas}
+    writers = {b: RecordWriter(paths[b], schemas[b]) for b in schemas}
+    ph = out_size // 8
+    with torch.no_grad():
+        for _ in range(n_frames):
+            radius = float(rng.uniform(0.07, 0.11))
+            center = (float(rng.uniform(-0.1, 0.1)), float(rng.uniform(-0.08, 0.08)),
+                      float(rng.uniform(0.75, 0.95)))
+            rgb, depth, mask = make_frame(rng, *hw, radius=radius, center=center)
+            crop = auto_crop(mask)
+            h, w = window_shape(depth.shape, crop)
+            perm, prio = draw_downsample(h * w, dev, gen)
+            mask_t = torch.as_tensor(mask, device=dev)
+            fi = preprocess_frame(torch.as_tensor(depth, device=dev), mask_t, k_t, perm, prio, res=res,
+                                  n_max=n_points, crop=crop,
+                                  origin=crop_origin(mask, mask.shape, crop) if crop else None)
+            bound = torch.full((3,), 2 * radius, device=dev)
+            canon = (fi.pc - torch.tensor(center, device=dev)) / torch.linalg.norm(bound)
+            canon = torch.where(fi.valid[:, None], canon, torch.zeros((), device=dev))
+            rgb_t = torch.as_tensor(rgb, device=dev).float() / 255.0
+            img, txys = bbox_crop_image(rgb_t, mask_t, out_size)
+            kp = crop_keypoints(fi.pixel_yx, txys)
+            grid = vit(resize_bilinear_matmul(img, ph * 14, ph * 14))
+            desc = interpolate_features(grid, kp, (out_size, out_size))
+            rec = {k: v.float().cpu().numpy() for k, v in dict(
+                pc=fi.pc, pc_canon=canon, bound=bound, shot=fi.shot, normal=fi.normal, desc=desc,
+                crop=img, kp=kp).items()}
+            rec["count"] = np.int32(int(fi.count))
+            for b, wr in writers.items():
+                wr.append(rec)
+    for wr in writers.values():
+        wr.close()
+    return paths, (rgb, depth, mask)
+
+
+def run_trainer(dev, pipe, vit_cfg, tmp, backend="nccl", n_frames=64, n_points=2048, steps=40,
+                e2e_steps=10, tuples=10000, e2e_vit=None, hw=(480, 640), out_size=256):
+    """Phase 7 on a world-1 process group; returns {branch: ms per step}."""
+    import torch
+    import torch.distributed as dist
+
+    from cppf2_torch import parallel, train
+    from cppf2_torch.config import TrainConfig
+    from cppf2_torch.data.records import RecordReader
+    from cppf2_torch.eval import driver
+    from cppf2_torch.models.cppf import DinoBranch, ShotBranch
+    from cppf2_torch.models.dinov2 import VIT_S14, DinoViT
+    from cppf2_torch.ops import attention
+    from cppf2_torch.train import checkpoints
+    from cppf2_torch.train.driver import train_category
+
+    # K1 has no backward, and says so
+    q = torch.zeros((16, 65, 64), dtype=torch.bfloat16, device=dev, requires_grad=True)
+    try:
+        attention.mha(q, q.detach(), q.detach())
+    except RuntimeError as e:
+        say(f"[train] K1 refuses a tensor that requires grad: {str(e)[:60]}...")
+    else:
+        raise AssertionError("mha took a tensor that requires grad and returned")
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    with torch.device(dev):
+        vit = DinoViT(vit_cfg).eval()
+    vit.init_random(gen).cast_for_inference()
+    t0 = time.perf_counter()
+    paths, (rgb, depth, mask) = write_train_records(dev, tmp, vit, n_frames, n_points, hw, out_size)
+    say(f"[train] {n_frames} frames x {n_points} points written as records in "
+        f"{time.perf_counter() - t0:.1f} s: " +
+        ", ".join(f"{b} {os.path.getsize(p) / 1e6:.0f} MB" for b, p in paths.items()))
+    e2e_vit = e2e_vit or dataclasses.replace(VIT_S14, pretrain_grid=out_size // 8)
+
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "train_store"), 1),
+                            rank=0, world_size=1)
+    ms_per_step = {}
+    try:
+        mesh = parallel.make_mesh(device=dev.type)
+        for branch, n_steps in (("shot", steps), ("dino", steps), ("dino-e2e", e2e_steps)):
+            cfg = TrainConfig(n_points=n_points, steps_per_epoch=n_steps, max_epochs=1,
+                              tuples_per_step=tuples)
+            out = os.path.join(tmp, "ck", "dino" if branch != "shot" else "shot", "mug")
+            if branch == "dino-e2e":
+                out = os.path.join(tmp, "ck_e2e", "dino", "mug")
+            zero_counts()
+            state = train_category("mug", branch, cfg, out, n_points=n_points, records=paths[branch],
+                                   log_every=1, progress=lambda s: None, vit_cfg=e2e_vit,
+                                   e2e_out_size=out_size, device=dev.type)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            if any(read_counts().values()):
+                raise AssertionError(f"a train step launched a kernel of the port: {read_counts()}")
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            totals = [r["total"] for r in rows]
+            if len(rows) != n_steps or not all(math.isfinite(r[k]) for r in rows
+                                               for k in ("cls", "scale", "total")):
+                raise AssertionError(f"{branch}: {len(rows)} metric rows, or a non-finite one: {rows[-1]}")
+            walls = [r["wall"] for r in rows]
+            ms = statistics.median(np.diff(walls)) * 1e3
+            ms_per_step[branch] = ms
+            n_mean = min(10, n_steps // 2)
+            head, tail = totals[:n_mean], totals[-n_mean:]
+            say(f"[train] {branch}: {n_steps} steps, {ms:.1f} ms per step (median, the metrics read "
+                f"back every step), total loss {totals[0]:.3f} -> {totals[-1]:.3f} (mean of the first "
+                f"{n_mean} {np.mean(head):.3f}, of the last {n_mean} {np.mean(tail):.3f})")
+            if not np.mean(tail) < np.mean(head):
+                raise AssertionError(f"{branch}: the loss did not fall")
+
+            if branch != "dino-e2e":
+                checkpoints.export_params_msgpack(os.path.join(out, "params.msgpack"), state.module)
+
+            # the checkpoint restores to the same step and the same next-step loss
+            if branch == "shot":
+                fresh_model = ShotBranch()
+            else:
+                width = e2e_vit.embed_dim if branch == "dino-e2e" else vit_cfg.embed_dim
+                fresh_model = DinoBranch(desc_dim=width)
+            if branch == "dino-e2e":
+                vit_model = DinoViT(dataclasses.replace(e2e_vit, attn_impl="hbm"))
+                fresh = train.create_visual_train_state(vit_model, fresh_model, cfg, device=dev.type)
+                step_fn = train.make_visual_train_step(vit_model, fresh_model, cfg, out_size=out_size,
+                                                       mesh=mesh)
+                untrained = train.create_visual_train_state(
+                    DinoViT(vit_model.cfg), DinoBranch(desc_dim=width), cfg,
+                    torch.Generator().manual_seed(cfg.seed), device=dev.type)
+                with torch.no_grad():
+                    moved = max(float(torch.max(torch.abs(a - b))) for a, b in
+                                zip(state.module.backbone.parameters(),
+                                    untrained.module.backbone.parameters()))
+                say(f"[train] dino-e2e: the backbone's parameters moved by up to {moved:.3g}")
+                if not moved > 0:
+                    raise AssertionError("the backbone's parameters did not move")
+            else:
+                fresh = train.create_train_state(fresh_model, cfg, device=dev.type)
+                step_fn = train.make_train_step(fresh_model, cfg, branch, mesh)
+            fresh = checkpoints.restore_checkpoint(checkpoints.latest_checkpoint(out), fresh)
+            if fresh.step != state.step or state.step != n_steps:
+                raise AssertionError(f"{branch}: restored step {fresh.step}, trained {state.step}")
+            reader = RecordReader(paths[branch])
+            batch = {k: v for k, v in reader.batch([0]).items()}
+            losses = []
+            for st in (state, fresh):
+                _, m = step_fn(st, batch, generator=torch.Generator().manual_seed(5))
+                losses.append(m["total"])
+            if not torch.equal(losses[0], losses[1]):
+                raise AssertionError(f"{branch}: next-step loss {float(losses[0])} in memory, "
+                                     f"{float(losses[1])} from the checkpoint")
+            say(f"[train] {branch}: checkpoint restores step {n_steps} and the next step's loss "
+                f"{float(losses[1]):.6f} bit for bit")
+
+        # the trained weights pose an instance: shot + dino with the ViT that made the
+        # descriptors, then the e2e head with its own backbone (K1 at 6 heads)
+        ck_e2e = os.path.join(tmp, "ck_e2e")
+        small_vit, stride, size = driver._load_vit(os.path.join(ck_e2e, "dino", "mug", "backbone"), dev)
+        for label, root, v, kw in (("shot + dino", os.path.join(tmp, "ck"), vit, {}),
+                                   ("dino-e2e", ck_e2e, small_vit, dict(stride=stride, out_size=size))):
+            models = driver.load_category_models(root, ["mug"], torch.bfloat16, dev)["mug"]
+            zero_counts()
+            est = driver.estimate_instance(rgb, depth, mask, REAL275_K, models, "mug", pipe, vit=v,
+                                           generator=torch.Generator(device=dev).manual_seed(1),
+                                           device=dev, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            posed, want = read_counts(), {"mha": v.cfg.depth, "hist16_peak": 2 * pipe.vote_levels,
+                                          "sphere_accumulate": 0}
+            if posed != want:
+                raise AssertionError(f"{label}: launch counts {posed}, expected {want}")
+            vals = [est.rotation, est.translation, est.scale, est.loss]
+            if not all(bool(torch.isfinite(x).all()) for x in vals):
+                raise AssertionError(f"{label}: non-finite pose from the trained weights: {est}")
+            say(f"[train] {label}: exported params.msgpack -> load_category_models -> one instance "
+                f"posed, T={[round(x, 4) for x in est.translation.tolist()]} pick={int(est.pick)}, "
+                f"launches {posed}")
+    finally:
+        dist.destroy_process_group()
+    return ms_per_step
+
+
 def main() -> int:
     import torch
 
@@ -823,6 +1402,10 @@ def main() -> int:
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         k3, k3_launches, eval_launches, eval_ms, pose_ms = run_multi_device(dev, pipe, tmp)
+        k1_batched = check_mha_batched(dev, k1[0])
+        frame_launches, frame_ms, single_ms, vis_batched, vis_singles = run_frame_driver(
+            dev, pipe, VIT_L14, tmp)
+        train_ms = run_trainer(dev, pipe, VIT_L14, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -830,12 +1413,19 @@ def main() -> int:
     k2_cand = k2[1]      # the candidate-array entry at 400k votes, which no path launches now
     k2_level = k2_levels[-1]   # the last (fine) level of the slice's first branch
     k3_main = k3[0]      # (1, 900k, 720): one instance's sampled rotation votes
+    k1_frame = k1_batched[0]   # (4, 16, 1025, 64): the four crops of one written frame
     kernels = [
         dict(name="mha", route="cuda", source=attention.SOURCE, replaces=attention.REPLACES,
              launches=launches["mha"], max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by="operations", library_ms=k1_main["library_ms"],
-             device_ms=k1_main["device_ms"]),
+             device_ms=k1_main["device_ms"],
+             # the frame driver's call: one launch per ViT block for all of a frame's crops
+             batched=dict(shape=[k1_frame["b"], 16, 1025, 64], launches=frame_launches["mha"],
+                          max_abs_err=k1_frame["err"], ms=k1_frame["ms"],
+                          device_ms=k1_frame["device_ms"], plain_ms=k1_frame["plain_ms"],
+                          bound_ms=k1_frame["bound_ms"], bound_by="operations",
+                          library_ms=k1_frame["library_ms"])),
         # One row for K2. The main path launches it 8 times, all through the
         # fused entry hist16_level_peak, so the row's times and bound are those
         # of a fine level of the slice; no single PyTorch call makes a level's
@@ -859,6 +1449,10 @@ def main() -> int:
     say(f"[slice] e2e_ms_per_instance {e2e_ms:.1f}")
     say(f"[eval] evaluate_real275_parallel ms_per_instance {eval_ms:.1f}, without model loading "
         f"and scoring {pose_ms:.1f} (world 1, launches {eval_launches})")
+    say(f"[frames] evaluate_real275 ms_per_frame {frame_ms:.1f}, instance by instance "
+        f"ms_per_instance {single_ms:.1f}, visual stage ms_per_frame batched {vis_batched:.1f} / "
+        f"instance by instance {vis_singles:.1f} (launches {frame_launches})")
+    say("[train] ms_per_step " + ", ".join(f"{b} {ms:.1f}" for b, ms in train_ms.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

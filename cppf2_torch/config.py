@@ -203,3 +203,20 @@ class PipelineConfig:
         import math
 
         return int(4 * math.pi / (self.angle_tol_deg / 180.0 * math.pi))
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyperparameters (reference: train_shot.py:124-130, 141; config/config.yaml)."""
+
+    lr: float = 1e-3
+    weight_decay: float = 0.0
+    lr_step_epochs: int = 25
+    lr_gamma: float = 0.5
+    max_epochs: int = 101
+    tuples_per_step: int = 10000   # reference: train_shot.py:88
+    steps_per_epoch: int = 200     # reference: dataset.py:364 virtual epoch length
+    batch_size: int = 1            # frames per device per step
+    n_points: int = 1024           # padded per-frame point budget for training
+    num_bins: int = 32
+    seed: int = 0

@@ -40,12 +40,20 @@ def backproject_masked(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torc
     return pts.reshape(-1, 3), pixel_yx.reshape(-1, 2), valid.reshape(-1)
 
 
+def check_pinhole(k: np.ndarray) -> None:
+    """Raise unless the host (3, 3) intrinsics are upper triangular."""
+    if k[1, 0] != 0 or k[2, 0] != 0 or k[2, 1] != 0:
+        raise ValueError("intrinsics must be upper triangular (a pinhole K)")
+
+
 def pinhole_inverse(k: torch.Tensor) -> torch.Tensor:
     """Inverse of an upper-triangular pinhole K by back substitution with
     reciprocal pivots, the order XLA's LU-based inverse takes, so the rays
     (and the voxel keys built from them) agree to the bit."""
-    if bool(torch.any(k[1, 0] != 0) | torch.any(k[2, :2] != 0)):
-        raise ValueError("intrinsics must be upper triangular (a pinhole K)")
+    # checked where it costs no read back from the device: the drivers check
+    # the host array (`check_pinhole`) before they upload it
+    if k.device.type == "cpu":
+        check_pinhole(k.numpy())
     eye = torch.eye(3, dtype=k.dtype, device=k.device)
     rows = [None, None, None]
     for i in (2, 1, 0):

@@ -2,7 +2,7 @@
 //
 // Replaces the Pallas TPU kernel cppf2_tpu/ops/pallas_attention.py::_mha_kernel
 // (pallas_call at :89). Same function: q (pre-scaled by 1/sqrt(hd)), k, v are
-// (h, T, 64) bf16; logits are f32; keys at or beyond t_real are masked out;
+// (b, h, T, 64) bf16, b images of h heads each; logits are f32; keys at or beyond t_real are masked out;
 // exp(logits - max) is rounded to bf16 before the PV product, which
 // accumulates in f32; the output is divided by the f32 row sum at the end.
 //
@@ -17,13 +17,16 @@
 //     m64n64k16 with P, rounded to bf16, as the register A operand and V read
 //     from shared memory as it lies in memory (MN-major B): no transposed copy
 //     of V exists anywhere.
-//   * Q, K and V tiles arrive by TMA (cp.async.bulk.tensor on a 3-D tensor map
-//     over (h, T, 64) with the 128-byte swizzle that wgmma reads), completion
+//   * Q, K and V tiles arrive by TMA (cp.async.bulk.tensor on a 4-D tensor map
+//     over (b, h, T, 64) with the 128-byte swizzle that wgmma reads), completion
 //     on an mbarrier. Two K/V stages: while tile i is multiplied, tile i + 1
 //     is in flight or has landed; tile i + 2 is requested as soon as the
 //     warpgroup has left tile i. TMA fills rows past T with zeros, head by
 //     head, so the loads have no bounds branch; the t_real mask on the logits
-//     stays. The maps take strides, so q, k and v may be views.
+//     stays. The maps take a stride per axis, so q, k and v may be views: the
+//     heads of a (b, T, 3 * h * 64) projection are read in place, although the
+//     image stride there is no multiple of the head stride (which is why the
+//     map has an image axis of its own and the heads are not flattened).
 //   * The softmax works in base 2: exp(s - m) = exp2(s * log2e - m * log2e),
 //     one FFMA and one ex2.approx per logit. The row sum takes P before its
 //     bf16 rounding and the division comes after PV, as in the TPU kernel.
@@ -84,13 +87,13 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   } while (!done);
 }
 
-// One (rows x 64) box at (row, head) of a (h, T, 64) tensor map into shared memory.
+// One (rows x 64) box at (row, head, image) of a (b, h, T, 64) tensor map into shared memory.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, int row, int head,
-                                         uint32_t bar) {
+                                         int image, uint32_t bar) {
   asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head)
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(0), "r"(row), "r"(head), "r"(image)
       : "memory");
 }
 
@@ -184,6 +187,7 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   const uint32_t bar_q = bar0 + 8 * kStages;
 
   const int head = blockIdx.y;
+  const int image = blockIdx.z;
   const int q0 = blockIdx.x * kBq;
   const int n_tiles = (t_real + kBk - 1) / kBk;
 
@@ -196,13 +200,14 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   __syncthreads();
   if (threadIdx.x == 0) {
     mbar_expect_tx(bar_q, kQBytes);
-    tma_load(q_s, &q_map, q0, head, bar_q);
+    tma_load(q_s, &q_map, q0, head, image, bar_q);
 #pragma unroll
     for (int s = 0; s < kStages; ++s) {
       if (s < n_tiles) {
         mbar_expect_tx(bar0 + 8 * s, 2 * kTileBytes);
-        tma_load(kv_s + s * 2 * kTileBytes, &k_map, s * kBk, head, bar0 + 8 * s);
-        tma_load(kv_s + s * 2 * kTileBytes + kTileBytes, &v_map, s * kBk, head, bar0 + 8 * s);
+        tma_load(kv_s + s * 2 * kTileBytes, &k_map, s * kBk, head, image, bar0 + 8 * s);
+        tma_load(kv_s + s * 2 * kTileBytes + kTileBytes, &v_map, s * kBk, head, image,
+                 bar0 + 8 * s);
       }
     }
   }
@@ -299,8 +304,8 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
     if (threadIdx.x == 0 && tile + kStages < n_tiles) {
       const int row = (tile + kStages) * kBk;
       mbar_expect_tx(bar, 2 * kTileBytes);
-      tma_load(k_s, &k_map, row, head, bar);
-      tma_load(k_s + kTileBytes, &v_map, row, head, bar);
+      tma_load(k_s, &k_map, row, head, image, bar);
+      tma_load(k_s + kTileBytes, &v_map, row, head, image, bar);
     }
   }
 
@@ -308,7 +313,7 @@ mha_fwd_kernel(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  OutT* oh = o + static_cast<size_t>(head) * T * kHd;
+  OutT* oh = o + (static_cast<size_t>(image) * gridDim.y + head) * T * kHd;
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
     const int c = n * 8 + t * 2;
@@ -337,25 +342,27 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A map over x viewed as (h, T, 64) bf16 with the given strides (in elements;
-// the last axis is contiguous), boxes of `rows` x 64, 128-byte swizzle, zeros
-// past the end of every axis.
-CUresult make_map(CUtensorMap* map, const void* x, int h, int T, long long head_stride,
-                  long long row_stride, int rows) {
-  const cuuint64_t dims[3] = {kHd, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(h)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(row_stride) * 2,
-                                 static_cast<cuuint64_t>(head_stride) * 2};
-  const cuuint32_t box[3] = {kHd, static_cast<cuuint32_t>(rows), 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(x), dims,
+// A map over x viewed as (b, h, T, 64) bf16 with the given strides of its
+// image, head and row axes (in elements; the last axis is contiguous), boxes
+// of `rows` x 64, 128-byte swizzle, zeros past the end of every axis.
+CUresult make_map(CUtensorMap* map, const void* x, int b, int h, int T, const long long* stride,
+                  int rows) {
+  const cuuint64_t dims[4] = {kHd, static_cast<cuuint64_t>(T), static_cast<cuuint64_t>(h),
+                              static_cast<cuuint64_t>(b)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(stride[2]) * 2,
+                                 static_cast<cuuint64_t>(stride[1]) * 2,
+                                 static_cast<cuuint64_t>(stride[0]) * 2};
+  const cuuint32_t box[4] = {kHd, static_cast<cuuint32_t>(rows), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode_tiled()(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(x), dims,
                         strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
 template <typename OutT>
-int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o, int h,
-           int T, int t_real, cudaStream_t st) {
+int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o, int b,
+           int h, int T, int t_real, cudaStream_t st) {
   // more than 48 KB of dynamic shared memory: allowed once per kernel and device
   static bool allowed[64] = {};
   int dev = 0;
@@ -366,7 +373,7 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
     if (attr != cudaSuccess) return static_cast<int>(attr);
     if (dev >= 0 && dev < 64) allowed[dev] = true;
   }
-  const dim3 grid((T + kBq - 1) / kBq, h);
+  const dim3 grid((T + kBq - 1) / kBq, h, b);
   mha_fwd_kernel<OutT><<<grid, kThreads, kSmemBytes, st>>>(qm, km, vm, static_cast<OutT*>(o), T,
                                                           t_real);
   return static_cast<int>(cudaGetLastError());
@@ -374,20 +381,22 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 
 }  // namespace
 
-// q, k, v: (h, T, 64) bf16 with a contiguous last axis, 16-byte aligned, and
-// strides (in elements) that are multiples of 8; o: (h, T, 64) contiguous,
-// bf16 (out_f32 = 0) or f32 (out_f32 = 1). Returns 0, the cudaError of the
+// q, k, v: (b, h, T, 64) bf16 with a contiguous last axis, 16-byte aligned,
+// b at most 65535; `strides` holds the image, head and row strides of q, then
+// of k, then of v (in elements, each a multiple of 8); o: (b, h, T, 64)
+// contiguous, bf16 (out_f32 = 0) or f32 (out_f32 = 1). Returns 0, the cudaError of the
 // launch, or 100000 + the CUresult of a tensor map that could not be made
 // (100000 alone: libcuda offers no cuTensorMapEncodeTiled).
-extern "C" int cppf2_mha_fwd(const void* q, const void* k, const void* v, void* o, int h, int T,
-                             int t_real, int out_f32, const long long* strides, void* stream) {
+extern "C" int cppf2_mha_fwd(const void* q, const void* k, const void* v, void* o, int b, int h,
+                             int T, int t_real, int out_f32, const long long* strides,
+                             void* stream) {
   if (encode_tiled() == nullptr) return 100000;
   CUtensorMap qm, km, vm;
-  CUresult res = make_map(&qm, q, h, T, strides[0], strides[1], kBq);
-  if (res == CUDA_SUCCESS) res = make_map(&km, k, h, T, strides[2], strides[3], kBk);
-  if (res == CUDA_SUCCESS) res = make_map(&vm, v, h, T, strides[4], strides[5], kBk);
+  CUresult res = make_map(&qm, q, b, h, T, strides, kBq);
+  if (res == CUDA_SUCCESS) res = make_map(&km, k, b, h, T, strides + 3, kBk);
+  if (res == CUDA_SUCCESS) res = make_map(&vm, v, b, h, T, strides + 6, kBk);
   if (res != CUDA_SUCCESS) return 100000 + static_cast<int>(res);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return out_f32 ? launch<float>(qm, km, vm, o, h, T, t_real, st)
-                 : launch<__nv_bfloat16>(qm, km, vm, o, h, T, t_real, st);
+  return out_f32 ? launch<float>(qm, km, vm, o, b, h, T, t_real, st)
+                 : launch<__nv_bfloat16>(qm, km, vm, o, b, h, T, t_real, st);
 }

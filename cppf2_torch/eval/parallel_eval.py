@@ -28,19 +28,21 @@ import torch
 import torch.distributed as dist
 
 from cppf2_torch.config import CATEGORIES, SYNSET_NAMES, PipelineConfig, get_category
+from cppf2_torch.core.geometry import check_pinhole
 from cppf2_torch.eval.driver import (
     REAL275_INTRINSICS,
     CategoryModels,
     InstanceDraws,
-    _cloud_extent,
+    _draws_on,
+    _finalize_instance,
+    _pack,
+    _pose_graph,
     draw_instance,
     load_category_models,
 )
 from cppf2_torch.eval.nocs_map import compute_degree_cm_map
 from cppf2_torch.eval.png import read_png16
-from cppf2_torch.eval.pose_errors import _assemble_rt
-from cppf2_torch.infer.frontend import auto_crop, preprocess_frame
-from cppf2_torch.infer.pipeline import PoseDraws, estimate_pose_ensemble
+from cppf2_torch.infer.frontend import auto_crop, crop_origin
 from cppf2_torch.parallel.mesh import _require_group, axis_size, make_mesh, rank_device
 
 Lazy = Union[np.ndarray, InstanceDraws, Callable[[], object]]
@@ -50,12 +52,41 @@ def _get(x):
     return x() if callable(x) else x
 
 
-def _draws_on(d: InstanceDraws, dev) -> InstanceDraws:
-    def move(p):
-        return PoseDraws(*(t.to(dev) for t in p))
+def _make_rows_fn(models: CategoryModels, cat_name: str, pipe: PipelineConfig, mesh, run_opt: bool,
+                  use_visual: bool, use_geo: bool, intrinsics: np.ndarray, crop: Optional[int],
+                  axis: str):
+    """(depths, masks, draws) -> the (N, 22) rows of `driver.PendingInstance`
+    for the whole batch, on every rank, posed block by block over `axis`."""
+    _require_group()
+    cat = get_category(cat_name)
+    dev = rank_device(mesh)
+    check_pinhole(np.asarray(intrinsics))
+    k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
+    n_ranks, rank, group = axis_size(mesh, axis), mesh.get_local_rank(axis), mesh.get_group(axis)
 
-    pose = [move(p) for p in d.pose] if isinstance(d.pose, list) else move(d.pose)
-    return InstanceDraws(d.voxel_perm.to(dev), d.voxel_prio.to(dev), pose)
+    def one(depth, mask, draws: InstanceDraws):
+        mask = np.asarray(mask, bool)
+        origin = crop_origin(mask, mask.shape, crop) if crop is not None else None
+        fi, est = _pose_graph(torch.as_tensor(np.asarray(depth, np.float32), device=dev),
+                              torch.as_tensor(mask, device=dev), k_t, origin, crop, None, models,
+                              cat, pipe, _draws_on(draws, dev), run_opt, use_visual, use_geo)
+        return _pack(fi, est)
+
+    @torch.no_grad()
+    def fn(depths: Sequence[Lazy], masks: Sequence[Lazy], draws: Sequence[Lazy]) -> np.ndarray:
+        n = len(draws)
+        if n == 0 or len(depths) != n or len(masks) != n:
+            raise ValueError(f"batch of {len(depths)} depths, {len(masks)} masks, {n} draws")
+        per = -(-n // n_ranks)
+        lo, hi = min(rank * per, n), min((rank + 1) * per, n)
+        block = [one(_get(depths[i]), _get(masks[i]), _get(draws[i])) for i in range(lo, hi)]
+        # one host copy for the rank's block
+        block = torch.stack(block).cpu().numpy() if block else np.zeros((0, 22), np.float32)
+        blocks: List = [None] * n_ranks
+        dist.all_gather_object(blocks, block, group=group)
+        return np.concatenate(blocks)
+
+    return fn
 
 
 def make_batched_instance_fn(
@@ -82,40 +113,13 @@ def make_batched_instance_fn(
     (rotation (N, 3, 3), translation (N, 3), scale (N, 3), scale_norm (N,),
     loss (N,), count (N,), extent (N,)), the last two from the frontend.
     """
-    _require_group()
-    cat = get_category(cat_name)
-    dev = rank_device(mesh)
-    k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
-    n_ranks, rank, group = axis_size(mesh, axis), mesh.get_local_rank(axis), mesh.get_group(axis)
+    rows_fn = _make_rows_fn(models, cat_name, pipe, mesh, run_opt, use_visual, use_geo, intrinsics,
+                            crop, axis)
 
-    def one(depth, mask, draws: InstanceDraws):
-        draws = _draws_on(draws, dev)
-        fi = preprocess_frame(torch.as_tensor(np.asarray(depth, np.float32), device=dev),
-                              torch.as_tensor(np.asarray(mask, bool), device=dev), k_t,
-                              draws.voxel_perm, draws.voxel_prio, res=cat.res,
-                              n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop)
-        desc = torch.zeros((pipe.n_points, 1024), device=dev) if use_visual else None
-        est = estimate_pose_ensemble(
-            lambda pts, ti: models.dino(pts, desc, ti),
-            lambda pts, ti: models.shot(pts, fi.shot, fi.normal, ti),
-            fi.pc, fi.valid, fi.count, cat, pipe, draws=draws.pose, run_opt=run_opt,
-            use_visual=use_visual, use_geo=use_geo)
-        ext = torch.amax(_cloud_extent(fi.pc, fi.valid))
-        return tuple(x.cpu().numpy() for x in (est.rotation, est.translation, est.scale,
-                                               est.scale_norm, est.loss, fi.count, ext))
-
-    @torch.no_grad()
     def fn(depths: Sequence[Lazy], masks: Sequence[Lazy], draws: Sequence[Lazy]):
-        n = len(draws)
-        if n == 0 or len(depths) != n or len(masks) != n:
-            raise ValueError(f"batch of {len(depths)} depths, {len(masks)} masks, {n} draws")
-        per = -(-n // n_ranks)
-        lo, hi = min(rank * per, n), min((rank + 1) * per, n)
-        block = [one(_get(depths[i]), _get(masks[i]), _get(draws[i])) for i in range(lo, hi)]
-        blocks: List = [None] * n_ranks
-        dist.all_gather_object(blocks, block, group=group)
-        rows = [row for blk in blocks for row in blk]
-        return tuple(np.stack([row[k] for row in rows]) for k in range(7))
+        r = rows_fn(depths, masks, draws)
+        return (r[:, 4:13].reshape(-1, 3, 3), r[:, 13:16], r[:, 16:19], r[:, 19], r[:, 20],
+                r[:, 0].astype(np.int32), r[:, 1:4].max(axis=1))
 
     return fn
 
@@ -206,8 +210,8 @@ def evaluate_real275_parallel(
             continue
         if cat_name not in models:
             models.update(load_category_models(ckpt_root, [cat_name], device=dev))
-        fn = make_batched_instance_fn(models[cat_name], cat_name, pipe, mesh, run_opt=run_opt,
-                                      crop=crop)
+        fn = _make_rows_fn(models[cat_name], cat_name, pipe, mesh, run_opt, False, True,
+                           REAL275_INTRINSICS, crop, "data")
         bsz = n_dev * flush_multiple
         for lo in range(0, len(items), bsz):
             chunk = items[lo:lo + bsz]
@@ -216,16 +220,13 @@ def evaluate_real275_parallel(
             def depth(idx):
                 return read_png16(depth_paths[idx]).astype(np.float32) / 1000.0
 
-            rot, trans, scale, snorm, loss, count, ext = fn(
-                [functools.partial(depth, c[0]) for c in chunk], [c[2] for c in chunk],
-                [c[3] for c in chunk])
-            for j, (img_idx, inst_idx, _, _) in enumerate(chunk):
-                # degenerate guards, as in estimate_instance
-                if count[j] < 32 or ext[j] / CATEGORIES[cat_name].res > 1000:
-                    continue
-                rt, scales = _assemble_rt(rot[j], trans[j], scale[j], snorm[j])
-                results[img_idx]["pred_RTs"][inst_idx] = rt
-                results[img_idx]["pred_scales"][inst_idx] = scales
+            rows = fn([functools.partial(depth, c[0]) for c in chunk], [c[2] for c in chunk],
+                      [c[3] for c in chunk])
+            for row, (img_idx, inst_idx, _, _) in zip(rows, chunk):
+                out = _finalize_instance(CATEGORIES[cat_name].res, row)
+                if out is not None:
+                    res = results[img_idx]
+                    res["pred_RTs"][inst_idx], res["pred_scales"][inst_idx], _ = out
 
     # pass 3: rank 0 writes the pkls and scores them
     if dist.get_rank() != 0:

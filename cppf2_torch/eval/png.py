@@ -1,9 +1,11 @@
-"""Reader for 16-bit grayscale PNG files, such as the REAL275 depth maps.
+"""Reader for the PNG files of a REAL275 frame: the 16-bit grayscale depth
+map and the 8-bit colour image.
 
-The JAX driver reads depth with `cv2.imread(path, -1)`; this is the part of
-that call the evaluation uses, on zlib and numpy alone. It takes
-non-interlaced 16-bit grayscale images with any of the five PNG row filters
-and raises on every other format.
+The JAX driver reads them with `cv2.imread`; this is the part of that call
+the evaluation uses, on zlib and numpy alone. `read_png16` takes
+non-interlaced 16-bit grayscale images, `read_png_rgb8` non-interlaced 8-bit
+RGB or RGBA images (alpha dropped), each with any of the five PNG row
+filters; every other format raises.
 """
 
 from __future__ import annotations
@@ -14,7 +16,6 @@ import zlib
 import numpy as np
 
 _SIGNATURE = b"\x89PNG\r\n\x1a\n"
-_BPP = 2  # bytes per pixel of 16-bit grayscale
 
 
 def _chunks(data: bytes):
@@ -33,26 +34,28 @@ def _chunks(data: bytes):
     raise ValueError("PNG ends before its IEND chunk")
 
 
-def _unfilter_slow(kind: int, line: np.ndarray, prior: np.ndarray) -> np.ndarray:
+def _unfilter_slow(kind: int, line: np.ndarray, prior: np.ndarray, bpp: int) -> np.ndarray:
     """Average (3) and Paeth (4) rows: each byte depends on the byte one
-    pixel to its left, so they are undone byte by byte."""
+    pixel (`bpp` bytes) to its left, so they are undone byte by byte."""
     cur = line.tolist()
     up = prior.tolist()
     for i in range(len(cur)):
-        a = cur[i - _BPP] if i >= _BPP else 0
+        a = cur[i - bpp] if i >= bpp else 0
         b = up[i]
         if kind == 3:
             pred = (a + b) >> 1
         else:
-            c = up[i - _BPP] if i >= _BPP else 0
+            c = up[i - bpp] if i >= bpp else 0
             pa, pb, pc = abs(b - c), abs(a - c), abs(a + b - 2 * c)
             pred = a if pa <= pb and pa <= pc else (b if pb <= pc else c)
         cur[i] = (cur[i] + pred) & 0xFF
     return np.asarray(cur, np.uint8)
 
 
-def read_png16(path: str) -> np.ndarray:
-    """(H, W) uint16 pixels of a 16-bit grayscale PNG."""
+def _read_rows(path: str, formats) -> tuple:
+    """The unfiltered pixel bytes (h, w * bpp) of a non-interlaced PNG whose
+    (bit depth, colour type) is a key of `formats` (-> bytes per pixel), and
+    that key."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:len(_SIGNATURE)] != _SIGNATURE:
@@ -66,10 +69,12 @@ def read_png16(path: str) -> np.ndarray:
     if header is None:
         raise ValueError(f"{path}: PNG without IHDR")
     w, h, depth, color, compression, filtering, interlace = header
-    if (depth, color, compression, filtering, interlace) != (16, 0, 0, 0, 0):
-        raise ValueError(f"{path}: only non-interlaced 16-bit grayscale PNGs are read "
-                         f"(bit depth {depth}, color type {color}, interlace {interlace})")
-    stride = w * _BPP
+    if (depth, color) not in formats or (compression, filtering, interlace) != (0, 0, 0):
+        raise ValueError(f"{path}: only non-interlaced PNGs of (bit depth, colour type) in "
+                         f"{sorted(formats)} are read here (bit depth {depth}, colour type "
+                         f"{color}, interlace {interlace})")
+    bpp = formats[(depth, color)]
+    stride = w * bpp
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (stride + 1):
         raise ValueError(f"{path}: {raw.size} bytes of pixel data for a {w}x{h} image")
@@ -81,14 +86,27 @@ def read_png16(path: str) -> np.ndarray:
         if kind == 0:
             cur = line.copy()
         elif kind == 1:
-            lanes = np.cumsum(line.reshape(w, _BPP), axis=0, dtype=np.uint32)
+            lanes = np.cumsum(line.reshape(w, bpp), axis=0, dtype=np.uint32)
             cur = (lanes & 0xFF).astype(np.uint8).reshape(stride)
         elif kind == 2:
             cur = line + prior
         elif kind in (3, 4):
-            cur = _unfilter_slow(kind, line, prior)
+            cur = _unfilter_slow(kind, line, prior, bpp)
         else:
             raise ValueError(f"{path}: unknown PNG row filter {kind}")
         out[y] = cur
         prior = cur
+    return out, (depth, color)
+
+
+def read_png16(path: str) -> np.ndarray:
+    """(H, W) uint16 pixels of a 16-bit grayscale PNG."""
+    out, _ = _read_rows(path, {(16, 0): 2})
     return out.view(">u2").astype(np.uint16)
+
+
+def read_png_rgb8(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 RGB pixels of an 8-bit RGB or RGBA PNG (alpha dropped)."""
+    out, (_, color) = _read_rows(path, {(8, 2): 3, (8, 6): 4})
+    channels = 3 if color == 2 else 4
+    return np.ascontiguousarray(out.reshape(out.shape[0], -1, channels)[:, :, :3])

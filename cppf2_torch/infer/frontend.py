@@ -2,7 +2,10 @@
 
 Counterpart of `cppf2_tpu/infer/frontend.py::preprocess_frame` (reference
 eval.py:185-216) and of its host helpers `mask_bbox` / `auto_crop`. The
-crop-window origin is computed on the device and read back once, to slice.
+crop window is a slice, so its origin must be known on the host: a caller that
+holds the mask as a numpy array computes it there (`crop_origin`) and passes
+it in, and nothing is read back from the device; without it the origin is
+computed on the device and read back once.
 """
 
 from __future__ import annotations
@@ -44,6 +47,22 @@ def window_shape(hw: Tuple[int, int], crop: Optional[int]) -> Tuple[int, int]:
     return (h, w) if crop is None else (min(crop, h), min(crop, w))
 
 
+def crop_origin(mask: np.ndarray, hw: Tuple[int, int], crop: int) -> Tuple[int, int]:
+    """(y0, x0) of the crop x crop window centered on a host mask's bbox and
+    clamped into the (h, w) frame: the integer arithmetic `preprocess_frame`
+    does on the device when it is given no origin (an empty mask centers the
+    window on the frame)."""
+    h, w = hw
+    rows = np.flatnonzero(np.any(mask, axis=1))
+    cols = np.flatnonzero(np.any(mask, axis=0))
+    y_min, y_max = (int(rows[0]), int(rows[-1])) if rows.size else (h, -1)
+    x_min, x_max = (int(cols[0]), int(cols[-1])) if cols.size else (w, -1)
+    cy = min(max((y_min + y_max) // 2, 0), h - 1)
+    cx = min(max((x_min + x_max) // 2, 0), w - 1)
+    return (min(max(cy - crop // 2, 0), max(h - crop, 0)),
+            min(max(cx - crop // 2, 0), max(w - crop, 0)))
+
+
 class FrameInputs(NamedTuple):
     pc: torch.Tensor         # (n_max, 3)
     valid: torch.Tensor      # (n_max,)
@@ -52,6 +71,26 @@ class FrameInputs(NamedTuple):
     normal: torch.Tensor     # (n_max, 3)
     pixel_yx: torch.Tensor   # (n_max, 2) image pixels per point
     window_yx: torch.Tensor  # (2,) crop-window origin
+
+
+def _crop_origin_on_device(mask: torch.Tensor, c: int) -> Tuple[int, int]:
+    """`crop_origin` for a mask that lies on the device: one read back."""
+    h, w = mask.shape
+    dev = mask.device
+    rows = torch.any(mask, dim=1)
+    cols = torch.any(mask, dim=0)
+    ridx = torch.arange(h, device=dev)
+    cidx = torch.arange(w, device=dev)
+    y_min = torch.amin(torch.where(rows, ridx, h))
+    y_max = torch.amax(torch.where(rows, ridx, -1))
+    x_min = torch.amin(torch.where(cols, cidx, w))
+    x_max = torch.amax(torch.where(cols, cidx, -1))
+    cy = torch.clamp(torch.div(y_min + y_max, 2, rounding_mode="floor"), 0, h - 1)
+    cx = torch.clamp(torch.div(x_min + x_max, 2, rounding_mode="floor"), 0, w - 1)
+    y0t = torch.clamp(cy - c // 2, 0, max(h - c, 0))
+    x0t = torch.clamp(cx - c // 2, 0, max(w - c, 0))
+    y0, x0 = (int(v) for v in torch.stack([y0t, x0t]).tolist())
+    return y0, x0
 
 
 def preprocess_frame(
@@ -64,32 +103,23 @@ def preprocess_frame(
     n_max: int = 8192,
     shot_k: int = 64,
     crop: Optional[int] = None,
+    origin: Optional[Tuple[int, int]] = None,
 ) -> FrameInputs:
     """depth + mask -> padded downsampled cloud + SHOT features.
 
     With `crop`, a crop x crop window centered on the mask's bbox is cut out
     before backprojection (the caller picks `crop` with `auto_crop`). The
     voxel draws are sized for the window: `window_shape(depth.shape, crop)`
-    pixels.
+    pixels. `origin` is the window's (y0, x0) from `crop_origin` on the host
+    mask; given it, this function reads nothing back from the device.
+    `intrinsics` that already lie on the device are not validated here (that
+    would be a read back): they must have passed `check_pinhole` on the host.
     """
     dev = depth.device
     if crop is not None:
         h, w = depth.shape
-        c = crop
-        rows = torch.any(mask, dim=1)
-        cols = torch.any(mask, dim=0)
-        ridx = torch.arange(h, device=dev)
-        cidx = torch.arange(w, device=dev)
-        y_min = torch.amin(torch.where(rows, ridx, h))
-        y_max = torch.amax(torch.where(rows, ridx, -1))
-        x_min = torch.amin(torch.where(cols, cidx, w))
-        x_max = torch.amax(torch.where(cols, cidx, -1))
-        cy = torch.clamp(torch.div(y_min + y_max, 2, rounding_mode="floor"), 0, h - 1)
-        cx = torch.clamp(torch.div(x_min + x_max, 2, rounding_mode="floor"), 0, w - 1)
-        y0t = torch.clamp(cy - c // 2, 0, max(h - c, 0))
-        x0t = torch.clamp(cx - c // 2, 0, max(w - c, 0))
-        y0, x0 = (int(v) for v in torch.stack([y0t, x0t]).tolist())
-        ch, cw = window_shape((h, w), c)
+        y0, x0 = origin if origin is not None else _crop_origin_on_device(mask, crop)
+        ch, cw = window_shape((h, w), crop)
         depth = depth[y0:y0 + ch, x0:x0 + cw]
         mask = mask[y0:y0 + ch, x0:x0 + cw]
         intrinsics = intrinsics.clone()

@@ -48,15 +48,28 @@ class PoseDraws(NamedTuple):
 def draw_pose(cat: CategoryConfig, pipe: PipelineConfig, device,
               generator: Optional[torch.Generator] = None) -> PoseDraws:
     """One ensemble pass's draws from `generator` (gumbel = -log(-log(U)))."""
-    p, nb = pipe.num_pairs, pipe.num_bins
-    tiny = torch.finfo(torch.float32).tiny
+    shape = (pipe.num_pairs * 6, pipe.num_bins)
+    u = torch.rand((pipe.num_pairs, cat.tuple_size), generator=generator, device=device)
+    return PoseDraws(u, _gumbel(shape, device, generator), _gumbel(shape, device, generator))
 
-    def gumbel():
-        u = torch.rand((p * 6, nb), generator=generator, device=device).clamp_(min=tiny)
-        return -torch.log(-torch.log(u))
 
-    u = torch.rand((p, cat.tuple_size), generator=generator, device=device)
-    return PoseDraws(u, gumbel(), gumbel())
+class BranchDraws(NamedTuple):
+    """One single-branch pass's draws (`estimate_pose_branch_restarts`)."""
+
+    tuple_u: torch.Tensor  # (num_pairs, tuple_size) uniforms in [0, 1)
+    gumbel: torch.Tensor   # (num_pairs * 6, num_bins) Gumbel noise
+
+
+def _gumbel(shape, device, generator) -> torch.Tensor:
+    u = torch.rand(shape, generator=generator, device=device).clamp_(min=torch.finfo(torch.float32).tiny)
+    return -torch.log(-torch.log(u))
+
+
+def draw_branch(cat: CategoryConfig, pipe: PipelineConfig, device,
+                generator: Optional[torch.Generator] = None) -> BranchDraws:
+    """One single-branch pass's draws from `generator`."""
+    u = torch.rand((pipe.num_pairs, cat.tuple_size), generator=generator, device=device)
+    return BranchDraws(u, _gumbel((pipe.num_pairs * 6, pipe.num_bins), device, generator))
 
 
 class BranchPose(NamedTuple):
@@ -70,6 +83,12 @@ class BranchPose(NamedTuple):
 
 def _axis(v, device) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """x[i] for a 0-d index tensor, without reading i back to the host (plain
+    indexing with a 0-d tensor converts it to a Python int, a device sync)."""
+    return torch.index_select(x, 0, i.reshape(1)).squeeze(0)
 
 
 def _median0(x: torch.Tensor) -> torch.Tensor:
@@ -206,12 +225,63 @@ def _arbitrate(points, poses: List[BranchPose], scale_norm, up_sym: bool, arbite
             for pi in poses])
         score = torch.mean(lmat, dim=1)
         pick = torch.argmin(score)
-        return pick, score[pick]
+        return pick, _at(score, pick)
     if arbiter == "margin" and len(poses) > 1:
         pick = torch.where(own[0] <= own[1] - margin, 0, 1)
-        return pick, own[pick]
+        return pick, _at(own, pick)
     pick = torch.argmin(own)
-    return pick, own[pick]
+    return pick, _at(own, pick)
+
+
+def estimate_pose_branch(
+    branch_fn: BranchFn,
+    points: torch.Tensor,
+    point_valid: torch.Tensor,
+    count: torch.Tensor,
+    tuple_idx: torch.Tensor,
+    gumbel: torch.Tensor,
+    cat: CategoryConfig,
+    pipe: PipelineConfig,
+    run_opt: bool = True,
+) -> PoseEstimate:
+    """One branch's whole vote-and-align pipeline on given tuples, with its
+    own reconstruction loss (`pick` stays None: there is nothing to pick)."""
+    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(points.device)
+    preds = branch_fn(points, tuple_idx)
+    pose = _pose_from_preds(preds.logits, preds.scales, points, point_valid, count, tuple_idx,
+                            gumbel, cat, pipe, sphere_pts, run_opt)
+    scale_norm = norm(pose.scale)
+    loss = _recon_loss(points, pose, scale_norm, cat.up_sym, cat.up_axis_index)
+    return PoseEstimate(pose.rotation, pose.translation, pose.scale, scale_norm, loss)
+
+
+def estimate_pose_branch_restarts(
+    branch_fn: BranchFn,
+    points: torch.Tensor,
+    point_valid: torch.Tensor,
+    count: torch.Tensor,
+    cat: CategoryConfig,
+    pipe: PipelineConfig,
+    draws: Optional[Sequence[BranchDraws]] = None,
+    generator: Optional[torch.Generator] = None,
+    restarts: int = 3,
+    run_opt: bool = True,
+) -> PoseEstimate:
+    """Best of `restarts` independent passes of one branch: each pass takes
+    its own tuple sample and bin samples (`draws`, one BranchDraws per
+    restart, or drawn from `generator`), and the lowest clipped
+    reconstruction loss wins, the first on ties (eval.py:358-372). The passes
+    run one after another, so memory is that of one pass."""
+    if draws is None:
+        draws = [draw_branch(cat, pipe, points.device, generator) for _ in range(restarts)]
+    if len(draws) != restarts:
+        raise ValueError(f"expected {restarts} BranchDraws, got {len(draws)}")
+    ests = [estimate_pose_branch(branch_fn, points, point_valid, count,
+                                 masked_tuple_choice(d.tuple_u, count), d.gumbel, cat, pipe, run_opt)
+            for d in draws]
+    i = torch.argmin(torch.stack([e.loss for e in ests]))
+    return PoseEstimate(*(_at(torch.stack([getattr(e, f) for e in ests]), i)
+                          for f in PoseEstimate._fields[:5]))
 
 
 def estimate_pose_ensemble(
@@ -251,7 +321,8 @@ def estimate_pose_ensemble(
     if n_runs == 1:
         return ests[0]
     i = torch.argmin(torch.stack([e.loss for e in ests]))
-    return PoseEstimate(*(torch.stack([getattr(e, f) for e in ests])[i] for f in PoseEstimate._fields))
+    return PoseEstimate(*(_at(torch.stack([getattr(e, f) for e in ests]), i)
+                          for f in PoseEstimate._fields))
 
 
 def _ensemble_once(dino_fn, shot_fn, points, point_valid, count, cat, pipe, draws: PoseDraws,
@@ -273,6 +344,6 @@ def _ensemble_once(dino_fn, shot_fn, points, point_valid, count, cat, pipe, draw
                             pipe.arbiter_margin, cat.up_axis_index)
     branch_id = pick if use_visual else pick + 1
     return PoseEstimate(
-        torch.stack([p.rotation for p in poses])[pick],
-        torch.stack([p.translation for p in poses])[pick],
+        _at(torch.stack([p.rotation for p in poses]), pick),
+        _at(torch.stack([p.translation for p in poses]), pick),
         scale, scale_norm, loss, branch_id.to(torch.int32))

@@ -12,13 +12,26 @@ epsilon 1e-6, variance as E[x^2] - E[x]^2) are float32; linears compute in
 `cfg.compute_dtype`; GELU is the tanh form. The JAX "pallas" path pads the
 token axis to a multiple of its query block; padded rows never reach a real
 row (they are masked as keys), so the port does not pad.
+
+Every function here takes one image or a stack of them: the ViT takes
+(H, W, 3) or (B, H, W, 3), `bbox_crop_token_grid` one mask or (B, H, W)
+masks of one frame, so a frame's crops go through one forward (what the JAX
+driver gets from `jax.vmap`). K1 takes the (B, h, T, 64) views of the
+batched projection in one launch per block.
+
+`ViTConfig.attn_impl` picks the attention: "kernel" is K1, forward only, the
+default because every inference entry point runs it; "hbm" is the JAX
+package's default formulation in plain PyTorch, with its roundings, and is
+the route autograd can follow (training the backbone, `train/visual.py`).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import math
-from typing import Tuple
+import os
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,9 +57,15 @@ class ViTConfig:
     layerscale_init: float = 1e-5
     pretrain_grid: int = 37
     compute_dtype: str = "bfloat16"
+    # "kernel": K1 (`ops/attention.py`), forward only. "hbm": (T, T) logits in
+    # the compute dtype, exp in float32 rounded to the compute dtype, float32
+    # row sum divided after PV; plain PyTorch, differentiable.
+    attn_impl: str = "kernel"
 
 
 VIT_L14 = ViTConfig()
+VIT_S14 = ViTConfig(embed_dim=384, depth=12, num_heads=6)
+VIT_B14 = ViTConfig(embed_dim=768, depth=12, num_heads=12)
 
 
 class LayerNorm(nn.Module):
@@ -69,24 +88,34 @@ class LayerNorm(nn.Module):
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
+        if cfg.attn_impl not in ("kernel", "hbm"):
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} (expected 'kernel' or 'hbm')")
         dt = _DTYPES[cfg.compute_dtype]
         self.cfg = cfg
         self.qkv = Dense(cfg.embed_dim, 3 * cfg.embed_dim, dt)
         self.proj = Dense(cfg.embed_dim, cfg.embed_dim, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(T, D) tokens of one image, or (B, T, D) of B images."""
         d, h = self.cfg.embed_dim, self.cfg.num_heads
         hd = d // h
-        t = x.shape[0]
+        lead, t = x.shape[:-2], x.shape[-2]
         dt = _DTYPES[self.cfg.compute_dtype]
         q, k, v = torch.split(self.qkv(x), d, dim=-1)
-        qh = (q * (1.0 / math.sqrt(hd))).reshape(t, h, hd).transpose(0, 1)
-        kh = k.reshape(t, h, hd).transpose(0, 1)
-        vh = v.reshape(t, h, hd).transpose(0, 1)
-        bf = torch.bfloat16
-        # (h, T, hd) views of the projection's output: K1 reads them in place
-        o = attention.mha(qh.to(bf), kh.to(bf), vh.to(bf), t_real=t, out_dtype=dt)
-        return self.proj(o.transpose(0, 1).reshape(t, d).to(dt))
+        qh = (q * (1.0 / math.sqrt(hd))).reshape(*lead, t, h, hd).transpose(-3, -2)
+        kh = k.reshape(*lead, t, h, hd).transpose(-3, -2)
+        vh = v.reshape(*lead, t, h, hd).transpose(-3, -2)
+        if self.cfg.attn_impl == "kernel":
+            bf = torch.bfloat16
+            # ([B,] h, T, hd) views of the projection's output: K1 reads them in place
+            o = attention.mha(qh.to(bf), kh.to(bf), vh.to(bf), t_real=t, out_dtype=dt)
+        else:
+            logits = torch.matmul(qh, kh.transpose(-1, -2))
+            m = torch.amax(logits, dim=-1, keepdim=True).detach()
+            e = torch.exp((logits - m).float()).to(dt)
+            s = torch.sum(e.float(), dim=-1, keepdim=True)
+            o = torch.matmul(e.float(), vh.float()) / s
+        return self.proj(o.transpose(-3, -2).reshape(*lead, t, d).to(dt))
 
 
 class Block(nn.Module):
@@ -134,7 +163,8 @@ def cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 class DinoViT(nn.Module):
-    """(H, W, 3) image in [0, 1] -> (H/p, W/p, D) normed patch tokens."""
+    """(H, W, 3) image in [0, 1] -> (H/p, W/p, D) normed patch tokens; a
+    (B, H, W, 3) stack of images -> (B, H/p, W/p, D)."""
 
     def __init__(self, cfg: ViTConfig = VIT_L14):
         super().__init__()
@@ -188,17 +218,20 @@ class DinoViT(nn.Module):
     def forward(self, img: torch.Tensor) -> torch.Tensor:
         c = self.cfg
         p = c.patch_size
-        gh, gw = img.shape[0] // p, img.shape[1] // p
+        lead = img.shape[:-3]
+        gh, gw = img.shape[-3] // p, img.shape[-2] // p
         mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
         std = torch.as_tensor(IMAGENET_STD, device=img.device)
         x = (img - mean) / std
-        patches = x.reshape(gh, p, gw, p, 3).permute(0, 2, 1, 3, 4).reshape(gh * gw, p * p * 3)
+        patches = x.reshape(*lead, gh, p, gw, p, 3).transpose(-4, -3).reshape(
+            *lead, gh * gw, p * p * 3)
         x = self.patch_embed(patches) + self._pos_patch(gh, gw)
-        tokens = torch.cat([self.cls_token + self.pos_embed[:1], x], dim=0).float()
+        cls = (self.cls_token + self.pos_embed[:1]).expand(*lead, 1, c.embed_dim)
+        tokens = torch.cat([cls, x], dim=-2).float()
         for blk in self.blocks:
             tokens = blk(tokens)
         tokens = self.norm(tokens)
-        return tokens[1:].reshape(gh, gw, c.embed_dim)
+        return tokens[..., 1:, :].reshape(*lead, gh, gw, c.embed_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -218,14 +251,14 @@ def _linear_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
 
 
 def resize_bilinear_matmul(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
-    """Bilinear upscale (H, W, C) -> (oh, ow, C) as two float32 products."""
-    h, w, _ = img.shape
+    """Bilinear upscale ([B,] H, W, C) -> ([B,] oh, ow, C) as two float32 products."""
+    h, w = img.shape[-3:-1]
     if oh < h or ow < w:
         raise ValueError(f"resize_bilinear_matmul is upscale-only ({h}x{w} -> {oh}x{ow})")
     rh = torch.from_numpy(_linear_resize_matrix(h, oh)).to(img.device)
     rw = torch.from_numpy(_linear_resize_matrix(w, ow)).to(img.device)
-    t1 = torch.einsum("oh,hwc->owc", rh, img)
-    return torch.einsum("pw,owc->opc", rw, t1)
+    t1 = torch.einsum("oh,...hwc->...owc", rh, img)
+    return torch.einsum("pw,...owc->...opc", rw, t1)
 
 
 def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
@@ -258,54 +291,71 @@ def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
 
 
 def _hat_sample_matrix(src_coords: torch.Tensor, n_src: int) -> torch.Tensor:
-    """(n_dst, n_src) two-tap bilinear weights max(0, 1 - |src - j|)."""
+    """([B,] n_dst, n_src) two-tap bilinear weights max(0, 1 - |src - j|)."""
     src = torch.arange(n_src, dtype=torch.float32, device=src_coords.device)
-    return torch.clamp(1.0 - torch.abs(src_coords[:, None] - src[None, :]), min=0.0)
+    return torch.clamp(1.0 - torch.abs(src_coords[..., None] - src), min=0.0)
 
 
 def bbox_crop_transform(mask: torch.Tensor, out_size: int, padding: float = 0.0) -> torch.Tensor:
     """(tx, ty, s): crop pixel (x, y) samples the image at (s*x + tx, s*y + ty),
-    from the mask's bbox squared and centered (dataset.py:322-337)."""
-    h, w = mask.shape
+    from the mask's bbox squared and centered (dataset.py:322-337). A
+    (B, H, W) stack of masks gives (B, 3)."""
+    h, w = mask.shape[-2:]
     dev = mask.device
-    xs, ys = torch.any(mask, dim=0), torch.any(mask, dim=1)
+    xs, ys = torch.any(mask, dim=-2), torch.any(mask, dim=-1)
     ix = torch.arange(w, device=dev)
     iy = torch.arange(h, device=dev)
-    left = torch.amin(torch.where(xs, ix, w))
-    right = torch.amax(torch.where(xs, ix, -1)) + 1
-    top = torch.amin(torch.where(ys, iy, h))
-    bottom = torch.amax(torch.where(ys, iy, -1)) + 1
+    left = torch.amin(torch.where(xs, ix, w), dim=-1)
+    right = torch.amax(torch.where(xs, ix, -1), dim=-1) + 1
+    top = torch.amin(torch.where(ys, iy, h), dim=-1)
+    bottom = torch.amax(torch.where(ys, iy, -1), dim=-1) + 1
     size = torch.maximum(right - left, bottom - top).to(torch.float32) * (1.0 + padding)
     cx = (right + left).to(torch.float32) / 2.0
     cy = (bottom + top).to(torch.float32) / 2.0
     s = size / out_size
-    return torch.stack([cx - s * (out_size / 2.0), cy - s * (out_size / 2.0), s])
+    return torch.stack([cx - s * (out_size / 2.0), cy - s * (out_size / 2.0), s], dim=-1)
+
+
+def bbox_crop_image(rgb: torch.Tensor, mask: torch.Tensor, out_size: int = 256,
+                    padding: float = 0.0):
+    """The masked frame warped to the mask's bbox square at out_size x
+    out_size (two hat-weight products, zero outside the frame), and the
+    transform (tx, ty, s). A (B, H, W) stack of masks gives (B, out, out, 3)
+    and (B, 3)."""
+    h, w = rgb.shape[:2]
+    img = rgb * mask[..., None].to(rgb.dtype)
+    txys = bbox_crop_transform(mask, out_size, padding)
+    tx, ty, s = txys[..., 0:1], txys[..., 1:2], txys[..., 2:3]
+    i = torch.arange(out_size, dtype=torch.float32, device=rgb.device)
+    ry = _hat_sample_matrix(s * i + ty, h)
+    rx = _hat_sample_matrix(s * i + tx, w)
+    crop = torch.einsum("...oh,...hwc->...owc", ry, img)
+    return torch.einsum("...pw,...owc->...opc", rx, crop), txys
 
 
 def bbox_crop_token_grid(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
                          out_size: int = 256, stride: int = 8, padding: float = 0.0):
     """Masked bbox-square warp + resize + ViT forward.
-    Returns (token grid (out/stride, out/stride, D), (tx, ty, s))."""
-    h, w = rgb.shape[:2]
-    img = rgb * mask[..., None].to(rgb.dtype)
-    txys = bbox_crop_transform(mask, out_size, padding)
-    tx, ty, s = txys[0], txys[1], txys[2]
-    i = torch.arange(out_size, dtype=torch.float32, device=rgb.device)
-    ry = _hat_sample_matrix(s * i + ty, h)
-    rx = _hat_sample_matrix(s * i + tx, w)
-    crop = torch.einsum("oh,hwc->owc", ry, img)
-    crop = torch.einsum("pw,owc->opc", rx, crop)
+    Returns (token grid (out/stride, out/stride, D), (tx, ty, s)). With a
+    (B, H, W) stack of masks of the one frame `rgb`, every crop goes through
+    one ViT forward: grids (B, out/stride, out/stride, D) and (B, 3)."""
+    crop, txys = bbox_crop_image(rgb, mask, out_size, padding)
     ph = pw = out_size // stride
     resized = resize_bilinear_matmul(crop, ph * 14, pw * 14)
     return model(resized), txys
 
 
+def crop_keypoints(pixel_yx: torch.Tensor, txys: torch.Tensor) -> torch.Tensor:
+    """(n, 2) image pixels (y, x) as float (x, y) positions in the crop of
+    transform `txys`."""
+    kp = pixel_yx.flip(-1).to(torch.float32)
+    return (kp - txys[None, :2]) / txys[2]
+
+
 def sample_crop_descriptors(grid: torch.Tensor, pixel_yx: torch.Tensor, txys: torch.Tensor,
                             out_size: int = 256) -> torch.Tensor:
     """Bilinear token sampling of a crop grid at the cloud's image pixels."""
-    kp = pixel_yx.flip(-1).to(torch.float32)
-    kp_local = (kp - txys[None, :2]) / txys[2]
-    return interpolate_features(grid, kp_local, (out_size, out_size))
+    return interpolate_features(grid, crop_keypoints(pixel_yx, txys), (out_size, out_size))
 
 
 def bbox_crop_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
@@ -316,3 +366,52 @@ def bbox_crop_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
     grid, txys = bbox_crop_token_grid(model, rgb, mask, out_size, stride, padding)
     return sample_crop_descriptors(grid, pixel_yx, txys, out_size)
 
+
+# ---------------------------------------------------------------------------
+# A trained backbone on disk (counterpart of save_backbone / load_backbone)
+# ---------------------------------------------------------------------------
+
+def save_backbone(prefix: str, model: DinoViT, stride: int = 8, out_size: int = 256) -> str:
+    """Write `model` as `{prefix}.msgpack` (flax layout, float32, the blocks
+    stacked on a depth axis) and `{prefix}.json` (the architecture and the
+    descriptor convention it was trained with). The JAX package's
+    `load_backbone` reads the pair, and this module's reads what that
+    package's `save_backbone` wrote. Compute dtype and attention
+    implementation are choices of the loader and are not stored."""
+    from cppf2_torch.models.checkpoints import dumps_msgpack
+    from cppf2_torch.models.porting import vit_to_tree
+
+    d = os.path.dirname(prefix)
+    if d:
+        os.makedirs(d, exist_ok=True)
+    with open(prefix + ".msgpack", "wb") as f:
+        f.write(dumps_msgpack(vit_to_tree(model)))
+    cfg = model.cfg
+    meta = {
+        "patch_size": cfg.patch_size, "embed_dim": cfg.embed_dim,
+        "depth": cfg.depth, "num_heads": cfg.num_heads,
+        "mlp_ratio": cfg.mlp_ratio, "layerscale_init": cfg.layerscale_init,
+        "pretrain_grid": cfg.pretrain_grid,
+        "stride": stride, "out_size": out_size,
+    }
+    with open(prefix + ".json", "w") as f:
+        json.dump(meta, f, indent=1)
+    return prefix + ".msgpack"
+
+
+def load_backbone(prefix: str, device="cpu", **cfg_overrides) -> Optional[tuple]:
+    """Read a `save_backbone` pair. Returns (DinoViT on `device`, cfg, stride,
+    out_size), or None when there is no such file. `cfg_overrides` set the
+    loader's choices (compute_dtype, attn_impl)."""
+    from cppf2_torch.models.checkpoints import load_params_msgpack
+    from cppf2_torch.models.porting import load_vit
+
+    if not os.path.exists(prefix + ".msgpack"):
+        return None
+    with open(prefix + ".json") as f:
+        meta = json.load(f)
+    stride = int(meta.pop("stride"))
+    out_size = int(meta.pop("out_size"))
+    cfg = ViTConfig(**meta, **cfg_overrides)
+    model = load_vit(DinoViT(cfg), load_params_msgpack(prefix + ".msgpack"))
+    return model.to(device), cfg, stride, out_size

@@ -1,4 +1,5 @@
-"""Weight carry: the JAX package's parameter trees into the port's modules.
+"""Weight carry: the JAX package's parameter trees into the port's modules,
+and back (`branch_to_tree`, `vit_to_tree`, `load_train_state`).
 
 A tree is nested dicts of numpy arrays (as `models/checkpoints.py` reads
 them from disk, or as `jax.device_get` returns them), with or without the
@@ -83,3 +84,117 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
                          (b.mlp_fc1, blk["mlp_fc1"]), (b.mlp_fc2, blk["mlp_fc2"])):
             _dense(lin, {"kernel": at(src["kernel"]), "bias": at(src["bias"])})
     return module
+
+
+# ---------------------------------------------------------------------------
+# The way back: modules into flax-layout trees
+# ---------------------------------------------------------------------------
+
+def _np(x: torch.Tensor) -> np.ndarray:
+    return x.detach().to(device="cpu", dtype=torch.float32).numpy().copy()
+
+
+def _dense_tree(lin: nn.Linear) -> Dict[str, Any]:
+    return {"kernel": _np(lin.weight).T.copy(), "bias": _np(lin.bias)}
+
+
+def _res_mlp_tree(mlp: nn.Module) -> Dict[str, Any]:
+    out = {}
+    for i in range(mlp.depth):
+        layer = getattr(mlp, f"res{i}")
+        lp = {"fc1": _dense_tree(layer.fc1), "fc2": _dense_tree(layer.fc2)}
+        if layer.proj is not None:
+            lp["proj"] = _dense_tree(layer.proj)
+        out[f"res{i}"] = lp
+    return out
+
+
+def branch_to_tree(module: nn.Module) -> Dict[str, Any]:
+    """The flax tree {"params": ...} of a ShotBranch / DinoBranch, float32:
+    the inverse of `load_branch`."""
+    p = {"tuple_encoder": _res_mlp_tree(module.tuple_encoder),
+         "heads": {"logit_encoder": _res_mlp_tree(module.heads.logit_encoder),
+                   "scale_encoder": _res_mlp_tree(module.heads.scale_encoder)}}
+    if hasattr(module, "shot_encoder"):
+        p["shot_encoder"] = _res_mlp_tree(module.shot_encoder)
+    else:
+        p["desc_transform"] = _dense_tree(module.desc_transform)
+        p["desc_pair_transform"] = _dense_tree(module.desc_pair_transform)
+    return {"params": p}
+
+
+def vit_to_tree(module: nn.Module) -> Dict[str, Any]:
+    """The flax tree {"params": ...} of a DinoViT, float32, the blocks stacked
+    on a leading depth axis: the inverse of `load_vit`."""
+    c = module.cfg
+    p, d = c.patch_size, c.embed_dim
+
+    def stack(get):
+        return np.stack([get(b) for b in module.blocks])
+
+    def dense(get):
+        return {"kernel": stack(lambda b: _np(get(b).weight).T), "bias": stack(lambda b: _np(get(b).bias))}
+
+    def ln(get):
+        return {"scale": stack(lambda b: _np(get(b).weight)), "bias": stack(lambda b: _np(get(b).bias))}
+
+    return {"params": {
+        "patch_embed": {"kernel": _np(module.patch_embed.weight).T.reshape(p, p, 3, d).copy(),
+                        "bias": _np(module.patch_embed.bias)},
+        "cls_token": _np(module.cls_token),
+        "pos_embed": _np(module.pos_embed),
+        "norm": {"scale": _np(module.norm.weight), "bias": _np(module.norm.bias)},
+        "blocks": {
+            "norm1": ln(lambda b: b.norm1), "norm2": ln(lambda b: b.norm2),
+            "ls1": stack(lambda b: _np(b.ls1)), "ls2": stack(lambda b: _np(b.ls2)),
+            "attn": {"qkv": dense(lambda b: b.attn.qkv), "proj": dense(lambda b: b.attn.proj)},
+            "mlp_fc1": dense(lambda b: b.mlp_fc1), "mlp_fc2": dense(lambda b: b.mlp_fc2),
+        },
+    }}
+
+
+def load_tree(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
+    """`load_branch`, `load_vit`, or both for a {"backbone", "branch"} tree
+    into a module with those two children (the end-to-end visual model)."""
+    if "backbone" in tree and "branch" in tree:
+        load_vit(module.backbone, tree["backbone"])
+        load_branch(module.branch, tree["branch"])
+        return module
+    return (load_vit if hasattr(module, "patch_embed") else load_branch)(module, tree)
+
+
+def module_to_tree(module: nn.Module) -> Dict[str, Any]:
+    """The inverse of `load_tree`."""
+    if hasattr(module, "backbone") and hasattr(module, "branch"):
+        return {"backbone": vit_to_tree(module.backbone), "branch": branch_to_tree(module.branch)}
+    return (vit_to_tree if hasattr(module, "patch_embed") else branch_to_tree)(module)
+
+
+def load_train_state(state, params: Dict[str, Any], mu: Dict[str, Any], nu: Dict[str, Any],
+                     count: int):
+    """Parameters, Adam's moments and the step count from flax-layout numpy
+    trees (optax's `ScaleByAdamState.mu`, `.nu`, `.count`) into a
+    `train.loop.TrainState` (its module, its Adam or AdamW optimizer over the
+    module's parameters, its scheduler), in place. The moments go through the
+    same layout mapping as the parameters. Returns the state."""
+    import copy
+
+    module, optimizer = state.module, state.optimizer
+    load_tree(module, params)
+    moments = []
+    for tree in (mu, nu):
+        shadow = copy.deepcopy(module)
+        load_tree(shadow, tree)
+        moments.append(dict(shadow.named_parameters()))
+    for name, prm in module.named_parameters():
+        st = optimizer.state[prm]
+        st["step"] = torch.tensor(float(count))
+        st["exp_avg"] = moments[0][name].detach().to(prm.device, prm.dtype).clone()
+        st["exp_avg_sq"] = moments[1][name].detach().to(prm.device, prm.dtype).clone()
+    state.step = int(count)
+    sched = state.scheduler
+    sched.last_epoch = int(count)
+    for group, base, fn in zip(optimizer.param_groups, sched.base_lrs, sched.lr_lambdas):
+        group["lr"] = base * fn(int(count))
+    sched._last_lr = [g["lr"] for g in optimizer.param_groups]
+    return state

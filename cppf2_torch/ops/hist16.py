@@ -49,7 +49,8 @@ _scratch: Dict[int, List] = {}   # device index -> [zeroed counts and ticket, th
 def _quantize(cand, ok, lo, cell):
     f = torch.floor((cand - lo) / cell + 0.5)
     inside = torch.all((f >= 0) & (f < _G), dim=-1) & ok
-    ids = torch.clamp(f, 0, _G - 1).to(torch.int64)
+    # a vote of an empty cloud is NaN: it is not inside, and its id must still be a valid index
+    ids = torch.clamp(torch.nan_to_num(f, nan=0.0), 0, _G - 1).to(torch.int64)
     flat = (ids[:, 0] * _G + ids[:, 1]) * _G + ids[:, 2]
     return flat, inside
 

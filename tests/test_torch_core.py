@@ -11,11 +11,13 @@ import torch
 
 import cppf2_torch.config as tconfig
 import cppf2_tpu.config as jconfig
+from cppf2_torch.core import binning as tbin
 from cppf2_torch.core import downsample as tds
 from cppf2_torch.core import geometry as tgeo
 from cppf2_torch.core import pairs as tpairs
 from cppf2_torch.models.checkpoints import load_params_msgpack as t_load_msgpack
 from cppf2_torch.ops.sampling import masked_tuple_choice as t_tuple_choice
+from cppf2_tpu.core import binning as jbin
 from cppf2_tpu.core import downsample as jds
 from cppf2_tpu.core import geometry as jgeo
 from cppf2_tpu.core import pairs as jpairs
@@ -38,6 +40,33 @@ def test_config_copy_is_identical():
     assert set(tconfig.CATEGORIES) == set(jconfig.CATEGORIES)
     for name in jconfig.CATEGORIES:
         assert dataclasses.asdict(tconfig.CATEGORIES[name]) == dataclasses.asdict(jconfig.CATEGORIES[name])
+    assert [f.name for f in dataclasses.fields(tconfig.TrainConfig)] == \
+        [f.name for f in dataclasses.fields(jconfig.TrainConfig)]
+    assert dataclasses.asdict(tconfig.TrainConfig()) == dataclasses.asdict(jconfig.TrainConfig())
+
+
+@pytest.mark.parametrize("circular", [False, True], ids=["linear", "circular"])
+@pytest.mark.parametrize("num_bins", [32, 5])
+def test_binning_codecs_match_jax(circular, num_bins):
+    """real2prob / prob2real, atol 1e-6: values on bin edges, at both ends of
+    the range and, circular, on both sides of the wrap."""
+    rng = np.random.default_rng(num_bins)
+    max_val = 2 * np.pi if circular else 1.0
+    step = max_val / (num_bins if circular else num_bins - 1)
+    val = np.concatenate([rng.uniform(0, max_val, (7, 9)).ravel(), [0.0, max_val, step, 3 * step,
+                          step / 2, step / 2 - 1e-4, max_val - step / 2, max_val - 1e-5]]).astype(np.float32)
+    want = np.array(jbin.real2prob(jnp.asarray(val), max_val, num_bins, circular))
+    got = tbin.real2prob(t(val), max_val, num_bins, circular).numpy()
+    assert got.shape == want.shape == (len(val), num_bins)
+    np.testing.assert_allclose(got, want, atol=1e-6)
+    np.testing.assert_allclose(got.sum(-1), 1.0, atol=1e-6)
+    prob = rng.dirichlet(np.ones(num_bins), size=20).astype(np.float32)
+    for p in (prob, want):
+        np.testing.assert_allclose(tbin.prob2real(t(p), max_val, num_bins, circular).numpy(),
+                                   np.asarray(jbin.prob2real(jnp.asarray(p), max_val, num_bins, circular)),
+                                   atol=1e-6)
+    if not circular:   # the linear codec inverts itself; the circular mean of two bins does not
+        np.testing.assert_allclose(tbin.prob2real(t(got), max_val, num_bins).numpy(), val, atol=2e-5)
 
 
 def _depth_frame(rng, h=48, w=64):

@@ -133,3 +133,62 @@ def test_cast_for_inference_matches_extractor_cast():
     with torch.no_grad():
         got = tm(torch.from_numpy(img)).numpy()
     np.testing.assert_allclose(got, want, atol=0.1)
+
+
+@pytest.mark.parametrize("attn_impl", ["kernel", "hbm"])
+def test_batched_forward_equals_single_images_and_jax_vmap(attn_impl):
+    """(B, H, W, 3) through one forward against B single-image forwards,
+    atol 1e-5 (f32), and against jax.vmap of the JAX ViT: "kernel" (K1's
+    plain version here) against the Pallas path atol 2e-3, "hbm" against the
+    reference's default formulation atol 1e-4 (both f32, no bf16 rounding)."""
+    jm, params, tm = _models("float32", "pallas" if attn_impl == "kernel" else "hbm")
+    tm = load_vit(tdino.DinoViT(tdino.ViTConfig(**{**tm.cfg.__dict__, "attn_impl": attn_impl})),
+                  jax.device_get(params))
+    imgs = np.stack([_img(seed=s) for s in range(3)])
+    want = np.asarray(jax.vmap(lambda im: jm.apply(params, im))(jnp.asarray(imgs)))
+    with torch.no_grad():
+        got = tm(torch.from_numpy(imgs)).numpy()
+        singles = np.stack([tm(torch.from_numpy(im)).numpy() for im in imgs])
+    assert got.shape == want.shape == (3, 5, 6, 64)
+    np.testing.assert_allclose(got, singles, atol=1e-5)
+    np.testing.assert_allclose(got, want, atol=2e-3 if attn_impl == "kernel" else 1e-4)
+
+
+def test_hbm_attention_is_differentiable_and_kernel_is_not():
+    """Gradients reach the patch embedding through "hbm"; through "kernel"
+    the forward raises instead of cutting the graph."""
+    _, params, _ = _models("float32", "hbm")
+    cfg = tdino.ViTConfig(embed_dim=64, depth=2, num_heads=4, layerscale_init=1.0,
+                          compute_dtype="float32", attn_impl="hbm")
+    tm = load_vit(tdino.DinoViT(cfg), jax.device_get(params))
+    tm(torch.from_numpy(_img((56, 56)))).square().sum().backward()
+    assert float(tm.patch_embed.weight.grad.abs().max()) > 0
+    assert float(tm.blocks[0].attn.qkv.weight.grad.abs().max()) > 0
+    with pytest.raises(ValueError):
+        tdino.DinoViT(tdino.ViTConfig(embed_dim=64, depth=1, num_heads=1, attn_impl="flash"))
+    assert (tdino.VIT_S14.embed_dim, tdino.VIT_S14.depth, tdino.VIT_S14.num_heads) == \
+        (jdino.VIT_S14.embed_dim, jdino.VIT_S14.depth, jdino.VIT_S14.num_heads)
+    assert (tdino.VIT_B14.embed_dim, tdino.VIT_B14.depth, tdino.VIT_B14.num_heads) == \
+        (jdino.VIT_B14.embed_dim, jdino.VIT_B14.depth, jdino.VIT_B14.num_heads)
+
+
+def test_bbox_crop_token_grid_takes_a_stack_of_masks():
+    """One call on (B, H, W) masks of a frame against B calls, atol 1e-5, and
+    against jax.vmap over the masks (`cppf2_tpu/eval/driver.py:380-385`),
+    atol 2e-3; the transforms exactly."""
+    jm, params, tm = _models("float32", "pallas")
+    rgb, mask, _ = _frame()
+    masks = np.stack([mask, np.roll(mask, (7, -20), (0, 1)), mask & (np.mgrid[0:60, 0:80][1] < 50)])
+    grids_j, txys_j = jax.vmap(lambda m: jdino.bbox_crop_token_grid(
+        jm, params, jnp.asarray(rgb), m, out_size=32, stride=8))(jnp.asarray(masks))
+    with torch.no_grad():
+        grids, txys = tdino.bbox_crop_token_grid(tm, torch.from_numpy(rgb), torch.from_numpy(masks),
+                                                 out_size=32, stride=8)
+        for i in range(3):
+            g1, t1 = tdino.bbox_crop_token_grid(tm, torch.from_numpy(rgb), torch.from_numpy(masks[i]),
+                                                out_size=32, stride=8)
+            np.testing.assert_allclose(grids[i].numpy(), g1.numpy(), atol=1e-5)
+            assert torch.equal(txys[i], t1)
+    assert grids.shape == (3, 4, 4, 64) and txys.shape == (3, 3)
+    np.testing.assert_array_equal(txys.numpy(), np.asarray(txys_j))
+    np.testing.assert_allclose(grids.numpy(), np.asarray(grids_j), atol=2e-3)

@@ -19,10 +19,12 @@ from cppf2_torch.eval import driver as tdriver
 from cppf2_torch.eval import iou3d as tiou
 from cppf2_torch.eval import nocs_map as tmap
 from cppf2_torch.eval import pose_errors as terr
-from cppf2_torch.eval.png import read_png16
+from cppf2_torch.eval import nocs_data as tnocs
+from cppf2_torch.eval.png import read_png16, read_png_rgb8
 from cppf2_torch.infer.frontend import auto_crop, window_shape
 from cppf2_tpu.eval import driver as jdriver
 from cppf2_tpu.eval import iou3d as jiou
+from cppf2_tpu.eval import nocs_data as jnocs
 from cppf2_tpu.eval import nocs_map as jmap
 from cppf2_tpu.eval import pose_errors as jerr
 from test_torch_parallel import run_ranks
@@ -170,6 +172,70 @@ def test_png_reader_refuses_other_formats(tmp_path):
     cv2.imwrite(path, np.zeros((4, 5), np.uint8))
     with pytest.raises(ValueError):
         read_png16(path)
+
+
+@pytest.mark.parametrize("kind", ["smooth", "noise", "alpha", "tiny"])
+def test_png_rgb_reader_matches_cv2(kind, tmp_path):
+    """8-bit colour PNGs written by cv2 (RGB and RGBA) read back as RGB, bit
+    for bit; cv2 hands back BGR, as the JAX driver then reverses."""
+    rng = np.random.default_rng(2)
+    ys, xs = np.mgrid[0:240, 0:320]
+    if kind == "tiny":
+        img = rng.integers(0, 256, (5, 7, 3))
+    elif kind == "noise":
+        img = rng.integers(0, 256, (240, 320, 3))
+    else:
+        img = np.stack([128 + 100 * np.sin(xs / (20.0 + 9 * c)) * np.cos(ys / 23.0)
+                        + rng.normal(0, 2, xs.shape) for c in range(3)], -1)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    path = str(tmp_path / "c.png")
+    if kind == "alpha":
+        alpha = rng.integers(0, 256, img.shape[:2] + (1,)).astype(np.uint8)
+        cv2.imwrite(path, np.concatenate([img[:, :, ::-1], alpha], -1))
+    else:
+        cv2.imwrite(path, img[:, :, ::-1])
+    got = read_png_rgb8(path)
+    assert got.dtype == np.uint8 and got.flags["C_CONTIGUOUS"]
+    np.testing.assert_array_equal(got, cv2.imread(path)[:, :, ::-1])
+    np.testing.assert_array_equal(got, img)
+
+
+def test_png_rgb_reader_refuses_other_formats(tmp_path):
+    path = str(tmp_path / "x.png")
+    cv2.imwrite(path, np.zeros((4, 5), np.uint8))
+    with pytest.raises(ValueError):
+        read_png_rgb8(path)
+    cv2.imwrite(path, np.zeros((4, 5, 3), np.uint16))
+    with pytest.raises(ValueError):
+        read_png_rgb8(path)
+    with pytest.raises(FileNotFoundError):
+        read_png_rgb8(str(tmp_path / "missing.png"))
+
+
+def test_nocs_data_copy_matches_jax(tmp_path):
+    """`parse_meta` / `process_data`: the port's copy gives the JAX module's arrays."""
+    rng = np.random.default_rng(3)
+    mask_im = np.full((40, 50), 255, np.uint8)
+    mask_im[5:15, 5:20], mask_im[20:35, 10:30], mask_im[2:6, 40:48] = 1, 2, 3
+    coord = rng.integers(0, 256, (40, 50, 3)).astype(np.uint8)
+    root = tmp_path / "obj_models"
+    (root / "real_test").mkdir(parents=True)
+    (root / "val" / "02876657" / "abc").mkdir(parents=True)
+    np.savetxt(root / "real_test" / "mug_x_norm.txt", [0.1, 0.2, 0.3])
+    np.savetxt(root / "val" / "02876657" / "abc" / "bbox.txt", [[0.3, 0.4, 0.2], [-0.3, -0.4, -0.2]])
+    meta = tmp_path / "meta.txt"
+    meta.write_text("1 6 mug_x_norm\n2 1 02876657 abc\n3 0 ignored_bg\n\n")
+    inst = {1: 6, 2: 1, 3: 0}
+    for models_root in (str(root), None):
+        got = tnocs.process_data(mask_im, coord, inst, str(meta), models_root)
+        want = jnocs.process_data(mask_im, coord, inst, str(meta), models_root)
+        assert got[0].shape == (40, 50, 2)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+    assert [e[:2] for e in tnocs.parse_meta(str(meta))] == [e[:2] for e in jnocs.parse_meta(str(meta))]
+    with pytest.raises(ValueError):
+        tnocs.process_data(np.zeros((4, 4), np.uint8), coord[:4, :4], inst, str(meta))
 
 
 # ---------------------------------------------------------------------------
@@ -377,3 +443,63 @@ def test_evaluate_world2_matches_jax(mini_real275, tmp_path, python_iou):
     with open(tmp_path / "jax" / "results_scene_1_0000.pkl", "rb") as f:
         res_j = pickle.load(f)
     np.testing.assert_allclose(res_t["pred_RTs"][:, :3, 3], res_j["pred_RTs"][:, :3, 3], atol=5e-3)
+
+
+# ---------------------------------------------------------------------------
+# the serial frame driver
+# ---------------------------------------------------------------------------
+
+def test_evaluate_real275_matches_jax_driver(mini_real275, tmp_path, python_iou, capsys, monkeypatch):
+    """`evaluate_real275` (geometry only: no backbone given) against the JAX
+    driver on the same folder, the draws of the JAX driver's keys injected
+    (`driver.py:771`, `:579-580`): AP tables within atol 0.05, translations
+    within 5 mm, as the parallel evaluators are held. Both sides run the
+    ckpts_r3 branches in float32 (the JAX driver's loader is wrapped for
+    that): in bf16 the two packages' matmuls round differently, and on this
+    frame and these keys that moves one instance's vote peak by 3 cm, which
+    says nothing about the driver."""
+    from cppf2_torch.config import PipelineConfig as TPipe
+    from cppf2_torch.infer.pipeline import PoseDraws
+    from cppf2_tpu.config import PipelineConfig as JPipe
+
+    det_dir, img_dir, res = mini_real275
+    masks = [res["pred_masks"][:, :, i].astype(bool) for i in range(2)]
+    tier = auto_crop(masks[0])
+    assert tier is not None and auto_crop(masks[1]) == tier
+    _, frame_key = jax.random.split(jax.random.key(5))
+    _, chunk_key = jax.random.split(frame_key)
+    draws = []
+    for k in jax.random.split(chunk_key, 2):
+        d = {n: torch.from_numpy(v) for n, v in _jax_draws(k, masks[0].shape, tier, EVAL_PIPE).items()}
+        draws.append(tdriver.InstanceDraws(d["perm"], d["prio"], PoseDraws(d["tuple_u"], d["gumbel_dino"],
+                                                                         d["gumbel_shot"])))
+    jload = jdriver.load_category_models
+    monkeypatch.setattr(jdriver, "load_category_models",
+                        lambda root, categories=None: jload(root, categories, infer_dtype="float32"))
+    iou_t, pose_t = tdriver.evaluate_real275(
+        det_dir, img_dir, str(tmp_path / "torch"), pipe=TPipe(**EVAL_PIPE), run_opt=False, seed=5,
+        device="cpu", draws=[draws], debug=True,
+        models=tdriver.load_category_models("ckpts_r3", None, torch.float32, "cpu"))
+    assert capsys.readouterr().out.count("[debug] results_scene_1_0000.pkl inst") == 2
+    iou_j, pose_j = jdriver.evaluate_real275(det_dir, img_dir, str(tmp_path / "jax"), "ckpts_r3",
+                                             pipe=JPipe(**EVAL_PIPE), run_opt=False, seed=5)
+    assert iou_t.shape == iou_j.shape and pose_t.shape == pose_j.shape
+    np.testing.assert_allclose(iou_t, iou_j, atol=0.05)
+    np.testing.assert_allclose(pose_t, pose_j, atol=0.05)
+    with open(tmp_path / "torch" / "results_scene_1_0000.pkl", "rb") as f:
+        res_t = pickle.load(f)
+    with open(tmp_path / "jax" / "results_scene_1_0000.pkl", "rb") as f:
+        res_j = pickle.load(f)
+    assert not np.allclose(res_t["pred_RTs"], np.eye(4))
+    np.testing.assert_allclose(res_t["pred_RTs"][:, :3, 3], res_j["pred_RTs"][:, :3, 3], atol=5e-3)
+    np.testing.assert_allclose(res_t["pred_scales"], res_j["pred_scales"], rtol=1e-2)
+
+
+def test_evaluate_real275_entry_point_errors(tmp_path):
+    with pytest.raises(FileNotFoundError):
+        tdriver.evaluate_real275(str(tmp_path), str(tmp_path), str(tmp_path / "o"), None, device="cpu")
+    (tmp_path / "dino.pth").write_bytes(b"")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdriver._load_vit(str(tmp_path / "dino.pth"), torch.device("cpu"))
+    with pytest.raises(SystemExit):
+        tdriver.main(["--images", "x"])

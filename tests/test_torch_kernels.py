@@ -231,12 +231,36 @@ def test_mha_plain_matches_pallas(out_dtype):
     torch.testing.assert_close(got2, got, atol=0, rtol=0)
 
 
+@pytest.mark.parametrize("b", [1, 3])
+def test_mha_takes_a_batch_of_images(b):
+    """(b, h, T, 64) inputs, as the heads of a (b, T, 3 * h * 64) projection
+    (views whose image stride is no multiple of the head stride, which the
+    CUDA path reads in place), equal b calls on (h, T, 64), exactly."""
+    rng = np.random.default_rng(8)
+    t, h = 70, 4
+    qkv = torch.from_numpy(rng.normal(size=(b, t, 3 * h * 64)).astype(np.float32)).bfloat16()
+    views = [x.reshape(b, t, h, 64).transpose(1, 2) for x in torch.split(qkv, h * 64, dim=-1)]
+    assert all(attention._tma_readable(x) and not x.is_contiguous() for x in views)
+    assert views[0].stride(0) % views[0].stride(1) == 0 and views[0].stride(0) != h * views[0].stride(1)
+    got = attention.mha(*views, t_real=66, out_dtype=torch.float32)
+    assert got.shape == (b, h, t, 64)
+    for i in range(b):
+        want = attention.mha(*(x[i] for x in views), t_real=66, out_dtype=torch.float32)
+        torch.testing.assert_close(got[i], want, atol=0, rtol=0)
+    with pytest.raises(ValueError):
+        attention.mha(views[0][None], views[1][None], views[2][None])
+
+
 def test_mha_wrapper_checks_inputs():
     x = torch.zeros(2, 8, 64, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
         attention.mha(x.float(), x, x)
     with pytest.raises(ValueError):
         attention.mha(x, x, x, t_real=9)
+    # more images than one launch's grid holds: refused before any work
+    many = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16).expand(65536, 1, 1, 64)
+    with pytest.raises(ValueError, match="65535"):
+        attention.mha(many, many, many)
 
 
 @pytest.mark.gpu
