@@ -18,7 +18,9 @@ Phases, each printing its own lines; any failure exits non-zero:
        a row on one stream (the kernel leaves its scratch zeroed): exact;
        K1 mha at T = 1, 64, 65 (the edges of one tile, untimed), then at
        (16, 1025, 64), (16, 1152, 64) with t_real 1025 and (16, 4097, 64),
-       bf16 and f32 output: atol 2e-2 (about 2 bf16 ulps of |o| < 1);
+       bf16 and f32 output: atol 2^-8 (measured 2^-10 to 2^-9 on an H100;
+       with q / 8 a typical |o| at T = 4097 is about 0.026, so a kernel
+       that returns zeros fails);
        strided (h, T, 64) views of a (T, 3 * 1024) tensor equal the
        contiguous call;
   3. the slice at full width: `estimate_instance` for one mug on a 480x640
@@ -79,9 +81,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      parameters move; no kernel of the port is launched by a train step, and
      K1 raises when handed a tensor that requires grad. ms per step.
 
+  8. the trainer on frames it renders itself, on a world-1 NCCL group: a mug
+     through both renderers (480x640; 250,000 surface samples; the raster
+     pass on the mesh subdivided to 1/48) on the card and on the CPU with the
+     same draws, coverage equal on 99.9% of pixels, depth and gray within
+     1e-5; ms per rendered frame of each renderer, split into host mesh +
+     samples, device render, frame tail and the one read;
+     DinoFeatureExtractor (ViT-L/14 at stride 4, K1 at (16, 4097, 64)) on a
+     rendered frame, its K1 route against its "hbm" route at layer scale 1
+     (max |diff| 2e-3, cosine 0.9999), ms per call and K1's share of the
+     production extractor's device time; then
+     `train_category` without records for `shot`, `dino` (40 steps) and
+     `dino-e2e` (10 steps), pools of 64 frames of 2048 points, 10,000
+     tuples: 24 K1 launches per pool frame and per refresh of the "dino" pool
+     and none in any step, the loss falling, ms per step (one render each);
+     a rendered frame posed through `estimate_instance` with the exported
+     weights.
+
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 8 launches of the slice, all through the fused entry, with a fine
-level's times; the candidate-array entry's times stand inside it), then the
+level's times; the candidate-array entry's times stand inside it; K1's row
+holds the batched shape and the stride-4 shape nested), then the
 card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -315,9 +335,9 @@ def check_mha(dev):
         out_p = attention.mha_plain(q, k, v, t_real=t_real, out_dtype=out_dtype)
         torch.cuda.synchronize()
         err = float(torch.max(torch.abs(out_k.float() - out_p.float())[:, :t_real]))
-        if not math.isfinite(err) or err > 2e-2:
+        if not math.isfinite(err) or err > 2.0 ** -8:
             raise AssertionError(f"mha T={q.shape[1]} t_real={t_real} {out_dtype}: "
-                                 f"max |kernel - plain| = {err}")
+                                 f"max |kernel - plain| = {err} (limit 2^-8)")
         return err
 
     # the edges of one tile, untimed
@@ -1368,6 +1388,304 @@ def run_trainer(dev, pipe, vit_cfg, tmp, backend="nccl", n_frames=64, n_points=2
     return ms_per_step
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the trainer on frames it renders itself
+# ---------------------------------------------------------------------------
+
+def check_renderers(dev, hw, samples, seed=21):
+    """A mug through both renderers on the card and on the CPU with the same
+    draws (made on the card): coverage equal on at least 99.9% of pixels,
+    depth within 1e-5 m and gray within 1e-5 where both cover."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.data import render, shapes, synthetic
+
+    h, w = hw
+    rng = np.random.default_rng(seed)
+    mesh = shapes.make_category_mesh("mug", rng)
+    pts, nrm = shapes.sample_surface(mesh, samples, rng)
+    verts, faces = synthetic._pad_mesh(*shapes.subdivide_mesh(mesh, max_edge=1.0 / 48.0))
+    gen = synthetic.SyntheticFrameGenerator(get_category("mug"), height=h, width=w, seed=seed,
+                                            device=dev.type, z_range=(0.6, 0.8))
+    r, t = gen._draw_pose()
+    scale = float(rng.uniform(0.15, 0.25))
+    draws = synthetic.draw_frame(1, 2, h * w, True, dev)
+    cpu = torch.device("cpu")
+    rows = {}
+    for name in ("splat", "raster"):
+        out = []
+        for d in (dev, cpu):
+            light = render.sample_lighting(*(x.to(d) for x in draws.lighting))
+            albedo = render.AlbedoDraw(*(x.to(d) for x in draws.albedo))
+            pose = (torch.as_tensor(r, device=d), torch.as_tensor(t, device=d), scale,
+                    torch.as_tensor(gen.intrinsics_np, device=d), h, w)
+            if name == "splat":
+                pts_d = torch.as_tensor(pts, device=d)
+                depth, gray = render.splat_render_depth(pts_d, torch.as_tensor(nrm, device=d), *pose,
+                                                        lighting=light,
+                                                        albedo=render.procedural_albedo(pts_d, albedo))
+            else:
+                depth, gray = render.raster_render_depth(torch.as_tensor(verts, device=d),
+                                                         torch.as_tensor(faces, device=d), *pose,
+                                                         lighting=light, albedo=albedo)
+            out.append((depth.cpu().numpy(), gray.cpu().numpy()))
+        (cd, cg), (pd, pg) = out
+        both = (cd > 0) & (pd > 0)
+        cover = float(np.mean((cd > 0) == (pd > 0)))
+        d_err = float(np.abs(cd - pd)[both].max())
+        g_err = float(np.abs(cg - pg)[both].max())
+        say(f"[render] {name} {h}x{w}, mug, card vs CPU on the same draws: coverage equal on "
+            f"{100 * cover:.3f}% of pixels ({int(both.sum())} covered by both), max |depth diff| "
+            f"{d_err:.3g} m, max |gray diff| {g_err:.3g}" + (f", {len(faces)} faces" if name == "raster"
+                                                             else f", {samples} samples"))
+        if cover < 0.999 or both.sum() < h * w // 400 or d_err > 1e-5 or g_err > 1e-5:
+            raise AssertionError(f"{name}: the card's render differs from the CPU's")
+        rows[name] = dict(cover=cover, depth_err=d_err, gray_err=g_err)
+    return rows
+
+
+def render_breakdown(dev, hw, samples, n_points, renderer, frames=6):
+    """ms per rendered frame of `SyntheticFrameGenerator.next_frame`, unbroken
+    (median over `frames`), then split into its stages, each bracketed by
+    device synchronizations (medians)."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.data import synthetic
+
+    gen = synthetic.SyntheticFrameGenerator(get_category("mug"), n_max=n_points, height=hw[0],
+                                            width=hw[1], surface_samples=samples, seed=5,
+                                            renderer=renderer, device=dev.type)
+    gen.next_frame()   # warm-up
+    walls = []
+    for _ in range(frames):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        gen.next_frame()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    mesh = ([(synthetic, "make_category_mesh"), (synthetic, "sample_surface")] if renderer == "splat"
+            else [(synthetic, "make_category_mesh"), (synthetic, "subdivide_mesh")])
+    render = (synthetic, "splat_render_depth" if renderer == "splat" else "raster_render_depth")
+    targets = mesh + [render, (synthetic, "_frame_from_render"), (synthetic, "to_host")]
+    runs = []
+    for _ in range(frames):
+        with timed_calls(targets) as spent:
+            t0 = time.perf_counter()
+            gen.next_frame()
+            total = (time.perf_counter() - t0) * 1e3
+        runs.append({"host mesh + samples": sum(spent[n] for _, n in mesh), "device render": spent[render[1]],
+                     "frame tail": spent["_frame_from_render"], "the one read": spent["to_host"],
+                     "rest": total - sum(spent.values())})
+    parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
+    ms = statistics.median(walls)
+    say(f"[render] {renderer}: {ms:.1f} ms per frame (median of {frames}, {hw[0]}x{hw[1]}, "
+        f"{samples if renderer == 'splat' else 'subdivided'} surface, {n_points} points); stages, ms: "
+        + ", ".join(f"{k} {v:.1f}" for k, v in parts.items()))
+    if dev.type == "cuda":
+        reads, attempts = frame_reads(gen)
+        say(f"[render] {renderer}: {reads} device-to-host copies in a frame of {attempts} attempt(s)")
+        if reads != attempts:
+            raise AssertionError(f"{renderer}: {reads} copies back for {attempts} attempts, not one each")
+    return ms, parts
+
+
+def frame_reads(gen):
+    """(device-to-host copies, attempts) of one `next_frame`, from the
+    profiler's copy records; the frame's uploads are certain, so a profile
+    without any copy is a tracer that recorded nothing and is taken again."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cppf2_torch.data import synthetic
+
+    real = synthetic.to_host
+    attempts = []
+    synthetic.to_host = lambda *a, **k: attempts.append(1) or real(*a, **k)
+    try:
+        for _ in range(3):
+            attempts.clear()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                gen.next_frame()
+                torch.cuda.synchronize()
+            keys = [(e.key.lower(), e.count) for e in prof.key_averages()]
+            if any("memcpy" in k for k, _ in keys):
+                return sum(n for k, n in keys if "dtoh" in k), len(attempts)
+            say("[profiler] next_frame: no copy recorded, profiled again")
+    finally:
+        synthetic.to_host = real
+    raise AssertionError("the profiler recorded no copy in three frames")
+
+
+def check_extractor(dev, vit_cfg, hw, samples, n_points, out_size=256):
+    """DinoFeatureExtractor (stride 4, 256 x 256 crop, K1 at T = 4097) on one
+    rendered frame. The production extractor (`vit_cfg`, layer scale 1e-5)
+    gives the launch count (24 K1 launches a call), ms per call and K1's
+    share of the call's device time. Its K1 route is held against its "hbm"
+    route with the same seeded weights at layer scale 1.0, as the CPU test
+    of the extractor holds them (`tests/test_torch_dinov2.py`), since at 1e-5 the
+    attention branch moves the descriptors by about 1e-5 and any K1 would
+    pass. At 1.0 a K1 that returned zeros would drop a branch as large as
+    the residual stream. Limits: max |diff| at most 2e-3 and every cosine
+    at least 0.9999 on the unit descriptors (entries about 0.024; this
+    check's line reads 5.8e-4 and 0.999991 on an H100 80GB HBM3 at 700 W)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.data.synthetic import SyntheticFrameGenerator
+    from cppf2_torch.models.dinov2 import DinoFeatureExtractor
+    from cppf2_torch.ops import attention
+    from cppf2_torch.train.driver import _frame_crop_kp
+
+    gen = SyntheticFrameGenerator(get_category("mug"), n_max=n_points, height=hw[0], width=hw[1],
+                                  surface_samples=samples, seed=8, device=dev.type)
+    crop, kp = (torch.as_tensor(x, device=dev) for x in _frame_crop_kp(gen.next_frame(), out_size))
+
+    def extractor(**kw):
+        return DinoFeatureExtractor(cfg=dataclasses.replace(vit_cfg, **kw), out_size=out_size,
+                                    device=dev.type).init_random(torch.Generator(device=dev).manual_seed(0))
+
+    ext = extractor()
+    before = attention.mha.launches
+    ext(crop, kp)
+    calls = attention.mha.launches - before
+    k1_route, plain = (extractor(attn_impl=a, layerscale_init=1.0) for a in ("kernel", "hbm"))
+    got, want = k1_route(crop, kp), plain(crop, kp)
+    err = float(torch.max(torch.abs(got - want)))
+    cos = float(torch.min(torch.sum(got * want, dim=-1)))
+    if calls != vit_cfg.depth or not math.isfinite(err) or err > 2e-3 or cos < 0.9999:
+        raise AssertionError(f"extractor: {calls} K1 launches, K1 vs hbm at layer scale 1 max |diff| {err}, "
+                             f"min cos {cos}")
+    del k1_route, got, want
+    ms = time_ms(lambda: ext(crop, kp), iters=5, repeats=3)
+    plain_ms = time_ms(lambda: plain(crop, kp), iters=2, repeats=1)
+    busy = k1 = 0.0
+    for _ in range(3):   # a window in which the tracer recorded nothing is taken again
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ext(crop, kp)
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        busy = sum(e.self_device_time_total for e in events) / 1e3
+        k1 = sum(e.self_device_time_total for e in events if "mha_fwd_kernel" in e.key) / 1e3
+        if busy > 0:
+            break
+    else:
+        raise AssertionError("the profiler recorded no device time in three calls of the extractor")
+    say(f"[extractor] DinoFeatureExtractor ViT-L/14 stride 4, 256x256 crop -> 896x896, {len(kp)} "
+        f"keypoints: K1 route vs hbm route at layer scale 1 max |diff| {err:.3g}, min cos {cos:.6f} "
+        f"(limits 2e-3, 0.9999); {calls} K1 launches a "
+        f"call; {ms:.1f} ms per call back to back (hbm route {plain_ms:.1f}); device time of one call "
+        f"{busy:.2f} ms, K1 {k1:.2f} ms of it ({100 * k1 / busy:.1f}%)")
+    return dict(err=err, cos=cos, ms=ms, plain_ms=plain_ms, busy_ms=busy, k1_ms=k1)
+
+
+def run_render_trainer(dev, pipe, tmp, backend="nccl", hw=(480, 640), samples=250_000, n_points=2048,
+                       tuples=10000, pool=64, steps=40, e2e_steps=10, vit_cfg=None, e2e_vit=None,
+                       out_size=256, frames=6):
+    """Phase 8; returns (K1 launches of the "dino" run, the render rows, the
+    extractor row, {branch: ms per step})."""
+    import torch
+    import torch.distributed as dist
+
+    from cppf2_torch.config import TrainConfig, get_category
+    from cppf2_torch.data.synthetic import SyntheticFrameGenerator
+    from cppf2_torch.eval import driver
+    from cppf2_torch.models.dinov2 import VIT_L14, VIT_S14, DinoFeatureExtractor
+    from cppf2_torch.train import checkpoints
+    from cppf2_torch.train.driver import train_category
+
+    vit_cfg = vit_cfg or VIT_L14
+    e2e_vit = e2e_vit or dataclasses.replace(VIT_S14, pretrain_grid=out_size // 8)
+    renders = check_renderers(dev, hw, samples)
+    for renderer in ("splat", "raster"):
+        renders[renderer]["ms"], renders[renderer]["stages"] = render_breakdown(
+            dev, hw, samples, n_points, renderer, frames)
+    extractor = check_extractor(dev, vit_cfg, hw, samples, n_points, out_size)
+
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "render_store"), 1),
+                            rank=0, world_size=1)
+    ms_per_step, dino_launches = {}, None
+    try:
+        for branch, n_steps in (("shot", steps), ("dino", steps), ("dino-e2e", e2e_steps)):
+            cfg = TrainConfig(n_points=n_points, steps_per_epoch=n_steps, max_epochs=1,
+                              tuples_per_step=tuples)
+            root = "rck_e2e" if branch == "dino-e2e" else "rck"
+            out = os.path.join(tmp, root, "shot" if branch == "shot" else "dino", "mug")
+            zero_counts()
+            t0 = time.perf_counter()
+            state = train_category("mug", branch, cfg, out, n_points=n_points, frames_in_pool=pool,
+                                   render_hw=hw, log_every=1, progress=lambda s: None, vit_cfg=e2e_vit,
+                                   e2e_out_size=out_size, device=dev.type)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            total_s = time.perf_counter() - t0
+            launches = read_counts()
+            want = {"mha": vit_cfg.depth * (pool + n_steps) if branch == "dino" else 0,
+                    "hist16_peak": 0, "sphere_accumulate": 0}
+            if launches != want:
+                raise AssertionError(f"{branch}: launch counts {launches}, expected {want} (the pool's "
+                                     f"and every refresh's descriptors, none in a step)")
+            if branch == "dino":
+                dino_launches = launches["mha"]
+            with open(os.path.join(out, "metrics.jsonl")) as f:
+                rows = [json.loads(line) for line in f]
+            if len(rows) != n_steps or not all(math.isfinite(r[k]) for r in rows
+                                               for k in ("cls", "scale", "total")):
+                raise AssertionError(f"{branch}: {len(rows)} metric rows, or a non-finite one: {rows[-1]}")
+            totals = [r["total"] for r in rows]
+            walls = [r["wall"] for r in rows]
+            ms = statistics.median(np.diff(walls)) * 1e3
+            ms_per_step[branch] = ms
+            n_mean = min(10, n_steps // 2)
+            head, tail = np.mean(totals[:n_mean]), np.mean(totals[-n_mean:])
+            say(f"[render train] {branch}: pool of {pool} rendered frames + {n_steps} steps, each step "
+                f"refreshing one frame: {ms:.1f} ms per step (median), {total_s - walls[-1]:.1f} s before "
+                f"the first step (pool and set-up), launches {launches}; total loss {totals[0]:.3f} -> "
+                f"{totals[-1]:.3f} (mean of the first {n_mean} {head:.3f}, of the last {n_mean} {tail:.3f})")
+            if not tail < head:
+                raise AssertionError(f"{branch}: the loss did not fall")
+            if branch != "dino-e2e":
+                checkpoints.export_params_msgpack(os.path.join(out, "params.msgpack"), state.module)
+
+        # a rendered frame posed with the exported weights: shot + dino with the
+        # extractor's ViT at stride 4 (the descriptors the head was trained on),
+        # then the e2e head with its own backbone
+        gen = SyntheticFrameGenerator(get_category("mug"), n_max=n_points, height=hw[0], width=hw[1],
+                                      surface_samples=samples, seed=9, device=dev.type)
+        frame = gen.next_frame()
+        depth = frame.depth.cpu().numpy()
+        rgb = np.repeat((frame.gray.cpu().numpy() * 255).round().astype(np.uint8)[..., None], 3, axis=-1)
+        mask = depth > 0
+        truth = frame.translation.cpu().numpy()
+        big = DinoFeatureExtractor(cfg=vit_cfg, device=dev.type).init_random(
+            torch.Generator(device=dev).manual_seed(TrainConfig().seed))
+        small, stride, size = driver._load_vit(os.path.join(tmp, "rck_e2e", "dino", "mug", "backbone"), dev)
+        for label, root, v, kw in (("shot + dino", "rck", big.model, dict(stride=4, out_size=out_size)),
+                                   ("dino-e2e", "rck_e2e", small, dict(stride=stride, out_size=size))):
+            models = driver.load_category_models(os.path.join(tmp, root), ["mug"], torch.bfloat16, dev)["mug"]
+            zero_counts()
+            est = driver.estimate_instance(rgb, depth, mask, gen.intrinsics_np, models, "mug", pipe, vit=v,
+                                           generator=torch.Generator(device=dev).manual_seed(1),
+                                           device=dev, **kw)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            posed, want = read_counts(), {"mha": v.cfg.depth, "hist16_peak": 2 * pipe.vote_levels,
+                                          "sphere_accumulate": 0}
+            if posed != want:
+                raise AssertionError(f"{label}: launch counts {posed}, expected {want}")
+            if not all(bool(torch.isfinite(x).all()) for x in (est.rotation, est.translation, est.scale)):
+                raise AssertionError(f"{label}: non-finite pose of a rendered frame: {est}")
+            say(f"[render train] {label}: a rendered mug posed with the exported weights, T "
+                f"{[round(x, 4) for x in est.translation.tolist()]} (true "
+                f"{[round(float(x), 4) for x in truth]}), pick {int(est.pick)}, launches {posed}")
+    finally:
+        dist.destroy_process_group()
+    return dino_launches, renders, extractor, ms_per_step
+
+
 def main() -> int:
     import torch
 
@@ -1406,6 +1724,9 @@ def main() -> int:
         frame_launches, frame_ms, single_ms, vis_batched, vis_singles = run_frame_driver(
             dev, pipe, VIT_L14, tmp)
         train_ms = run_trainer(dev, pipe, VIT_L14, tmp)
+        t_phase = time.perf_counter()
+        dino_launches, renders, extractor, render_train_ms = run_render_trainer(dev, pipe, tmp)
+        say(f"[render train] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1414,6 +1735,7 @@ def main() -> int:
     k2_level = k2_levels[-1]   # the last (fine) level of the slice's first branch
     k3_main = k3[0]      # (1, 900k, 720): one instance's sampled rotation votes
     k1_frame = k1_batched[0]   # (4, 16, 1025, 64): the four crops of one written frame
+    k1_4097 = k1[2]      # (16, 4097, 64): the ViT-L stride-4 shape of DinoFeatureExtractor
     kernels = [
         dict(name="mha", route="cuda", source=attention.SOURCE, replaces=attention.REPLACES,
              launches=launches["mha"], max_abs_err=max(r["err"] for r in k1),
@@ -1425,7 +1747,13 @@ def main() -> int:
                           max_abs_err=k1_frame["err"], ms=k1_frame["ms"],
                           device_ms=k1_frame["device_ms"], plain_ms=k1_frame["plain_ms"],
                           bound_ms=k1_frame["bound_ms"], bound_by="operations",
-                          library_ms=k1_frame["library_ms"])),
+                          library_ms=k1_frame["library_ms"]),
+             # the frozen-descriptor pass of the "dino" branch trained on rendered
+             # frames: DinoFeatureExtractor at stride 4 on a 256 x 256 crop
+             stride4=dict(shape=[16, 4097, 64], launches=dino_launches, max_abs_err=k1_4097["err"],
+                          ms=k1_4097["ms"], device_ms=k1_4097["device_ms"], plain_ms=k1_4097["plain_ms"],
+                          bound_ms=k1_4097["bound_ms"], bound_by="operations",
+                          library_ms=k1_4097["library_ms"])),
         # One row for K2. The main path launches it 8 times, all through the
         # fused entry hist16_level_peak, so the row's times and bound are those
         # of a fine level of the slice; no single PyTorch call makes a level's
@@ -1453,6 +1781,10 @@ def main() -> int:
         f"ms_per_instance {single_ms:.1f}, visual stage ms_per_frame batched {vis_batched:.1f} / "
         f"instance by instance {vis_singles:.1f} (launches {frame_launches})")
     say("[train] ms_per_step " + ", ".join(f"{b} {ms:.1f}" for b, ms in train_ms.items()))
+    say("[render train] ms_per_frame " + ", ".join(f"{r} {renders[r]['ms']:.1f}" for r in renders)
+        + f"; DinoFeatureExtractor ms_per_call {extractor['ms']:.1f} (K1 {extractor['k1_ms']:.2f} of "
+        f"{extractor['busy_ms']:.2f} device ms); ms_per_step "
+        + ", ".join(f"{b} {ms:.1f}" for b, ms in render_train_ms.items()))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,8 @@
-"""Core geometry: backprojection, the fibonacci sphere, quaternion rotations.
+"""Core geometry: backprojection, the fibonacci sphere, quaternion rotations,
+axis rotations and symmetry canonicalization.
 
-Counterpart of `cppf2_tpu/core/geometry.py` (reference: utils/util.py:191-208,
-2586-2607; eval.py:320-355).
+Counterpart of `cppf2_tpu/core/geometry.py` (reference: utils/util.py:66-81,
+191-208, 2586-2607; dataset.py:84-101; eval.py:320-355).
 """
 
 from __future__ import annotations
@@ -90,3 +91,58 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
 def norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm as sqrt(sum(x * x)), the formula XLA lowers `norm` to."""
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))
+
+
+# ---------------------------------------------------------------------------
+# Rotations and symmetry canonicalization (reference: dataset.py:84-101,
+# utils/util.py:66-81)
+# ---------------------------------------------------------------------------
+
+def _cos_sin(a):
+    """cos and sin of an angle in float32, as Python floats."""
+    a = torch.as_tensor(a, dtype=torch.float32)
+    return float(torch.cos(a)), float(torch.sin(a))
+
+
+def rotx(a) -> torch.Tensor:
+    """4x4 float32 rotation about x (reference: dataset.py:97-101)."""
+    c, s = _cos_sin(a)
+    return torch.tensor([[1, 0, 0, 0], [0, c, -s, 0], [0, s, c, 0], [0, 0, 0, 1]], dtype=torch.float32)
+
+
+def roty(a) -> torch.Tensor:
+    """4x4 float32 rotation about y (reference: dataset.py:91-95)."""
+    c, s = _cos_sin(a)
+    return torch.tensor([[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0], [0, 0, 0, 1]], dtype=torch.float32)
+
+
+def rotz(a) -> torch.Tensor:
+    """4x4 float32 rotation about z (reference: dataset.py:84-88)."""
+    c, s = _cos_sin(a)
+    return torch.tensor([[c, s, 0, 0], [-s, c, 0, 0], [0, 0, 1, 0], [0, 0, 0, 1]], dtype=torch.float32)
+
+
+def map_sym(rot: torch.Tensor, axis: int) -> torch.Tensor:
+    """Canonicalize a (3, 3) rotation for continuous symmetry about `axis`:
+    the in-plane rotation S about `axis` minimizing ||S @ rot - I|| in the
+    plane orthogonal to it, applied (S @ rot)."""
+    o0, o1 = (i for i in range(3) if i != axis)
+    alpha = torch.atan2(rot[o1, o0] - rot[o0, o1], rot[o0, o0] + rot[o1, o1])
+    c, s = torch.cos(alpha), torch.sin(alpha)
+    sym = torch.eye(3, dtype=rot.dtype, device=rot.device)
+    sym[o0, o0] = c
+    sym[o0, o1] = s
+    sym[o1, o0] = -s
+    sym[o1, o1] = c
+    return sym @ rot
+
+
+def map_sym_discrete(rot: torch.Tensor, sym_rots: torch.Tensor) -> torch.Tensor:
+    """Snap a (3, 3) rotation to the nearest member of a discrete symmetry
+    group `sym_rots` (S, 3, 3): sym^T @ rot for the sym with the smallest
+    Frobenius distance of sym^T @ rot to I (the first on ties)."""
+    eye = torch.eye(3, dtype=rot.dtype, device=rot.device)
+    diff = sym_rots.transpose(-1, -2) @ rot - eye
+    idx = torch.argmin(torch.sqrt(torch.sum(diff * diff, dim=(-2, -1))))
+    # index_select, not sym_rots[idx]: a 0-d tensor index is a read back on CUDA
+    return torch.index_select(sym_rots, 0, idx.reshape(1))[0].transpose(-1, -2) @ rot

@@ -1,7 +1,9 @@
-"""Frame frontend: crop window, backprojection, voxel downsample, SHOT.
+"""Frame frontend: crop window, backprojection, voxel downsample, SHOT, and
+the host bbox-square crop.
 
 Counterpart of `cppf2_tpu/infer/frontend.py::preprocess_frame` (reference
-eval.py:185-216) and of its host helpers `mask_bbox` / `auto_crop`. The
+eval.py:185-216) and of its host helpers `mask_bbox` / `auto_crop` /
+`resize_crop` (reference dataset.py:322-337). The
 crop window is a slice, so its origin must be known on the host: a caller that
 holds the mask as a numpy array computes it there (`crop_origin`) and passes
 it in, and nothing is read back from the device; without it the origin is
@@ -18,6 +20,98 @@ import torch
 from cppf2_torch.core.downsample import voxel_downsample
 from cppf2_torch.core.geometry import backproject_masked
 from cppf2_torch.ops.shot import compute_shot_features
+
+
+def resize_crop_transform(bbox, out_size: int = 256, padding: float = 0.0) -> np.ndarray:
+    """Square crop transform for a bbox (left, top, right, bottom): the 3x3
+    matrix mapping crop-pixel homogeneous coordinates to image pixels
+    (reference: dataset.py:334-336); invert it to map image points into the
+    crop."""
+    left, top, right, bottom = bbox
+    size = max(right - left, bottom - top) * (1.0 + padding)
+    cx, cy = (right + left) / 2.0, (bottom + top) / 2.0
+    s = size / out_size
+    return np.array(
+        [[s, 0.0, cx - s * out_size / 2.0],
+         [0.0, s, cy - s * out_size / 2.0],
+         [0.0, 0.0, 1.0]],
+        np.float64,
+    )
+
+
+def _fma32(a, b, c) -> np.ndarray:
+    """a * b + c rounded once to float32, for float32 operands (their
+    product is exact in float64)."""
+    f64 = np.float64
+    return (np.asarray(a, f64) * np.asarray(b, f64) + np.asarray(c, f64)).astype(np.float32)
+
+
+# Columns per block of cv2.warpAffine's vectorized source-coordinate loop in
+# the OpenCV 5.0.0 x86-64 build whose output `resize_crop` reproduces: it
+# computes the first (out_size - out_size % 16) columns with FMA, the rest in
+# its scalar tail. The width is a property of that binary's vectorization,
+# not of warpAffine's definition: a build for another SIMD width moves the
+# boundary, and the tail columns then differ from cv2's in the last ulp of
+# the source coordinate (test_torch_frontend's cv2 parity test shows it).
+_CV_WARP_BLOCK = 16
+
+
+def _warp_scale_translate(img: np.ndarray, m: np.ndarray, out_size: int) -> np.ndarray:
+    """`cv2.warpAffine(img, m, (out_size, out_size), flags=INTER_LINEAR)`
+    with its default BORDER_CONSTANT 0, for float32 images and a scale +
+    translate `m` (the image -> crop map), reproducing OpenCV 5's arithmetic:
+    the inverse (crop -> image) map in float64 as cv2 inverts it, cast to
+    float32; source rows M4 * y + M5 in two float32 roundings; source columns
+    fma(M0, x, M2) in float32, except the row's last (out_size % _CV_WARP_BLOCK) columns,
+    which cv2's scalar tail computes as M0 * x + M2; bilinear taps, zero
+    outside the image, combined as fma(ay, v1 - v0, v0) over
+    v = fma(ax, p1 - p0, p0). (OpenCV 4 before 4.11 quantized the source
+    coordinates to 1/32 pixel instead; the JAX package's `resize_crop` calls
+    whichever cv2 is installed.)"""
+    a, b, c, d, e, f = (float(x) for x in np.asarray(m, np.float64).ravel())
+    if b != 0.0 or d != 0.0:
+        raise ValueError("only scale + translate maps (resize_crop_transform's) are supported")
+    det = a * e
+    det = 1.0 / det if det != 0 else 0.0
+    m0, m4 = e * det, a * det
+    m2, m5 = -m0 * c, -m4 * f
+    f32 = np.float32
+    xs = np.arange(out_size, dtype=f32)
+    src_x = _fma32(f32(m0), xs, f32(m2))
+    vec = out_size - out_size % _CV_WARP_BLOCK
+    src_x[vec:] = f32(m0) * xs[vec:] + f32(m2)
+    src_y = f32(m4) * xs + f32(m5)
+    x0 = np.floor(src_x).astype(np.int64)
+    y0 = np.floor(src_y).astype(np.int64)
+    ax = (src_x - x0).astype(f32)[None, :, None]
+    ay = (src_y - y0).astype(f32)[:, None, None]
+    src = img if img.ndim == 3 else img[..., None]
+    h, w = src.shape[:2]
+
+    def tap(yy, xx):
+        ok = ((yy >= 0) & (yy < h))[:, None] & ((xx >= 0) & (xx < w))[None, :]
+        v = src[np.clip(yy, 0, h - 1)[:, None], np.clip(xx, 0, w - 1)[None, :]]
+        return np.where(ok[..., None], v, f32(0))
+
+    p00, p01, p10, p11 = tap(y0, x0), tap(y0, x0 + 1), tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
+    v0 = _fma32(ax, p01 - p00, p00)
+    v1 = _fma32(ax, p11 - p10, p10)
+    out = _fma32(ay, v1 - v0, v0)
+    return out if img.ndim == 3 else out[..., 0]
+
+
+def resize_crop(img: np.ndarray, bbox=None, out_size: int = 256, padding: float = 0.0):
+    """Crop a host image to a square around `bbox` (left, top, right,
+    bottom; the nonzero pixels' bbox when None) and resize it to (out_size,
+    out_size) with bilinear taps, zero outside the image. Returns (crop
+    float32, transform) with transform as in `resize_crop_transform`. The
+    values are those of the JAX package's cv2 path, without cv2."""
+    if bbox is None:
+        ys, xs = np.where(img.sum(-1) if img.ndim == 3 else img)
+        bbox = (xs.min(), ys.min(), xs.max() + 1, ys.max() + 1)
+    t = resize_crop_transform(bbox, out_size, padding)
+    # the image -> crop map, as the reference hands it to cv2.warpAffine
+    return _warp_scale_translate(img.astype(np.float32), np.linalg.inv(t)[:2], out_size), t
 
 
 def mask_bbox(mask: np.ndarray):

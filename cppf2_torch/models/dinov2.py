@@ -1,4 +1,5 @@
-"""DINOv2 ViT and the in-graph bbox-crop visual frontend.
+"""DINOv2 ViT, the in-graph bbox-crop visual frontend and the host-crop
+descriptor extractor (`DinoFeatureExtractor`).
 
 Counterpart of `cppf2_tpu/models/dinov2.py` (reference dataset.py:40-80,
 322-337): patch embed as unfold + matmul in the (gh, p, gw, p, 3) order,
@@ -262,11 +263,19 @@ def resize_bilinear_matmul(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
 
 
 def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
-                         image_hw: Tuple[int, int], normalize: bool = True) -> torch.Tensor:
+                         image_hw: Tuple[int, int], normalize: bool = True,
+                         impl: str = "gather") -> torch.Tensor:
     """Sample the (gh, gw, D) token grid at (K, 2) image-pixel coordinates
     with F.grid_sample(bilinear, align_corners=False) semantics, zero
-    outside, by four row gathers; optionally L2-normalize."""
-    gh, gw, _ = feat_grid.shape
+    outside; optionally L2-normalize.
+
+    impl="gather" takes the four taps as row gathers; impl="onehot" folds
+    them into one (K, gh*gw) combination matrix and one product with the
+    flattened grid, both operands rounded to bfloat16 and the sums in
+    float32, as the JAX package's "onehot" form does."""
+    if impl not in ("gather", "onehot"):
+        raise ValueError(f"unknown impl {impl!r} (expected 'gather' or 'onehot')")
+    gh, gw, d = feat_grid.shape
     h, w = image_hw
     nx = ((pts_xy[:, 0] + 0.5) / w) * 2 - 1
     ny = ((pts_xy[:, 1] + 0.5) / h) * 2 - 1
@@ -275,16 +284,25 @@ def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
     x0f, y0f = torch.floor(fx), torch.floor(fy)
     x0, y0 = x0f.to(torch.int64), y0f.to(torch.int64)
     wx, wy = fx - x0f, fy - y0f
+    taps = ((y0, x0, (1 - wx) * (1 - wy)), (y0, x0 + 1, wx * (1 - wy)),
+            (y0 + 1, x0, (1 - wx) * wy), (y0 + 1, x0 + 1, wx * wy))
 
-    def tap(yy, xx):
-        inb = (yy >= 0) & (yy < gh) & (xx >= 0) & (xx < gw)
-        val = feat_grid[torch.clamp(yy, 0, gh - 1), torch.clamp(xx, 0, gw - 1)]
-        return torch.where(inb[:, None], val, torch.zeros((), dtype=val.dtype, device=val.device))
+    if impl == "onehot":
+        comb = torch.zeros((pts_xy.shape[0], gh * gw), device=feat_grid.device)
+        for yy, xx, wt in taps:
+            inb = (yy >= 0) & (yy < gh) & (xx >= 0) & (xx < gw)
+            # an out-of-range tap adds nothing (the reference's all-zero one-hot row)
+            idx = torch.clamp(yy, 0, gh - 1) * gw + torch.clamp(xx, 0, gw - 1)
+            comb.scatter_add_(1, idx[:, None], torch.where(inb, wt, torch.zeros_like(wt))[:, None])
+        bf = torch.bfloat16
+        out = torch.matmul(comb.to(bf).float(), feat_grid.reshape(gh * gw, d).to(bf).float())
+    else:
+        def tap(yy, xx):
+            inb = (yy >= 0) & (yy < gh) & (xx >= 0) & (xx < gw)
+            val = feat_grid[torch.clamp(yy, 0, gh - 1), torch.clamp(xx, 0, gw - 1)]
+            return torch.where(inb[:, None], val, torch.zeros((), dtype=val.dtype, device=val.device))
 
-    out = (tap(y0, x0) * ((1 - wx) * (1 - wy))[:, None]
-           + tap(y0, x0 + 1) * (wx * (1 - wy))[:, None]
-           + tap(y0 + 1, x0) * ((1 - wx) * wy)[:, None]
-           + tap(y0 + 1, x0 + 1) * (wx * wy)[:, None])
+        out = sum(tap(yy, xx) * wt[:, None] for yy, xx, wt in taps)
     if normalize:
         out = out / torch.clamp(norm(out, keepdim=True), min=1e-12)
     return out
@@ -367,6 +385,67 @@ def bbox_crop_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
     return sample_crop_descriptors(grid, pixel_yx, txys, out_size)
 
 
+class DinoFeatureExtractor:
+    """Crop image -> per-keypoint descriptors, the analog of the reference's
+    `DINOV2` module (dataset.py:62-80): bilinear resize to (h/stride*14,
+    w/stride*14), the ViT forward, bilinear sampling of the patch tokens at
+    the keypoints, L2 normalization. The frozen-descriptor path of the
+    training driver (`train/driver.py::_frame_descriptors`).
+
+    `cfg` defaults to ViT-L/14 on kernel K1 (`attn_impl="kernel"`); at the
+    default stride 4 a 256 x 256 crop becomes 896 x 896, 64 x 64 patches, so
+    K1 runs at T = 4097, once per block. Weights are a parameter tree of the
+    JAX layout (`params`, carried by `models/porting.py::load_vit`) or
+    `init_random`; matrices are then stored in the compute dtype, as the JAX
+    extractor stores them.
+    """
+
+    def __init__(self, params=None, cfg: Optional[ViTConfig] = None, stride: int = 4,
+                 interp_impl: str = "gather", out_size: int = 256, quant: Optional[str] = None,
+                 device="cuda"):
+        if quant is not None:
+            raise NotImplementedError(
+                f"quant={quant!r}: the int8 ViT (_QDense) is not ported yet; it waits for the "
+                "slice that ports the rest of the ViT variants")
+        from cppf2_torch.device import resolve_device
+
+        self.device = resolve_device(device)
+        self.cfg = cfg if cfg is not None else VIT_L14
+        self.stride = stride
+        self.interp_impl = interp_impl
+        self.out_size = out_size  # bbox-square crop resolution (driver path)
+        with torch.device(self.device):
+            self.model = DinoViT(self.cfg).eval()
+        self.ready = False
+        if params is not None:
+            from cppf2_torch.models.porting import load_vit
+
+            load_vit(self.model, params).cast_for_inference()
+            self.ready = True
+
+    def init_random(self, generator: torch.Generator) -> "DinoFeatureExtractor":
+        """Seeded random weights (`DinoViT.init_random`); `generator` lives on
+        the extractor's device."""
+        self.model.init_random(generator).cast_for_inference()
+        self.ready = True
+        return self
+
+    def __call__(self, image: torch.Tensor, pts_xy: torch.Tensor) -> torch.Tensor:
+        """image: (H, W, 3) in [0, 1]; pts_xy: (K, 2) crop-pixel (x, y).
+        Returns (K, D) float32 unit descriptors on the extractor's device.
+        The resize is an upscale whenever stride <= 14; a downscale raises
+        rather than drop the antialias `jax.image.resize` would apply."""
+        if not self.ready:
+            raise RuntimeError("load or init the DINOv2 weights first")
+        h, w = image.shape[:2]
+        ph, pw = h // self.stride, w // self.stride
+        with torch.no_grad():
+            resized = resize_bilinear_matmul(image.to(self.device, torch.float32), ph * 14, pw * 14)
+            grid = self.model(resized)
+            return interpolate_features(grid, pts_xy.to(self.device, torch.float32), (h, w),
+                                        impl=self.interp_impl)
+
+
 # ---------------------------------------------------------------------------
 # A trained backbone on disk (counterpart of save_backbone / load_backbone)
 # ---------------------------------------------------------------------------
@@ -399,7 +478,7 @@ def save_backbone(prefix: str, model: DinoViT, stride: int = 8, out_size: int = 
     return prefix + ".msgpack"
 
 
-def load_backbone(prefix: str, device="cpu", **cfg_overrides) -> Optional[tuple]:
+def load_backbone(prefix: str, device="cuda", **cfg_overrides) -> Optional[tuple]:
     """Read a `save_backbone` pair. Returns (DinoViT on `device`, cfg, stride,
     out_size), or None when there is no such file. `cfg_overrides` set the
     loader's choices (compute_dtype, attn_impl)."""

@@ -1,18 +1,17 @@
-"""Training driver: train a category branch from a record container.
+"""Training driver: train a category branch on frames it renders itself or
+replays from a record container.
 
 Counterpart of `cppf2_tpu/train/driver.py` (which replaces the reference's
 hydra + Lightning entry points, train_shot.py:133-150, train_dino.py:142-161):
-frames replay from a `data/records.py` container through a pool that is
-refreshed one frame a step, batches are data-parallel over the ranks of the
-process group, and checkpoints and metrics go to `out_dir`.
+frames come from the synthetic generator (`data/synthetic.py`) or from a
+`data/records.py` container, through a pool that is refreshed one frame a
+step; batches are data-parallel over the ranks of the process group, and
+checkpoints and metrics go to `out_dir`.
 
 Usage (one process per device; a single process starts a world of one):
     python -m cppf2_torch.train.driver --category mug --branch shot \
-        --records mug.rec --epochs 101 --steps-per-epoch 200 --out ckpts/shot/mug
-
-The JAX driver can also render its frames on the fly; that generator
-(`data/synthetic.py`, `render.py`, `shapes.py`) is not ported yet, so
-`records` is required here.
+        --epochs 101 --steps-per-epoch 200 --out ckpts/shot/mug
+    python -m cppf2_torch.train.driver --category mug --branch shot --records mug.rec ...
 """
 
 from __future__ import annotations
@@ -23,7 +22,7 @@ import json
 import os
 import tempfile
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -31,8 +30,11 @@ import torch.distributed as dist
 
 from cppf2_torch.config import CATEGORIES, TrainConfig
 from cppf2_torch.data.records import RecordReader
+from cppf2_torch.data.synthetic import SynthFrame, SyntheticFrameGenerator, to_host
+from cppf2_torch.infer.frontend import mask_bbox, resize_crop
 from cppf2_torch.models.cppf import DinoBranch, ShotBranch
-from cppf2_torch.models.dinov2 import VIT_S14, DinoViT, ViTConfig, save_backbone
+from cppf2_torch.models.dinov2 import (VIT_S14, DinoFeatureExtractor, DinoViT, ViTConfig,
+                                       save_backbone)
 from cppf2_torch.parallel.mesh import axis_size, make_mesh
 from cppf2_torch.train.checkpoints import (
     export_params_msgpack,
@@ -46,6 +48,34 @@ from cppf2_torch.train.visual import create_visual_train_state, make_visual_trai
 _FEATURES = {"shot": ("shot", "normal"), "dino": ("desc",), "dino-e2e": ("crop", "kp")}
 
 
+def _frame_crop_kp(frame: SynthFrame, out_size: int = 256):
+    """Host-side crop and keypoints shared by the frozen-backbone descriptor
+    pass and end-to-end visual training: the lambertian render cropped to
+    its depth bbox squared and resized to `out_size` (the reference's
+    resize_crop convention, dataset.py:322-337), and the cloud's pixels in
+    crop space. One copy back from the device.
+
+    Returns (crop (S, S, 3) float32 in [0, 1], kp_local (N, 2) float32 (x, y))."""
+    host = to_host(frame, ("gray", "depth", "pixel_yx"))
+    bbox = mask_bbox(host["depth"] > 0)
+    rgb = np.repeat(host["gray"][..., None], 3, axis=-1)
+    crop, transform = resize_crop(rgb, bbox=bbox, out_size=out_size)
+    kp = host["pixel_yx"][:, ::-1].astype(np.float64)
+    kp_local = (np.linalg.inv(transform) @ np.concatenate([kp, np.ones((len(kp), 1))], -1).T).T[:, :2]
+    return crop.astype(np.float32), kp_local.astype(np.float32)
+
+
+def _frame_descriptors(frame: SynthFrame, extractor: DinoFeatureExtractor,
+                       out_size: Optional[int] = None) -> torch.Tensor:
+    """Descriptors of a synthetic frame's cloud points: the render cropped
+    around its depth bbox and the extractor's tokens sampled at the cloud's
+    pixels (the analog of dump_data's descriptor pass, dataset.py:394-402).
+    `out_size` follows the extractor's crop convention by default. Returns
+    (n, D) on the extractor's device."""
+    crop, kp_local = _frame_crop_kp(frame, out_size or extractor.out_size)
+    return extractor(torch.from_numpy(crop), torch.from_numpy(kp_local))
+
+
 def train_category(
     category: str,
     branch: str = "shot",
@@ -57,6 +87,8 @@ def train_category(
     resume: bool = True,
     log_every: int = 20,
     ckpt_every_epochs: int = 10,
+    render_hw: Tuple[int, int] = (480, 640),
+    dino_extractor: Optional[DinoFeatureExtractor] = None,
     records: Optional[str] = None,
     progress=print,
     vit_cfg: Optional[ViTConfig] = None,
@@ -69,22 +101,25 @@ def train_category(
     the initialized process group, one rank per device. Returns the final
     TrainState (every rank holds the same one).
 
-    Frames replay from `records`, a container written by `data/records.py`
-    with the fields pc, pc_canon, bound, count and the branch's features
-    (shot + normal; desc; or crop + kp for "dino-e2e"). A pool of
-    `frames_in_pool` records is filled first and one slot is swapped for
-    another stored record after every step, the analog of the reference's
-    replay buffer (dataset.py:341-364). Picks come from
+    A pool of `frames_in_pool` frames is filled first and one slot is
+    replaced after every step, the analog of the reference's replay buffer
+    (dataset.py:341-364). Without `records` the frames are rendered by
+    `SyntheticFrameGenerator(cat, n_max=n_points, height, width = render_hw,
+    seed=cfg.seed)` and every replacement is a newly rendered frame; the
+    "dino" branch stores each frame's descriptors from `dino_extractor`, by
+    default a fixed random ViT-L/14 `DinoFeatureExtractor` at stride 4
+    seeded with cfg.seed (no DINOv2 weights ship with the repo; a fixed
+    backbone still gives consistent features), and "dino-e2e" stores the
+    crop and the cloud's pixels in it. With `records`, a container written by
+    `data/records.py` with the fields pc, pc_canon, bound, count and the
+    branch's features (shot + normal; desc; or crop + kp), the pool holds
+    stored records and a replacement is another one. Picks come from
     `np.random.default_rng(cfg.seed + 1)` in the JAX driver's order. Rank 0
     writes `metrics.jsonl`, the checkpoints and, for "dino-e2e", the exported
     `params.msgpack` + `backbone.msgpack/.json` under `out_dir`.
     """
     if branch not in _FEATURES:
         raise ValueError(f"unknown branch {branch!r} (expected one of {sorted(_FEATURES)})")
-    if not records:
-        raise NotImplementedError(
-            "train_category needs `records`: the synthetic frame generator (data/synthetic.py, "
-            "render.py, shapes.py) that the JAX driver renders frames with is not ported yet")
     cat = CATEGORIES[category]
     cfg = cfg or TrainConfig(n_points=n_points)
     mesh = make_mesh(device=device)
@@ -92,13 +127,39 @@ def train_category(
     rank0 = dist.get_rank() == 0
     keys = ("pc", "pc_canon", "bound", "count") + _FEATURES[branch]
 
-    reader = RecordReader(records)
-    progress(f"[train] replaying {len(reader)} records from {records} ({reader.backend} backend)")
+    reader = None
+    if records:
+        reader = RecordReader(records)
+        progress(f"[train] replaying {len(reader)} records from {records} ({reader.backend} backend)")
 
-    def record(i):
-        return {k: v[0] for k, v in reader.batch([i]).items()}
+        def record(i):
+            return {k: v[0] for k, v in reader.batch([i]).items()}
 
-    pool = [record(i) for i in range(min(frames_in_pool, len(reader)))]
+        def next_frame(rng):
+            return record(int(rng.integers(0, len(reader))))
+
+        pool = [record(i) for i in range(min(frames_in_pool, len(reader)))]
+    else:
+        synth = SyntheticFrameGenerator(cat, n_max=n_points, height=render_hw[0],
+                                        width=render_hw[1], seed=cfg.seed, device=device)
+        if branch == "dino" and dino_extractor is None:
+            progress("[train] no DINOv2 weights given: using a fixed random backbone")
+            dino_extractor = DinoFeatureExtractor(device=device).init_random(
+                torch.Generator(device=synth.device).manual_seed(cfg.seed))
+
+        def next_frame(rng=None):   # rendered from the generator's own stream
+            f = synth.next_frame()
+            if branch == "shot":
+                return to_host(f, keys)
+            out = to_host(f, keys[:4])
+            if branch == "dino-e2e":
+                out["crop"], out["kp"] = _frame_crop_kp(f, e2e_out_size)
+            else:
+                out["desc"] = _frame_descriptors(f, dino_extractor).cpu().numpy()
+            return out
+
+        progress(f"[train] filling the frame pool ({frames_in_pool})...")
+        pool = [next_frame() for _ in range(frames_in_pool)]
 
     def to_batch(frames):
         return {k: np.stack([f[k] for f in frames]) for k in keys}
@@ -144,9 +205,10 @@ def train_category(
             batch = to_batch([pool[i] for i in picks])
             step_gen.manual_seed(int(rng.integers(0, 2**31)))
             state, metrics = step_fn(state, batch, generator=step_gen)
-            # swap one pool frame for another stored record per step
+            # refresh one pool frame per step: a newly rendered frame, or
+            # another stored record
             slot = int(rng.integers(0, len(pool)))
-            pool[slot] = record(int(rng.integers(0, len(reader))))
+            pool[slot] = next_frame(rng)
             if state.step % log_every == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 m |= {"step": state.step, "epoch": epoch, "wall": time.time() - t0}
@@ -167,12 +229,13 @@ def train_category(
                            stride=e2e_stride, out_size=e2e_out_size)
         progress(f"[train] exported branch params.msgpack + {bb}")
     dist.barrier()
-    reader.close()
+    if reader is not None:
+        reader.close()
     return state
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description="train one branch of one category from records")
+    ap = argparse.ArgumentParser(description="train one branch of one category")
     ap.add_argument("--category", required=True, choices=list(CATEGORIES))
     ap.add_argument("--branch", default="shot", choices=sorted(_FEATURES))
     ap.add_argument("--epochs", type=int, default=101)
@@ -182,7 +245,7 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--out", default=None)
     ap.add_argument("--records", default=None,
-                    help="the data/records.py container to replay (required)")
+                    help="replay a data/records.py container instead of rendering")
     ap.add_argument("--backbone-lr-scale", type=float, default=1.0,
                     help="dino-e2e only: scale backbone grads vs the head")
     ap.add_argument("--seed", type=int, default=0)

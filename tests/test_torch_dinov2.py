@@ -2,6 +2,8 @@
 at a tiny size (embed 64, depth 2, heads 4), weights carried from the JAX
 init by `models/porting.py::load_vit`."""
 
+import inspect
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -192,3 +194,52 @@ def test_bbox_crop_token_grid_takes_a_stack_of_masks():
     assert grids.shape == (3, 4, 4, 64) and txys.shape == (3, 3)
     np.testing.assert_array_equal(txys.numpy(), np.asarray(txys_j))
     np.testing.assert_allclose(grids.numpy(), np.asarray(grids_j), atol=2e-3)
+
+
+@pytest.mark.parametrize("interp_impl", ["gather", "onehot"])
+@pytest.mark.parametrize("attn_impl", ["kernel", "hbm"])
+def test_dino_feature_extractor_matches_jax(interp_impl, attn_impl):
+    """DinoFeatureExtractor at stride 4 on a 32 x 32 crop (resized to 112 x
+    112, 8 x 8 patches; position grid 4 resized to 8), a depth-1 ViT in
+    float32 with weights carried from the JAX extractor's init, 100
+    keypoints some outside the crop: unit descriptors within the f32 band
+    (2e-3) of JAX's default path ("hbm" attention off the TPU), both
+    sampling forms, both attention routes (K1's plain version rounds q, k, v
+    to bf16)."""
+    kw = dict(embed_dim=64, depth=1, num_heads=4, pretrain_grid=4, layerscale_init=1.0,
+              compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    img = rng.uniform(size=(32, 32, 3)).astype(np.float32)
+    kp = rng.uniform(-1, 33, size=(100, 2)).astype(np.float32)
+    jext = jdino.DinoFeatureExtractor(cfg=jdino.ViTConfig(**kw), stride=4, interp_impl=interp_impl,
+                                      out_size=32)
+    jext.init_random(hw=(32, 32), seed=0)
+    want = np.asarray(jext(jnp.asarray(img), jnp.asarray(kp)))
+    text = tdino.DinoFeatureExtractor(params=jax.device_get(jext.params),
+                                      cfg=tdino.ViTConfig(**kw, attn_impl=attn_impl), stride=4,
+                                      interp_impl=interp_impl, out_size=32, device="cpu")
+    got = text(torch.from_numpy(img), torch.from_numpy(kp)).numpy()
+    assert got.shape == want.shape == (100, 64) and text.out_size == 32
+    np.testing.assert_allclose(got, want, atol=2e-3)
+    np.testing.assert_allclose(np.linalg.norm(got, axis=-1), 1.0, atol=1e-5)
+
+
+def test_dino_feature_extractor_refusals():
+    """No weights, a downscale (stride above 14) and the int8 route each
+    raise; init_random is seeded; the default is ViT-L/14 on K1."""
+    cfg = tdino.ViTConfig(embed_dim=64, depth=1, num_heads=4, pretrain_grid=4)
+    ext = tdino.DinoFeatureExtractor(cfg=cfg, out_size=32, device="cpu")
+    img, kp = torch.rand(32, 32, 3), torch.rand(5, 2) * 32
+    with pytest.raises(RuntimeError, match="init"):
+        ext(img, kp)
+    a = ext.init_random(torch.Generator().manual_seed(3))(img, kp)
+    b = tdino.DinoFeatureExtractor(cfg=cfg, out_size=32, device="cpu").init_random(
+        torch.Generator().manual_seed(3))(img, kp)
+    assert torch.equal(a, b)
+    ext.stride = 16
+    with pytest.raises(ValueError, match="upscale"):
+        ext(img, kp)
+    with pytest.raises(NotImplementedError, match="int8"):
+        tdino.DinoFeatureExtractor(cfg=cfg, quant="int8", device="cpu")
+    assert inspect.signature(tdino.DinoFeatureExtractor).parameters["stride"].default == 4
+    assert tdino.VIT_L14.attn_impl == "kernel" and tdino.VIT_L14.depth == 24

@@ -39,6 +39,8 @@ from cppf2_torch.ops import attention
 from cppf2_torch.train import checkpoints as tckpt
 from cppf2_torch.train import loop as tloop
 from cppf2_torch.train import visual as tvisual
+from cppf2_torch.data.synthetic import SynthFrame
+from cppf2_torch.train import driver as tdriver
 from cppf2_torch.train.driver import train_category
 from cppf2_tpu.config import TrainConfig as JCfg
 from cppf2_tpu.data.records import RecordWriter as JRecordWriter
@@ -46,7 +48,10 @@ from cppf2_tpu.models import DinoBranch as JDino
 from cppf2_tpu.models import ShotBranch as JShot
 from cppf2_tpu.models import dinov2 as jdino
 from cppf2_tpu.models.cppf import TuplePredictions as JPreds
+from cppf2_tpu.config import CATEGORIES as JCATS
+from cppf2_tpu.data import synthetic as jsynth
 from cppf2_tpu.train import checkpoints as jckpt
+from cppf2_tpu.train import driver as jdriver
 from cppf2_tpu.train import loop as jloop
 from cppf2_tpu.train import visual as jvisual
 from test_torch_parallel import run_ranks
@@ -376,7 +381,7 @@ def test_make_train_step_needs_a_process_group():
 
     with pytest.raises(RuntimeError, match="process group"):
         make_mesh(device="cpu")
-    with pytest.raises(NotImplementedError, match="synthetic"):
+    with pytest.raises(RuntimeError, match="process group"):
         train_category("mug", "shot", TCfg(), records=None, device="cpu")
 
 
@@ -419,7 +424,7 @@ def test_backbone_files_cross_packages(tmp_path):
     jvit = jdino.DinoViT(jdino.ViTConfig(**cfg))
     jparams = jvit.init(jax.random.key(2), jnp.zeros((56, 56, 3)))
     jdino.save_backbone(str(tmp_path / "j" / "backbone"), jparams, jvit.cfg, stride=8, out_size=32)
-    tvit, tcfg, stride, out_size = tdino.load_backbone(str(tmp_path / "j" / "backbone"),
+    tvit, tcfg, stride, out_size = tdino.load_backbone(str(tmp_path / "j" / "backbone"), device="cpu",
                                                        compute_dtype="float32", attn_impl="hbm")
     assert (stride, out_size, tcfg.embed_dim, tcfg.attn_impl) == (8, 32, 128, "hbm")
     img = np.random.default_rng(0).uniform(size=(56, 56, 3)).astype(np.float32)
@@ -479,9 +484,10 @@ _DRIVER_BODY = """
 import json, os
 from cppf2_torch.config import TrainConfig
 from cppf2_torch.eval.driver import load_category_models
+from cppf2_torch.models.dinov2 import DinoFeatureExtractor, ViTConfig
 from cppf2_torch.train.checkpoints import latest_checkpoint
 from cppf2_torch.train.driver import train_category
-kw = dict(records=TMP + "/train.rec", log_every=1, ckpt_every_epochs=1, frames_in_pool=4,
+kw = dict({source}, log_every=1, ckpt_every_epochs=1, frames_in_pool=4,
           progress=lambda s: None, device="cpu", e2e_out_size=32,
           vit_cfg={vit_cfg})
 cfg = TrainConfig(max_epochs=1, **{cfg!r})
@@ -491,6 +497,7 @@ assert s1.step == 3 and latest_checkpoint(out).endswith("step_00000003")
 # resume: one more epoch continues from the checkpoint, not from step 0
 s2 = train_category("mug", {branch!r}, TrainConfig(max_epochs=2, **{cfg!r}), out, **kw)
 assert s2.step == 6 and latest_checkpoint(out).endswith("step_00000006")
+dist.barrier()   # every rank has read the run directory before rank 0 moves it
 if RANK == 0:
     rows = [json.loads(l) for l in open(out + "/metrics.jsonl")]
     assert [r["step"] for r in rows] == [1, 2, 3, 4, 5, 6], rows
@@ -520,12 +527,66 @@ def test_train_category_from_jax_written_records(branch, world, tmp_path):
             w.append(f)
     vit_cfg = ("__import__('cppf2_torch.models.dinov2').models.dinov2.ViTConfig(**%r)" % VIT
                if branch == "dino-e2e" else "None")
-    run_ranks(world, _DRIVER_BODY.format(branch=branch, cfg=CFG, vit_cfg=vit_cfg,
+    run_ranks(world, _DRIVER_BODY.format(branch=branch, cfg=CFG, vit_cfg=vit_cfg, source=_RECORDS,
                                          sub="shot" if branch == "shot" else "dino"), tmp_path)
     if branch == "dino-e2e":
-        params, cfg, stride, out_size = jdino.load_backbone(str(tmp_path / "run" / "backbone"))
-        assert (cfg.embed_dim, cfg.pretrain_grid, stride, out_size) == (128, 4, 8, 32)
-        grid = jdino.DinoViT(cfg).apply(params, jnp.asarray(rng.uniform(size=(56, 56, 3)), jnp.float32))
-        assert grid.shape == (4, 4, 128) and bool(jnp.isfinite(grid).all())
-        head = load_params_msgpack(str(tmp_path / "run" / "params.msgpack"))
-        assert head["params"]["desc_transform"]["kernel"].shape == (128, 256)
+        _assert_exports_load_in_jax(tmp_path, rng)
+
+
+_RECORDS = 'records=TMP + "/train.rec"'
+# the pool comes from the synthetic generator: 64 x 80 renders; the frozen
+# descriptors from a depth-1 ViT at stride 4 on 32 x 32 crops
+_RENDERED = ('render_hw=(64, 80), n_points=128, dino_extractor=DinoFeatureExtractor('
+             'cfg=ViTConfig(embed_dim=64, depth=1, num_heads=4, pretrain_grid=4), out_size=32, '
+             'device="cpu").init_random(torch.Generator().manual_seed(0))')
+
+
+@pytest.mark.parametrize("branch,world", [("shot", 1), ("shot", 2), ("dino", 1), ("dino-e2e", 1)])
+def test_train_category_renders_its_pool(branch, world, tmp_path):
+    """train_category without records: the pool and every refresh rendered
+    by the synthetic generator (64 x 80 renders, 128 points), 3
+    steps, a checkpoint, a resumed second epoch, metrics.jsonl; "dino" takes
+    64-wide descriptors from its extractor; the e2e branch exports the head
+    and the backbone, which the JAX package then loads."""
+    vit_cfg = ("__import__('cppf2_torch.models.dinov2').models.dinov2.ViTConfig(**%r)" % VIT
+               if branch == "dino-e2e" else "None")
+    run_ranks(world, _DRIVER_BODY.format(branch=branch, cfg=CFG, vit_cfg=vit_cfg, source=_RENDERED,
+                                         sub="shot" if branch == "shot" else "dino"), tmp_path)
+    if branch == "dino-e2e":
+        _assert_exports_load_in_jax(tmp_path, np.random.default_rng(5))
+
+
+def _assert_exports_load_in_jax(tmp_path, rng):
+    params, cfg, stride, out_size = jdino.load_backbone(str(tmp_path / "run" / "backbone"))
+    assert (cfg.embed_dim, cfg.pretrain_grid, stride, out_size) == (128, 4, 8, 32)
+    grid = jdino.DinoViT(cfg).apply(params, jnp.asarray(rng.uniform(size=(56, 56, 3)), jnp.float32))
+    assert grid.shape == (4, 4, 128) and bool(jnp.isfinite(grid).all())
+    head = load_params_msgpack(str(tmp_path / "run" / "params.msgpack"))
+    assert head["params"]["desc_transform"]["kernel"].shape == (128, 256)
+
+
+@pytest.mark.parametrize("interp_impl", ["gather", "onehot"])
+def test_frame_crop_and_descriptors_match_jax(interp_impl):
+    """The host crop of a rendered frame (the JAX generator's, 64 x 80) at 32
+    x 32 and the cloud's pixels in it: crop within 1e-5 of the reference's
+    cv2 crop (measured: equal), keypoints within 1e-4 px; then the
+    descriptors of a stride-4 extractor (depth-1 ViT in float32, weights
+    carried) within the f32 band of dinov2's tests, 2e-3."""
+    gen = jsynth.SyntheticFrameGenerator(JCATS["mug"], n_max=128, height=64, width=80, shot_k=16,
+                                         surface_samples=4000, seed=3)
+    frame = gen.next_frame()
+    port = SynthFrame(*(torch.from_numpy(np.array(x)) for x in frame))
+    want_crop, want_kp = jdriver._frame_crop_kp(frame, 32)
+    got_crop, got_kp = tdriver._frame_crop_kp(port, 32)
+    assert got_crop.shape == (32, 32, 3) and got_kp.shape == (128, 2)
+    np.testing.assert_allclose(got_crop, want_crop, atol=1e-5)
+    np.testing.assert_allclose(got_kp, want_kp, atol=1e-4)
+    kw = dict(embed_dim=64, depth=1, num_heads=4, pretrain_grid=4, compute_dtype="float32")
+    jext = jdino.DinoFeatureExtractor(cfg=jdino.ViTConfig(**kw), interp_impl=interp_impl, out_size=32)
+    jext.init_random(hw=(32, 32), seed=1)
+    text = tdino.DinoFeatureExtractor(params=jax.device_get(jext.params), cfg=tdino.ViTConfig(**kw),
+                                      interp_impl=interp_impl, out_size=32, device="cpu")
+    want = np.asarray(jdriver._frame_descriptors(frame, jext))
+    got = tdriver._frame_descriptors(port, text).numpy()
+    assert got.shape == want.shape == (128, 64)
+    np.testing.assert_allclose(got, want, atol=2e-3)
