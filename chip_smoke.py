@@ -98,11 +98,28 @@ Phases, each printing its own lines; any failure exits non-zero:
      a rendered frame posed through `estimate_instance` with the exported
      weights.
 
+  9. the demo (`python -m cppf2_torch.demo`, called in process as
+     `demo.main([...])`): three 480x640 tabletop frames written here as PNGs
+     (a plane at 1 m, a mug-sized sphere cap and a small one, moving from
+     frame to frame), a seeded random ViT-L/14 written as an official DINOv2
+     .pth (1.2 GB, its write timed apart), and a reference-release Lightning
+     tree whose version_10 holds ckpts_r3's mug branches in BeyondCPPF's key
+     layout and version_9 the bowl's (loaded branches equal ckpts_r3's, every
+     tensor); then `--auto-mask` at the production PipelineConfig with the
+     extractor at stride 4: 24 K1 launches at (16, 4097, 64) and 8 K2
+     launches per frame, the .pth loads as the ViT it came from, an overlay
+     PNG and a pose file per frame read back, the proposer's pick overlaps the
+     mug on every frame (IoU 0.5); the same run with every kernel swapped for
+     its plain version: the same masks and branch picks, R within 1 degree, T
+     within 3 mm. ms per frame split into image read, proposer, descriptor
+     stage, pose, overlay + PNG write, and the device-busy share.
+
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 8 launches of the slice, all through the fused entry, with a fine
-level's times; the candidate-array entry's times stand inside it; K1's row
-holds the batched shape and the stride-4 shape nested), then the
-card's name and power limit. The last line:
+level's times, and the demo's launches; the candidate-array entry's times
+stand inside it; K1's row holds the batched shape and the stride-4 shape
+nested, the latter with the demo's launches), then the card's name and power
+limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -116,13 +133,11 @@ import os
 import pickle
 import shutil
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
 import warnings
-import zlib
 
 import numpy as np
 
@@ -725,30 +740,6 @@ def check_sphere(dev, votes, sph, tol):
     return rows
 
 
-def write_png16(path, img):
-    """A 16-bit grayscale PNG (filter 0 on every row) from zlib and struct."""
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    h, w = img.shape
-    raw = b"".join(b"\x00" + img[y].astype(">u2").tobytes() for y in range(h))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 16, 0, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
-
-
-def write_png_rgb8(path, img):
-    """An 8-bit RGB PNG (filter 0 on every row) from zlib and struct."""
-    def chunk(kind, body):
-        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
-
-    h, w, _ = img.shape
-    raw = b"".join(b"\x00" + img[y].astype(np.uint8).tobytes() for y in range(h))
-    with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
-
-
 FRAME_CATS = ["bottle", "bowl", "can", "mug"]
 
 
@@ -757,6 +748,7 @@ def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0
     0.8-0.9 m (moved sideways by `shift` metres), their masks as detections, a
     depth PNG in millimetres and, with `color`, a random 8-bit colour PNG."""
     from cppf2_torch.config import SYNSET_NAMES
+    from cppf2_torch.eval.png import write_png16, write_png_rgb8
 
     cats = FRAME_CATS
     centers = [(-0.13 + shift, -0.08, 0.82), (0.12 + shift, -0.07, 0.88),
@@ -1686,6 +1678,305 @@ def run_render_trainer(dev, pipe, tmp, backend="nccl", hw=(480, 640), samples=25
     return dino_launches, renders, extractor, ms_per_step
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the in-the-wild demo
+# ---------------------------------------------------------------------------
+
+def tabletop_frames(n, h=480, w=640, seed=30, step=8):
+    """n RGB-D frames of a table plane at 1 m (tilted a little) with a mug-sized
+    sphere cap (radius 9 cm: a max extent of about 18 cm, inside mug's scale
+    range) and a small one (radius 3.5 cm) beside it, both moving `step` px
+    right per frame, depth noise 1 mm; a random colour image. Returns
+    [(rgb, depth in m, the mug's mask)]."""
+    rng = np.random.default_rng(seed)
+    fx, cx, cy = REAL275_K[0, 0], REAL275_K[0, 2], REAL275_K[1, 2]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float32)
+    out = []
+    for i in range(n):
+        depth = (1.0 + 0.0002 * (ys - cy)).astype(np.float32)
+        masks = []
+        for (u, v, radius, z) in ((cx - 40 + step * i, cy + 10, 0.09, 0.9),
+                                  (cx + 150 + step * i, cy - 60, 0.035, 0.93)):
+            d2 = (xs - u) ** 2 + (ys - v) ** 2
+            m = d2 < (radius * fx / z) ** 2
+            bump = np.sqrt(np.maximum(radius ** 2 - d2 * (z / fx) ** 2, 0.0))
+            depth = np.where(m, z - bump, depth)
+            masks.append(m)
+        depth = (depth + rng.normal(0, 1e-3, (h, w))).astype(np.float32)
+        out.append((rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8), depth, masks[0]))
+    return out
+
+
+def dinov2_state_dict(vit):
+    """A DinoViT's weights in facebookresearch/dinov2's key layout, float32 on
+    the host: the inverse of `models/dinov2.py::port_torch_state_dict`."""
+    import torch
+
+    c = vit.cfg
+    d, p = c.embed_dim, c.patch_size
+
+    def host(t):
+        return t.detach().to("cpu", torch.float32).clone()
+
+    sd = {"patch_embed.proj.weight": host(vit.patch_embed.weight).reshape(d, p, p, 3).permute(0, 3, 1, 2)
+          .contiguous(),
+          "patch_embed.proj.bias": host(vit.patch_embed.bias),
+          "cls_token": host(vit.cls_token).reshape(1, 1, d), "pos_embed": host(vit.pos_embed)[None],
+          "mask_token": torch.zeros(1, d), "norm.weight": host(vit.norm.weight),
+          "norm.bias": host(vit.norm.bias)}
+    for i, b in enumerate(vit.blocks):
+        for ours, theirs in (("norm1", "norm1"), ("norm2", "norm2"), ("attn.qkv", "attn.qkv"),
+                             ("attn.proj", "attn.proj"), ("mlp_fc1", "mlp.fc1"), ("mlp_fc2", "mlp.fc2")):
+            m = b.get_submodule(ours)
+            sd[f"blocks.{i}.{theirs}.weight"] = host(m.weight)
+            sd[f"blocks.{i}.{theirs}.bias"] = host(m.bias)
+        sd[f"blocks.{i}.ls1.gamma"] = host(b.ls1)
+        sd[f"blocks.{i}.ls2.gamma"] = host(b.ls2)
+    return sd
+
+
+def beyondcppf_state_dict(tree):
+    """A branch's parameter tree (Dense kernels as (in, out)) in the
+    reference's BeyondCPPF Lightning key layout (train_shot.py:52-73,
+    train_dino.py:64-85): the inverse of
+    `models/porting.py::port_beyondcppf_state_dict`."""
+    import torch
+
+    p = tree.get("params", tree)
+    sd = {}
+
+    def dense(prefix, d):
+        sd[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(np.asarray(d["kernel"], np.float32).T))
+        sd[f"{prefix}.bias"] = torch.from_numpy(np.array(d["bias"], np.float32))
+
+    def res_mlp(prefix, mlp):
+        for name, layer in mlp.items():
+            i = int(name[len("res"):])
+            dense(f"{prefix}.{i}.fc1", layer["fc1"])
+            dense(f"{prefix}.{i}.fc2", layer["fc2"])
+            if "proj" in layer:
+                dense(f"{prefix}.{i}.fc0", layer["proj"])
+
+    res_mlp("tuple_encoder", p["tuple_encoder"])
+    res_mlp("logit_encoder", p["heads"]["logit_encoder"])
+    res_mlp("scale_encoder", p["heads"]["scale_encoder"])
+    if "shot_encoder" in p:
+        res_mlp("shot_encoder", p["shot_encoder"])
+    else:
+        dense("desc_transform", p["desc_transform"])
+        dense("desc_pair_transform", p["desc_pair_transform"])
+    return sd
+
+
+def write_release_tree(root, ckpts, cat="mug", older="bowl"):
+    """The reference release's Lightning tree under `root`:
+    {shot,dino}/<cat>-num_more-3/lightning_logs/version_{9,10}/checkpoints/
+    last.ckpt and .hydra/config.yaml. version_10 holds `ckpts`' <cat>
+    weights in BeyondCPPF's key layout, version_9 its <older> weights, so
+    only a numeric version order loads the right ones."""
+    import torch
+
+    from cppf2_torch.models.checkpoints import load_params_msgpack
+
+    for branch in ("shot", "dino"):
+        run = os.path.join(root, branch, f"{cat}-num_more-3")
+        os.makedirs(os.path.join(run, ".hydra"), exist_ok=True)
+        with open(os.path.join(run, ".hydra", "config.yaml"), "w") as f:
+            f.write(f"category:\n  name: {cat}\nnum_more: 3\nres: 0.002\n")
+        for version, src in ((9, older), (10, cat)):
+            ck = os.path.join(run, "lightning_logs", f"version_{version}", "checkpoints")
+            os.makedirs(ck, exist_ok=True)
+            tree = load_params_msgpack(os.path.join(ckpts, branch, src, "params.msgpack"))
+            torch.save({"state_dict": beyondcppf_state_dict(tree), "epoch": 100, "global_step": 20200},
+                       os.path.join(ck, "last.ckpt"))
+
+
+@contextlib.contextmanager
+def recorded(mod, name, record):
+    """Swap mod.name for a function that passes each call's (args, kwargs,
+    result) to `record` and returns the result."""
+    fn = getattr(mod, name)
+
+    def wrapper(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        record(args, kwargs, out)
+        return out
+
+    setattr(mod, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(mod, name, fn)
+
+
+def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
+    """Phase 9; returns (K1 launches, K2 launches, ms per frame, {stage: ms
+    per frame}, the device-busy share in percent)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cppf2_torch import demo
+    from cppf2_torch.config import PipelineConfig
+    from cppf2_torch.eval import driver
+    from cppf2_torch.eval.png import read_png_rgb8, write_png16, write_png_rgb8
+    from cppf2_torch.models.dinov2 import VIT_L14, DinoFeatureExtractor, DinoViT
+    from cppf2_torch.ops import attention, hist16
+
+    vit_cfg = vit_cfg or VIT_L14
+    pipe = PipelineConfig()
+    root = os.path.join(tmp, "demo")
+    rgb_dir, depth_dir = os.path.join(root, "rgb"), os.path.join(root, "depth")
+    os.makedirs(rgb_dir)
+    os.makedirs(depth_dir)
+    frames = tabletop_frames(n_frames)
+    for i, (rgb, depth, _) in enumerate(frames):
+        write_png_rgb8(os.path.join(rgb_dir, f"{i:04d}.png"), rgb)
+        write_png16(os.path.join(depth_dir, f"{i:04d}.png"), np.round(depth * 1000).astype(np.uint16))
+
+    # the backbone: seeded random weights, written as an official DINOv2 .pth
+    with torch.device(dev):
+        vit = DinoViT(vit_cfg).eval()
+    vit.init_random(torch.Generator(device=dev).manual_seed(5))
+    pth = os.path.join(root, "dinov2_vitl14.pth")
+    sd = dinov2_state_dict(vit)
+    t0 = time.perf_counter()
+    torch.save(sd, pth)
+    write_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in sd.values())
+    del sd
+    vit.cast_for_inference()
+    say(f"[demo] {vit_cfg.depth}-block ViT ({n_params / 1e6:.1f} M parameters) written as a DINOv2 .pth "
+        f"({os.path.getsize(pth) / 2 ** 30:.2f} GiB) in {write_s:.1f} s")
+
+    # the branches: ckpts_r3's mug as a reference release tree, checked on load
+    ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
+    tree = os.path.join(root, "ckpts")
+    write_release_tree(tree, ckpts)
+    got = driver.load_category_models(tree, ["mug"], torch.bfloat16, dev)["mug"]
+    want = driver.load_category_models(ckpts, ["mug"], torch.bfloat16, dev)["mug"]
+    for branch in ("shot", "dino"):
+        a, b = getattr(got, branch).state_dict(), getattr(want, branch).state_dict()
+        if a.keys() != b.keys() or not all(torch.equal(a[k], b[k]) for k in a):
+            raise AssertionError(f"{branch}: the Lightning tree's version_10 does not load as ckpts_r3's mug")
+    del got, want
+    say("[demo] mug branches from a Lightning tree (version_9 and version_10): equal to ckpts_r3's "
+        "params.msgpack, every tensor")
+
+    def run(out, extra_targets=(), extra_args=()):
+        """demo.main on the frames; returns ({calls}, {target: ms}, seconds)."""
+        calls = {"masks": [], "picks": [], "k1_shapes": [], "extractor": []}
+        argv = ["--rgb-dir", rgb_dir, "--depth-dir", depth_dir, "--auto-mask", "--category", "mug",
+                "--ckpts", tree, "--dino-ckpt", pth, "--out", out, "--device", dev.type, "--seed", "0",
+                *pipe_args, *extra_args]
+        real_fetch = demo.fetch_instances
+
+        def fetch_with_picks(pendings):
+            outs, picks = real_fetch(pendings, return_picks=True)
+            calls["picks"].extend(picks)
+            return outs
+
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(recorded(demo, "auto_instance_mask",
+                                         lambda a, k, o: calls["masks"].append(o[0])))
+            stack.enter_context(recorded(demo, "load_dino_extractor",
+                                         lambda a, k, o: calls["extractor"].append(o)))
+            stack.enter_context(recorded(attention, "mha",
+                                         lambda a, k, o: calls["k1_shapes"].append(tuple(a[0].shape))))
+            demo.fetch_instances = fetch_with_picks
+            stack.callback(setattr, demo, "fetch_instances", real_fetch)
+            spent = stack.enter_context(timed_calls(list(extra_targets)))
+            t0 = time.perf_counter()
+            demo.main(argv)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+        return calls, spent, seconds
+
+    # the kernel route
+    out_k = os.path.join(root, "out_kernel")
+    zero_counts()
+    calls, _, run_s = run(out_k)
+    launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
+                "hist16_level_peak": hist16.hist16_level_peak.launches}
+    want_launches = {"mha": vit_cfg.depth * n_frames, "hist16_peak": 2 * pipe.vote_levels * n_frames,
+                     "hist16_level_peak": 2 * pipe.vote_levels * n_frames}
+    t_tokens = (256 // 4) ** 2 + 1
+    if launches != want_launches or set(calls["k1_shapes"]) != {(vit_cfg.num_heads, t_tokens, 64)}:
+        raise AssertionError(f"demo: launches {launches} at K1 shapes {set(calls['k1_shapes'])}, expected "
+                             f"{want_launches} at ({vit_cfg.num_heads}, {t_tokens}, 64)")
+    loaded = calls["extractor"][0].model.state_dict()
+    if not all(torch.equal(v, loaded[k]) for k, v in vit.state_dict().items()):
+        raise AssertionError("the .pth does not load as the ViT it was written from")
+    del loaded, calls["extractor"][:]
+    poses = []
+    for i, (rgb, _, truth) in enumerate(frames):
+        img = read_png_rgb8(os.path.join(out_k, f"{i:04d}.png"))
+        pose = np.load(os.path.join(out_k, f"{i:04d}_pose.npz"))
+        m = calls["masks"][i]
+        iou = (m & truth).sum() / max((m | truth).sum(), 1)
+        if img.shape != rgb.shape or not (img != rgb).any() or not np.isfinite(pose["RT"]).all():
+            raise AssertionError(f"frame {i}: overlay {img.shape} drawn {(img != rgb).any()}, RT {pose['RT']}")
+        if iou < 0.5:
+            raise AssertionError(f"frame {i}: the proposer's pick overlaps the mug at IoU {iou:.3f}")
+        poses.append((pose["RT"], pose["scales"]))
+        say(f"[demo] frame {i}: the pick overlaps the mug at IoU {iou:.3f}; T {np.round(pose['RT'][:3, 3], 4)}, "
+            f"branch {calls['picks'][i]}")
+    say(f"[demo] kernel route: {n_frames} frames in {run_s:.1f} s (set-up included), launches {launches}, "
+        f"K1 at {calls['k1_shapes'][0]}; {n_frames} overlay PNGs and pose files read back")
+
+    # every kernel swapped for its plain version, the same seed
+    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
+    attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
+    hist16.hist16_level_peak = hist16.hist16_level_peak_plain
+    try:
+        plain_calls, _, plain_s = run(os.path.join(root, "out_plain"))
+    finally:
+        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak = saved
+    for i, (rt, scales) in enumerate(poses):
+        prt = np.load(os.path.join(root, "out_plain", f"{i:04d}_pose.npz"))["RT"]
+        ang, dt = rt_angle_deg(rt, prt), float(np.abs(rt[:3, 3] - prt[:3, 3]).max())
+        same = np.array_equal(plain_calls["masks"][i], calls["masks"][i])
+        say(f"[demo] frame {i} kernel vs plain: R {ang:.4f} deg, T {dt * 1e3:.4f} mm, branch "
+            f"{calls['picks'][i]} vs {plain_calls['picks'][i]}, the same mask {same}")
+        if ang > 1.0 or dt > 3e-3 or calls["picks"][i] != plain_calls["picks"][i] or not same:
+            raise AssertionError(f"frame {i}: the kernel route and the plain route disagree")
+
+    # the frame's stages, each bracketed by device synchronizations
+    targets = [(demo, "read_png_rgb8"), (demo, "_read_depth"), (demo, "auto_instance_mask"),
+               (driver, "resize_crop"), (DinoFeatureExtractor, "__call__"), (demo, "run_frame"),
+               (demo, "draw_pose_overlay"), (demo, "write_png_rgb8"), (demo, "load_category_models"),
+               (demo, "load_dino_extractor")]
+    _, spent, total_s = run(os.path.join(root, "out_timed"), targets)
+    per = {k: v / n_frames for k, v in spent.items()}
+    setup_ms = spent["load_category_models"] + spent["load_dino_extractor"]
+    frame_ms = (total_s * 1e3 - setup_ms) / n_frames
+    stages = {"image read": per["read_png_rgb8"] + per["_read_depth"],
+              "proposer": per["auto_instance_mask"],
+              "descriptors (host crop + extractor)": per["resize_crop"] + per["__call__"],
+              "pose": per["run_frame"] - per["resize_crop"] - per["__call__"] - per["draw_pose_overlay"],
+              "overlay + PNG write": per["draw_pose_overlay"] + per["write_png_rgb8"]}
+    stages["rest"] = frame_ms - sum(stages.values())
+    say(f"[demo] ms per frame {frame_ms:.1f} (mean of {n_frames}; set-up {setup_ms / 1e3:.1f} s apart: "
+        f"the .pth read and the branch loads): " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items()))
+
+    # the device-busy share of a frame: profiler kernel time against the wall,
+    # on the first frame alone (the tracer's cost grows with the ~30,000
+    # kernels of a frame)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        _, spent, total_s = run(os.path.join(root, "out_profiled"),
+                                [(demo, "load_category_models"), (demo, "load_dino_extractor")],
+                                ["--end", "1"])
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+              and "memcpy htod" not in e.key.lower()]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    wall_ms = total_s * 1e3 - spent["load_category_models"] - spent["load_dino_extractor"]
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:5]
+    say(f"[demo] device busy {busy_ms:.1f} ms of {wall_ms:.1f} ms of the first frame "
+        f"({100 * busy_ms / wall_ms:.1f}%; profiled, uploads left out); top kernels: "
+        + "; ".join(f"{e.key[:50]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms" for e in top))
+    return launches["mha"], launches["hist16_peak"], frame_ms, stages, 100 * busy_ms / wall_ms
+
+
 def main() -> int:
     import torch
 
@@ -1727,6 +2018,9 @@ def main() -> int:
         t_phase = time.perf_counter()
         dino_launches, renders, extractor, render_train_ms = run_render_trainer(dev, pipe, tmp)
         say(f"[render train] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        demo_k1, demo_k2, demo_ms, demo_stages, demo_busy = run_demo(dev, tmp)
+        say(f"[demo] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1750,7 +2044,9 @@ def main() -> int:
                           library_ms=k1_frame["library_ms"]),
              # the frozen-descriptor pass of the "dino" branch trained on rendered
              # frames: DinoFeatureExtractor at stride 4 on a 256 x 256 crop
-             stride4=dict(shape=[16, 4097, 64], launches=dino_launches, max_abs_err=k1_4097["err"],
+             # and of the demo, 24 launches per frame (phase 9): `demo_launches`
+             stride4=dict(shape=[16, 4097, 64], launches=dino_launches, demo_launches=demo_k1,
+                          max_abs_err=k1_4097["err"],
                           ms=k1_4097["ms"], device_ms=k1_4097["device_ms"], plain_ms=k1_4097["plain_ms"],
                           bound_ms=k1_4097["bound_ms"], bound_by="operations",
                           library_ms=k1_4097["library_ms"])),
@@ -1761,7 +2057,7 @@ def main() -> int:
         # is the same kernel behind another reader; its numbers at 400k votes,
         # with torch.bincount as the library call, stand beside it.
         dict(name="hist16_peak", route="cuda", source=hist16.SOURCE, replaces=hist16.REPLACES,
-             entry="hist16_level_peak", launches=launches["hist16_peak"],
+             entry="hist16_level_peak", launches=launches["hist16_peak"], demo_launches=demo_k2,
              max_abs_err=max(r["err"] for r in k2 + k2_levels),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
@@ -1785,6 +2081,9 @@ def main() -> int:
         + f"; DinoFeatureExtractor ms_per_call {extractor['ms']:.1f} (K1 {extractor['k1_ms']:.2f} of "
         f"{extractor['busy_ms']:.2f} device ms); ms_per_step "
         + ", ".join(f"{b} {ms:.1f}" for b, ms in render_train_ms.items()))
+    say(f"[demo] ms_per_frame {demo_ms:.1f} ("
+        + ", ".join(f"{k} {v:.1f}" for k, v in demo_stages.items())
+        + f"), device busy {demo_busy:.1f}%, launches K1 {demo_k1}, K2 {demo_k2}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
 """Core geometry: backprojection, the fibonacci sphere, quaternion rotations,
-axis rotations and symmetry canonicalization.
+axis rotations, symmetry canonicalization, and the host box and projection
+helpers of the pose overlay.
 
 Counterpart of `cppf2_tpu/core/geometry.py` (reference: utils/util.py:66-81,
-191-208, 2586-2607; dataset.py:84-101; eval.py:320-355).
+191-208, 858-921, 2586-2607; dataset.py:84-101; eval.py:320-355).
 """
 
 from __future__ import annotations
@@ -146,3 +147,37 @@ def map_sym_discrete(rot: torch.Tensor, sym_rots: torch.Tensor) -> torch.Tensor:
     idx = torch.argmin(torch.sqrt(torch.sum(diff * diff, dim=(-2, -1))))
     # index_select, not sym_rots[idx]: a 0-d tensor index is a read back on CUDA
     return torch.index_select(sym_rots, 0, idx.reshape(1))[0].transpose(-1, -2) @ rot
+
+
+# ---------------------------------------------------------------------------
+# Box / projection helpers of the overlay (reference: utils/util.py:858-921),
+# host numpy in float64 as in the JAX package
+# ---------------------------------------------------------------------------
+
+def get_3d_bbox(scale, shift=0.0) -> np.ndarray:
+    """The 8 corners (3, 8) of an axis-aligned box of size `scale` (a scalar
+    or 3 sides) centred at `shift`."""
+    s = np.asarray(scale, dtype=np.float64)
+    if s.ndim == 0:
+        s = np.array([s, s, s])
+    sx, sy, sz = s / 2.0
+    corners = np.array([
+        [sx, sy, sz], [sx, sy, -sz], [-sx, sy, sz], [-sx, sy, -sz],
+        [sx, -sy, sz], [sx, -sy, -sz], [-sx, -sy, sz], [-sx, -sy, -sz],
+    ]) + shift
+    return corners.T
+
+
+def transform_coordinates_3d(coords: np.ndarray, rt: np.ndarray) -> np.ndarray:
+    """A 4x4 homogeneous transform applied to (3, N) coordinates."""
+    hom = np.vstack([coords, np.ones((1, coords.shape[1]))])
+    out = rt @ hom
+    return out[:3] / out[3:4]
+
+
+def calculate_2d_projections(coords3d: np.ndarray, intrinsics: np.ndarray) -> np.ndarray:
+    """(3, N) camera coordinates projected to (N, 2) int32 pixels (x, y),
+    truncated toward zero."""
+    proj = intrinsics @ coords3d
+    proj = proj[:2] / proj[2:3]
+    return proj.T.astype(np.int32)

@@ -3,9 +3,9 @@
 Counterpart of `cppf2_tpu/eval/driver.py` (reference eval.py:54-412). Three
 levels, each built on the one before:
 
-  * one instance: `dispatch_instance` queues `preprocess_frame` ->
-    `bbox_crop_descriptors` (ViT, kernel K1) -> `estimate_pose_ensemble`
-    (center votes through kernel K2) and reads nothing back;
+  * one instance: `dispatch_instance` queues `preprocess_frame` -> the
+    visual descriptors (ViT, kernel K1) -> `estimate_pose_ensemble` (center
+    votes through kernel K2) and reads nothing back;
     `fetch_instances` brings a list of them to the host in one copy, applies
     the degenerate-input guards and assembles (RT, scales, loss) in the NOCS
     convention. `estimate_instance` is the same graph returning the raw
@@ -18,8 +18,19 @@ levels, each built on the one before:
     dispatched before frame k is fetched, writes the result pkls and scores
     them; `main` is its command line (`python -m cppf2_torch.eval.driver`).
 
-Every visual descriptor comes from the in-graph bbox-crop frontend
-(`models/dinov2.py`), for grouped instances and single ones alike.
+The visual descriptors take one of two routes, as the caller chooses:
+  * `dino_extractor=` (a `DinoFeatureExtractor`), the JAX driver's route: a
+    single instance's masked RGB is cropped on the host (`resize_crop`) and
+    goes through the extractor at its own stride, the cloud's pixels mapped
+    into the crop on the device; grouped instances of a frame go through the
+    extractor's backbone in the in-graph bbox-crop frontend, at its stride;
+  * `vit=` (a bare `DinoViT`, with `stride` and `out_size`): the in-graph
+    bbox-crop frontend (`models/dinov2.py`) for every instance, the route
+    the JAX package's benchmark times.
+
+Branch weights come from `{root}/{shot,dino}/<cat>`: a packed
+`params.msgpack`, a training run's newest checkpoint, or the reference
+release's Lightning `last.ckpt` tree (`models/porting.py`).
 
 Randomness is injected: one `InstanceDraws` per instance, given or drawn
 from a torch.Generator in detection order, so a result does not depend on how
@@ -31,6 +42,7 @@ from __future__ import annotations
 import glob
 import os
 import pickle
+import re
 from dataclasses import dataclass
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
@@ -42,20 +54,30 @@ from cppf2_torch.core.downsample import draw_downsample
 from cppf2_torch.core.geometry import check_pinhole
 from cppf2_torch.device import resolve_device
 from cppf2_torch.eval.nocs_map import compute_degree_cm_map
-from cppf2_torch.eval.png import read_png16, read_png_rgb8
+from cppf2_torch.eval.png import read_png16, read_png_rgb8, write_png_rgb8
 from cppf2_torch.eval.pose_errors import _assemble_rt, pose_error_degree_cm
-from cppf2_torch.infer.frontend import auto_crop, crop_origin, preprocess_frame, window_shape
+from cppf2_torch.infer.frontend import (
+    auto_crop,
+    crop_origin,
+    mask_bbox,
+    preprocess_frame,
+    resize_crop,
+    window_shape,
+)
 from cppf2_torch.infer.pipeline import PoseDraws, PoseEstimate, draw_pose, estimate_pose_ensemble
 from cppf2_torch.models.checkpoints import load_params_msgpack
 from cppf2_torch.models.cppf import DinoBranch, ShotBranch
 from cppf2_torch.models.dinov2 import (
+    DinoFeatureExtractor,
     DinoViT,
     bbox_crop_descriptors,
     bbox_crop_token_grid,
     load_backbone,
+    load_dinov2_params,
     sample_crop_descriptors,
 )
-from cppf2_torch.models.porting import load_branch
+from cppf2_torch.models.porting import load_beyondcppf_checkpoint, load_branch
+from cppf2_torch.utils.viz import draw_pose_overlay
 
 # REAL275 evaluation intrinsics (eval.py:82)
 REAL275_INTRINSICS = np.array(
@@ -69,12 +91,49 @@ class CategoryModels:
     dino: DinoBranch
 
 
+def _reference_ckpt_path(root: str, branch: str, name: str) -> Optional[str]:
+    """The reference release's Lightning checkpoint of a category, or None:
+    `{root}/{branch}/{name}-num_more-*/lightning_logs/version_*/checkpoints/
+    last.ckpt` (eval.py:88-99), the newest version by number (version_10
+    after version_9), else a flat `{root}/{branch}/{name}/last.ckpt`."""
+    def natural(path):
+        return [int(t) if t.isdigit() else t for t in re.split(r"(\d+)", path)]
+
+    for pattern in (os.path.join(root, branch, f"{name}-num_more-*", "lightning_logs", "version_*",
+                                 "checkpoints", "last.ckpt"),
+                    os.path.join(root, branch, name, "last.ckpt")):
+        hits = sorted(glob.glob(pattern), key=natural)
+        if hits:
+            return hits[-1]
+    return None
+
+
+def _check_hydra_sidecar(ckpt_path: str, cat) -> None:
+    """Hold the run's hydra config (`.hydra/config.yaml` in the checkpoint's
+    directory or up to three above it) against the category: `num_more` + 2
+    must be its tuple size, else ValueError. Without a sidecar the
+    checkpoint loads unchecked."""
+    d = os.path.dirname(ckpt_path)
+    for _ in range(4):
+        cand = os.path.join(d, ".hydra", "config.yaml")
+        if os.path.exists(cand):
+            with open(cand) as f:
+                m = re.search(r"^\s*num_more:\s*(\d+)", f.read(), re.M)
+            if m and int(m.group(1)) + 2 != cat.tuple_size:
+                raise ValueError(f"{cand}: num_more={m.group(1)} implies tuple size {int(m.group(1)) + 2}, "
+                                 f"but category '{cat.name}' uses {cat.tuple_size}")
+            return
+        d = os.path.dirname(d)
+
+
 def load_category_models(ckpt_root: Optional[str], categories: Sequence[str] = None,
                          compute_dtype=torch.bfloat16, device="cuda") -> Dict[str, CategoryModels]:
     """Branch models per category from `{root}/{shot,dino}/<cat>`: the packed
-    `params.msgpack`, else the newest checkpoint of a training run there.
+    `params.msgpack`, else the newest checkpoint of a training run there,
+    else the reference release's Lightning checkpoint
+    (`_reference_ckpt_path`, held against its hydra sidecar).
 
-    A branch with neither keeps torch's default random init: the pipeline
+    A branch with none keeps torch's default random init: the pipeline
     still runs, like the JAX loader's random fallback. The visual branch
     takes the descriptor width its weights were trained on."""
     from cppf2_torch.train.checkpoints import latest_checkpoint, restore_params
@@ -86,10 +145,14 @@ def load_category_models(ckpt_root: Optional[str], categories: Sequence[str] = N
         trees = {}
         for branch in ("shot", "dino"):
             run = os.path.join(ckpt_root, branch, name) if ckpt_root else None
+            ref = _reference_ckpt_path(ckpt_root, branch, name) if ckpt_root else None
             if run and os.path.exists(os.path.join(run, "params.msgpack")):
                 trees[branch] = load_params_msgpack(os.path.join(run, "params.msgpack"))
             elif run and latest_checkpoint(run):
                 trees[branch] = restore_params(latest_checkpoint(run))
+            elif ref:
+                _check_hydra_sidecar(ref, cat)
+                trees[branch] = load_beyondcppf_checkpoint(ref, branch)
         shot = ShotBranch(tuple_size=cat.tuple_size, compute_dtype=compute_dtype)
         width = {}
         if "dino" in trees:
@@ -158,12 +221,27 @@ def _pose_graph(depth_t, mask_t, k_t, origin, crop, desc_fn, models: CategoryMod
     return fi, est
 
 
+def _kp_to_crop(pixel_yx: torch.Tensor, inv_transform: torch.Tensor) -> torch.Tensor:
+    """Cloud pixels (y, x) as (x, y) positions in the host crop, through the
+    inverse of the `resize_crop` transform, on the device."""
+    xy = pixel_yx.flip(-1).to(torch.float32)
+    ones = torch.ones((xy.shape[0], 1), dtype=xy.dtype, device=xy.device)
+    return (torch.cat([xy, ones], dim=-1) @ inv_transform.T)[:, :2]
+
+
+def _visual_source(vit, dino_extractor, use_visual):
+    """`use_visual` resolved (default: a backbone is given); one backbone at most."""
+    if vit is not None and dino_extractor is not None:
+        raise ValueError("pass a ViT (the bbox-crop route) or a DinoFeatureExtractor (the host-crop "
+                         "route), not both")
+    return (vit is not None or dino_extractor is not None) if use_visual is None else use_visual
+
+
 def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, generator, vit, dev,
-                    draws, stride, out_size, run_opt, use_visual, use_geo, crop):
+                    draws, stride, out_size, run_opt, use_visual, use_geo, crop, dino_extractor=None):
     cat = get_category(cat_name)
     mask = np.asarray(mask, bool)
-    if use_visual is None:
-        use_visual = vit is not None
+    use_visual = _visual_source(vit, dino_extractor, use_visual)
     if crop == "auto":
         crop = auto_crop(mask)
     if draws is None:
@@ -177,7 +255,17 @@ def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, genera
     desc_fn = None
     # an all-empty detection mask has no bbox to crop: the pose graph still
     # runs on zero descriptors and the count guard rejects the instance
-    if use_visual and vit is not None and mask.any():
+    if use_visual and dino_extractor is not None and mask.any():
+        # the JAX driver's route: the masked RGB cropped on the host, the
+        # extractor at its own stride, the cloud's pixels mapped into the crop
+        masked = np.where(mask[..., None], np.asarray(rgb), 0).astype(np.uint8)
+        crop_img, transform = resize_crop(masked, bbox=mask_bbox(mask), out_size=256)
+        crop_t = torch.as_tensor(crop_img, device=dev) / 255.0
+        inv_t = torch.as_tensor(np.linalg.inv(transform).astype(np.float32), device=dev)
+
+        def desc_fn(pixel_yx):
+            return dino_extractor(crop_t, _kp_to_crop(pixel_yx, inv_t))
+    elif use_visual and vit is not None and mask.any():
         rgb_t = torch.as_tensor(np.asarray(rgb), device=dev).to(torch.float32) / 255.0
 
         def desc_fn(pixel_yx):
@@ -207,6 +295,7 @@ def estimate_instance(
     use_visual: Optional[bool] = None,
     use_geo: bool = True,
     crop="auto",
+    dino_extractor: Optional[DinoFeatureExtractor] = None,
 ) -> PoseEstimate:
     """Pose one detected instance and return the raw estimate on the device.
 
@@ -217,12 +306,17 @@ def estimate_instance(
     Args:
         rgb: (H, W, 3) uint8 frame; depth: (H, W) meters; mask: (H, W) bool.
         intrinsics: (3, 3) pinhole K.
-        models: the category's branch models; vit: the DINOv2 backbone.
+        models: the category's branch models.
+        vit: the DINOv2 backbone of the in-graph bbox-crop route, at
+            `stride` on an `out_size` crop.
+        dino_extractor: the JAX driver's route instead: the masked RGB
+            cropped to 256 x 256 on the host, descriptors from the extractor
+            at its own stride. Giving both raises.
         generator: source of the random draws unless `draws` is given.
         device: "cuda" (default) or "cpu"; nothing falls back silently.
         run_opt: run the alignment after the votes.
-        use_visual: the visual branch competes; defaults to `vit is not None`
-            (without a backbone it would see zero descriptors).
+        use_visual: the visual branch competes; defaults to "a backbone is
+            given" (without one it would see zero descriptors).
         use_geo: the geometric branch competes.
         crop: dense-pass window, "auto" for the mask's `auto_crop` tier, an
             int, or None for the whole frame.
@@ -233,7 +327,7 @@ def estimate_instance(
     dev = resolve_device(device)
     _, (_, est) = _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, generator,
                                   vit, dev, draws, stride, out_size, run_opt, use_visual, use_geo,
-                                  crop)
+                                  crop, dino_extractor)
     return est
 
 
@@ -275,6 +369,7 @@ def dispatch_instance(
     use_visual: Optional[bool] = None,
     use_geo: bool = True,
     crop="auto",
+    dino_extractor: Optional[DinoFeatureExtractor] = None,
 ) -> PendingInstance:
     """Queue one instance's whole pose graph; nothing is read back from the
     device (the crop window's origin comes from the host mask). Arguments as
@@ -283,7 +378,7 @@ def dispatch_instance(
     dev = resolve_device(device)
     cat, (fi, est) = _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe,
                                      generator, vit, dev, draws, stride, out_size, run_opt,
-                                     use_visual, use_geo, crop)
+                                     use_visual, use_geo, crop, dino_extractor)
     return PendingInstance(_pack(fi, est), cat.res)
 
 
@@ -347,6 +442,7 @@ def dispatch_frame(
     use_visual: Optional[bool] = None,
     use_geo: bool = True,
     max_crops: int = 8,
+    dino_extractor: Optional[DinoFeatureExtractor] = None,
 ):
     """Queue all of a frame's instances; nothing is read back from the
     device. Finalize with `fetch_frames`.
@@ -362,13 +458,20 @@ def dispatch_frame(
     shape. The frontend and the
     pose graph then run per instance, back to back on one stream.
 
+    With `dino_extractor` (the JAX driver's route) the grouped instances go
+    through its backbone at its stride, crop size and sampling form, and the
+    singles through its host crop (`dispatch_instance`).
+
     `draws` holds one InstanceDraws per detection, in detection order, each
     sized for that detection's `auto_crop` window; without it they are drawn
     in that order from `generator`.
     """
     dev = resolve_device(device)
-    if use_visual is None:
-        use_visual = vit is not None
+    use_visual = _visual_source(vit, dino_extractor, use_visual)
+    backbone, impl = vit, "gather"
+    if dino_extractor is not None:
+        backbone, impl = dino_extractor.model, dino_extractor.interp_impl
+        stride, out_size = dino_extractor.stride, dino_extractor.out_size
     dets = [(name, np.asarray(m, bool)) for name, m in detections]
     if draws is None:
         draws = [draw_instance(depth.shape, m, name, pipe, dev, generator) for name, m in dets]
@@ -386,7 +489,7 @@ def dispatch_frame(
             singles.append((idx, dispatch_instance(
                 rgb, depth, mask, intrinsics, models[name], name, pipe, vit=vit, device=dev,
                 draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
-                use_visual=use_visual, use_geo=use_geo, crop=None)))
+                use_visual=use_visual, use_geo=use_geo, crop=None, dino_extractor=dino_extractor)))
         else:
             groups.setdefault((name, tier), []).append(idx)
 
@@ -398,9 +501,9 @@ def dispatch_frame(
         k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
         masks_t = torch.as_tensor(np.stack([dets[i][1] for i in order]), device=dev)
         grids = txys = None
-        if use_visual and vit is not None:
+        if use_visual and backbone is not None:
             rgb_t = torch.as_tensor(np.asarray(rgb), device=dev).to(torch.float32) / 255.0
-            parts = [bbox_crop_token_grid(vit, rgb_t, masks_t[lo:lo + cap], out_size=out_size,
+            parts = [bbox_crop_token_grid(backbone, rgb_t, masks_t[lo:lo + cap], out_size=out_size,
                                           stride=stride) for lo in range(0, len(order), cap)]
             grids = torch.cat([g for g, _ in parts])
             txys = torch.cat([t for _, t in parts])
@@ -412,7 +515,8 @@ def dispatch_frame(
                 desc_fn = None
                 if grids is not None:
                     def desc_fn(pixel_yx, row=row):
-                        return sample_crop_descriptors(grids[row], pixel_yx, txys[row], out_size)
+                        return sample_crop_descriptors(grids[row], pixel_yx, txys[row], out_size,
+                                                       impl=impl)
                 fi, est = _pose_graph(depth_t, masks_t[row], k_t,
                                       crop_origin(dets[idx][1], depth.shape, tier), tier, desc_fn,
                                       models[name], cat, pipe, _draws_on(draws[idx], dev), run_opt,
@@ -448,34 +552,48 @@ def fetch_frames(pendings, return_picks: bool = False):
 # The dataset loop
 # ---------------------------------------------------------------------------
 
-def _debug_frame(res, posed, base):
+def _debug_frame(res, posed, base, rgb, out_dir):
     """Per-instance rotation and translation errors against the first
-    ground-truth instance of the same class (reference eval.py:374-395)."""
+    ground-truth instance of the same class, and the frame with every posed
+    instance's overlay as `{out_dir}/debug/<base>.png` (reference
+    eval.py:374-395)."""
     gt_ids = [int(c) for c in res["gt_class_ids"]]
+    overlay = rgb
     for i in posed:
         cls_id = int(res["pred_class_ids"][i])
-        if cls_id not in gt_ids:
-            continue
-        g = gt_ids.index(cls_id)
-        hv = int(np.asarray(res["gt_handle_visibility"])[g])
-        err = pose_error_degree_cm(res["pred_RTs"][i], res["gt_RTs"][g], SYNSET_NAMES[cls_id],
-                                   handle_visibility=hv)
-        print(f"[debug] {base} inst {i} {SYNSET_NAMES[cls_id]}: "
-              f"rot {err[0]:.1f} deg, tr {err[1]:.1f} cm")
+        if cls_id in gt_ids:
+            g = gt_ids.index(cls_id)
+            hv = int(np.asarray(res["gt_handle_visibility"])[g])
+            err = pose_error_degree_cm(res["pred_RTs"][i], res["gt_RTs"][g], SYNSET_NAMES[cls_id],
+                                       handle_visibility=hv)
+            print(f"[debug] {base} inst {i} {SYNSET_NAMES[cls_id]}: "
+                  f"rot {err[0]:.1f} deg, tr {err[1]:.1f} cm")
+        overlay = draw_pose_overlay(overlay, res["pred_RTs"][i], res["pred_scales"][i],
+                                    REAL275_INTRINSICS)
+    if posed:
+        os.makedirs(os.path.join(out_dir, "debug"), exist_ok=True)
+        write_png_rgb8(os.path.join(out_dir, "debug", base.replace(".pkl", "") + ".png"), overlay)
 
 
 def _load_vit(dino_ckpt: str, dev) -> Tuple[DinoViT, int, int]:
+    """A `save_backbone` pair named by its prefix (or its .msgpack): (the
+    backbone, its stride, its crop size)."""
     prefix = dino_ckpt[:-len(".msgpack")] if dino_ckpt.endswith(".msgpack") else dino_ckpt
-    if not os.path.exists(prefix + ".json"):
-        raise NotImplementedError(
-            f"{dino_ckpt}: only the {{prefix}}.msgpack + {{prefix}}.json pair of save_backbone is "
-            "read; loading the public DINOv2 torch .pth is queued in ROADMAP.md (the ViT "
-            "variants) until such weights are there to hold it against")
     loaded = load_backbone(prefix, device=dev)
     if loaded is None:
         raise FileNotFoundError(f"{prefix}.json has no {prefix}.msgpack beside it")
     vit, _, stride, out_size = loaded
     return vit.eval().cast_for_inference(), stride, out_size
+
+
+def load_dino_extractor(dino_ckpt: str, device="cuda") -> DinoFeatureExtractor:
+    """The official DINOv2 ViT-L/14 `.pth` as the JAX driver's default
+    extractor (stride 4, 256 x 256 crops, K1 at 4097 tokens). A named file
+    that does not exist raises."""
+    params = load_dinov2_params(dino_ckpt)
+    if params is None:
+        raise FileNotFoundError(f"no DINOv2 checkpoint at {dino_ckpt}")
+    return DinoFeatureExtractor(params=params, device=device)
 
 
 def evaluate_real275(
@@ -495,17 +613,22 @@ def evaluate_real275(
     stride: int = 8,
     out_size: int = 256,
     models: Optional[Dict[str, CategoryModels]] = None,
+    dino_extractor: Optional[DinoFeatureExtractor] = None,
 ):
     """Full REAL275 evaluation: detection pkls + frames -> result pkls under
     `out_dir` and the (iou_aps, pose_aps) tables of `compute_degree_cm_map`.
 
     Frames are pipelined two deep: frame k + 1 is decoded and dispatched
     while frame k computes, and frame k is fetched (its one host copy) only
-    after that. `dino_ckpt` names a `save_backbone` pair; `vit` hands in a
-    built backbone instead (with `stride` and `out_size`). `draws`, when
+    after that. `dino_ckpt` names a `save_backbone` pair (`{prefix}.json`
+    beside it), run on the bbox-crop route at its stride, or else an
+    official DINOv2 `.pth`, run as the JAX driver's stride-4
+    `DinoFeatureExtractor`. `vit` (with `stride` and `out_size`) or
+    `dino_extractor` hands in a built backbone instead. `draws`, when
     given, holds for each frame one InstanceDraws per detection of a known
     category, in detection order; otherwise they come from one generator
-    seeded by `seed`. `debug` prints each posed instance's errors.
+    seeded by `seed`. `debug` prints each posed instance's errors and writes
+    each frame's overlay to `{out_dir}/debug/`.
     """
     dev = resolve_device(device)
     pipe = pipe or PipelineConfig()
@@ -519,14 +642,18 @@ def evaluate_real275(
 
     if models is None:
         models = load_category_models(ckpt_root, device=dev)
-    if dino_ckpt and vit is None:
-        vit, stride, out_size = _load_vit(dino_ckpt, dev)
+    if dino_ckpt and vit is None and dino_extractor is None:
+        prefix = dino_ckpt[:-len(".msgpack")] if dino_ckpt.endswith(".msgpack") else dino_ckpt
+        if os.path.exists(prefix + ".json"):
+            vit, stride, out_size = _load_vit(dino_ckpt, dev)
+        else:
+            dino_extractor = load_dino_extractor(dino_ckpt, dev)
     os.makedirs(out_dir, exist_ok=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
     results = []
 
     def finish(pf):
-        res, det_idx, pends, base = pf
+        res, det_idx, pends, base, rgb = pf
         outs = fetch_frames(pends)
         posed = []
         for j, i in enumerate(det_idx):
@@ -535,7 +662,7 @@ def evaluate_real275(
             res["pred_RTs"][i], res["pred_scales"][i], _ = outs[j]
             posed.append(i)
         if debug:
-            _debug_frame(res, posed, base)
+            _debug_frame(res, posed, base, rgb, out_dir)
         results.append(res)
         with open(os.path.join(out_dir, base), "wb") as f:
             pickle.dump(res, f)
@@ -566,10 +693,11 @@ def evaluate_real275(
             det_idx.append(i)
         pends = dispatch_frame(rgb, depth, dets, REAL275_INTRINSICS, models, pipe, generator=gen,
                                vit=vit, device=dev, draws=None if draws is None else draws[k],
-                               stride=stride, out_size=out_size, run_opt=run_opt)
+                               stride=stride, out_size=out_size, run_opt=run_opt,
+                               dino_extractor=dino_extractor)
         if pending_frame is not None:
             finish(pending_frame)
-        pending_frame = (res, det_idx, pends, os.path.basename(pkl_path))
+        pending_frame = (res, det_idx, pends, os.path.basename(pkl_path), rgb)
     if pending_frame is not None:
         finish(pending_frame)
 
@@ -593,7 +721,7 @@ def main(argv=None):
     ap.add_argument("--limit", type=int, default=None)
     ap.add_argument("--no-opt", action="store_true")
     ap.add_argument("--debug", action="store_true",
-                    help="per-instance errors (eval.py:374-395)")
+                    help="per-instance errors and overlay PNGs (eval.py:374-395)")
     ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     args = ap.parse_args(argv)
     evaluate_real275(

@@ -1,11 +1,15 @@
-"""Reader for the PNG files of a REAL275 frame: the 16-bit grayscale depth
-map and the 8-bit colour image.
+"""PNG files without cv2: the frames the evaluation and the demo read, and
+the overlays and frames they write.
 
-The JAX driver reads them with `cv2.imread`; this is the part of that call
-the evaluation uses, on zlib and numpy alone. `read_png16` takes
-non-interlaced 16-bit grayscale images, `read_png_rgb8` non-interlaced 8-bit
-RGB or RGBA images (alpha dropped), each with any of the five PNG row
-filters; every other format raises.
+The JAX package reads and writes them with `cv2.imread` / `cv2.imwrite`;
+this is the part of those calls the port uses, on zlib, struct and numpy
+alone. Readers: `read_png16` takes non-interlaced 16-bit grayscale images
+(depth in millimetres), `read_png_rgb8` non-interlaced 8-bit RGB or RGBA
+images (alpha dropped), `read_png8` 8-bit grayscale, RGB or RGBA images as
+stored (a mask file), each with any of the five PNG row filters; every other
+format raises. Writers: `write_png16`, `write_png_gray8`, `write_png_rgb8`,
+filter 0 on every row. Colours are RGB here; the JAX package flips them to
+and from cv2's BGR at its call sites.
 """
 
 from __future__ import annotations
@@ -110,3 +114,50 @@ def read_png_rgb8(path: str) -> np.ndarray:
     out, (_, color) = _read_rows(path, {(8, 2): 3, (8, 6): 4})
     channels = 3 if color == 2 else 4
     return np.ascontiguousarray(out.reshape(out.shape[0], -1, channels)[:, :, :3])
+
+
+def read_png8(path: str) -> np.ndarray:
+    """The uint8 pixels of an 8-bit PNG as stored, as `cv2.imread(path, -1)`
+    gives them but in RGB order: (H, W) gray, (H, W, 3) RGB or (H, W, 4)
+    RGBA."""
+    out, (_, color) = _read_rows(path, {(8, 0): 1, (8, 2): 3, (8, 6): 4})
+    if color == 0:
+        return out
+    return out.reshape(out.shape[0], -1, 3 if color == 2 else 4)
+
+
+def _write(path: str, rows: np.ndarray, depth: int, color: int) -> None:
+    """A PNG of (H, W * bytes per pixel) big-endian rows, filter 0."""
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
+
+    h = rows.shape[0]
+    w = rows.shape[1] // ((depth // 8) * {0: 1, 2: 3}[color])
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def write_png16(path: str, img: np.ndarray) -> None:
+    """A 16-bit grayscale PNG of (H, W) uint16 pixels."""
+    img = np.asarray(img)
+    if img.ndim != 2 or img.dtype != np.uint16:
+        raise ValueError(f"write_png16 takes (H, W) uint16 pixels, got {img.shape} {img.dtype}")
+    _write(path, img.astype(">u2").view(np.uint8).reshape(img.shape[0], -1), 16, 0)
+
+
+def write_png_gray8(path: str, img: np.ndarray) -> None:
+    """An 8-bit grayscale PNG of (H, W) uint8 pixels."""
+    img = np.asarray(img)
+    if img.ndim != 2 or img.dtype != np.uint8:
+        raise ValueError(f"write_png_gray8 takes (H, W) uint8 pixels, got {img.shape} {img.dtype}")
+    _write(path, np.ascontiguousarray(img), 8, 0)
+
+
+def write_png_rgb8(path: str, img: np.ndarray) -> None:
+    """An 8-bit RGB PNG of (H, W, 3) uint8 RGB pixels."""
+    img = np.asarray(img)
+    if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
+        raise ValueError(f"write_png_rgb8 takes (H, W, 3) uint8 pixels, got {img.shape} {img.dtype}")
+    _write(path, np.ascontiguousarray(img).reshape(img.shape[0], -1), 8, 2)

@@ -1,9 +1,10 @@
-"""Frame frontend: crop window, backprojection, voxel downsample, SHOT, and
-the host bbox-square crop.
+"""Frame frontend: crop window, backprojection, voxel downsample, SHOT, the
+host bbox-square crop and the host mask dilation.
 
 Counterpart of `cppf2_tpu/infer/frontend.py::preprocess_frame` (reference
 eval.py:185-216) and of its host helpers `mask_bbox` / `auto_crop` /
-`resize_crop` (reference dataset.py:322-337). The
+`resize_crop` (reference dataset.py:322-337) / `dilate_mask` (reference
+utils/util.py:83-101). The
 crop window is a slice, so its origin must be known on the host: a caller that
 holds the mask as a numpy array computes it there (`crop_origin`) and passes
 it in, and nothing is read back from the device; without it the origin is
@@ -20,6 +21,7 @@ import torch
 from cppf2_torch.core.downsample import voxel_downsample
 from cppf2_torch.core.geometry import backproject_masked
 from cppf2_torch.ops.shot import compute_shot_features
+from cppf2_torch.utils.imgproc import connected_components, convex_hull, dilate, fill_convex_poly, fma32
 
 
 def resize_crop_transform(bbox, out_size: int = 256, padding: float = 0.0) -> np.ndarray:
@@ -37,13 +39,6 @@ def resize_crop_transform(bbox, out_size: int = 256, padding: float = 0.0) -> np
          [0.0, 0.0, 1.0]],
         np.float64,
     )
-
-
-def _fma32(a, b, c) -> np.ndarray:
-    """a * b + c rounded once to float32, for float32 operands (their
-    product is exact in float64)."""
-    f64 = np.float64
-    return (np.asarray(a, f64) * np.asarray(b, f64) + np.asarray(c, f64)).astype(np.float32)
 
 
 # Columns per block of cv2.warpAffine's vectorized source-coordinate loop in
@@ -77,7 +72,7 @@ def _warp_scale_translate(img: np.ndarray, m: np.ndarray, out_size: int) -> np.n
     m2, m5 = -m0 * c, -m4 * f
     f32 = np.float32
     xs = np.arange(out_size, dtype=f32)
-    src_x = _fma32(f32(m0), xs, f32(m2))
+    src_x = fma32(f32(m0), xs, f32(m2))
     vec = out_size - out_size % _CV_WARP_BLOCK
     src_x[vec:] = f32(m0) * xs[vec:] + f32(m2)
     src_y = f32(m4) * xs + f32(m5)
@@ -94,9 +89,9 @@ def _warp_scale_translate(img: np.ndarray, m: np.ndarray, out_size: int) -> np.n
         return np.where(ok[..., None], v, f32(0))
 
     p00, p01, p10, p11 = tap(y0, x0), tap(y0, x0 + 1), tap(y0 + 1, x0), tap(y0 + 1, x0 + 1)
-    v0 = _fma32(ax, p01 - p00, p00)
-    v1 = _fma32(ax, p11 - p10, p10)
-    out = _fma32(ay, v1 - v0, v0)
+    v0 = fma32(ax, p01 - p00, p00)
+    v1 = fma32(ax, p11 - p10, p10)
+    out = fma32(ay, v1 - v0, v0)
     return out if img.ndim == 3 else out[..., 0]
 
 
@@ -120,6 +115,24 @@ def mask_bbox(mask: np.ndarray):
     if len(xs) == 0:
         return None
     return (int(xs.min()), int(ys.min()), int(xs.max()) + 1, int(ys.max()) + 1)
+
+
+def dilate_mask(mask: np.ndarray, size: int = 5, largest_comp: bool = False) -> np.ndarray:
+    """Convex-hull fill and rectangular dilation of an instance mask
+    (reference utils/util.py:83-101), optionally keeping the largest
+    8-connected component first (the first of equal ones): the JAX
+    package's cv2 calls through `utils/imgproc.py`, pixel for pixel."""
+    m = np.asarray(mask).astype(np.uint8)
+    if largest_comp:
+        n, labels = connected_components(m, connectivity=8)
+        if n > 1:
+            sizes = np.bincount(labels.ravel(), minlength=n)[1:]
+            m = (labels == 1 + int(np.argmax(sizes))).astype(np.uint8)
+    ys, xs = np.where(m)
+    if len(xs) == 0:
+        return m.astype(bool)
+    fill_convex_poly(m, convex_hull(np.stack([xs, ys], -1)), 1)
+    return dilate(m, size).astype(bool)
 
 
 def auto_crop(mask: np.ndarray, tiers=(256, 320)):

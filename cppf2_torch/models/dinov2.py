@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cppf2_torch.core.geometry import norm
-from cppf2_torch.models.layers import Dense
+from cppf2_torch.models.layers import Dense, lecun_normal_
 from cppf2_torch.ops import attention
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -178,14 +178,14 @@ class DinoViT(nn.Module):
         self.norm = LayerNorm(d)
 
     def init_random(self, generator: torch.Generator) -> "DinoViT":
-        """Seeded random weights in the JAX init's distributions (lecun
-        normal kernels, zero biases, N(0, 0.02) position embedding)."""
+        """Seeded random weights in the JAX init's distributions (flax's
+        `lecun_normal` kernels, a normal truncated at two standard deviations
+        with variance 1 / fan_in; zero biases; N(0, 0.02) position
+        embedding)."""
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Dense):
-                    fan_in = m.weight.shape[1]
-                    m.weight.copy_(torch.randn(m.weight.shape, generator=generator,
-                                               device=m.weight.device) / math.sqrt(fan_in))
+                    lecun_normal_(m.weight, generator)
                     m.bias.zero_()
             self.pos_embed.copy_(0.02 * torch.randn(self.pos_embed.shape, generator=generator,
                                                     device=self.pos_embed.device))
@@ -356,10 +356,24 @@ def bbox_crop_token_grid(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
     """Masked bbox-square warp + resize + ViT forward.
     Returns (token grid (out/stride, out/stride, D), (tx, ty, s)). With a
     (B, H, W) stack of masks of the one frame `rgb`, every crop goes through
-    one ViT forward: grids (B, out/stride, out/stride, D) and (B, 3)."""
-    crop, txys = bbox_crop_image(rgb, mask, out_size, padding)
+    one ViT forward: grids (B, out/stride, out/stride, D) and (B, 3).
+
+    The crops of a stack are warped and resized one mask at a time, as each
+    mask alone would be: float32 products of another shape round in another
+    order, and the bf16 linears of the ViT turn a last-bit difference in a
+    crop into a bf16 step in its tokens. So a crop's grid does not depend on
+    the stack it came in."""
     ph = pw = out_size // stride
-    resized = resize_bilinear_matmul(crop, ph * 14, pw * 14)
+
+    def crop(m):
+        img, txy = bbox_crop_image(rgb, m, out_size, padding)
+        return resize_bilinear_matmul(img, ph * 14, pw * 14), txy
+
+    if mask.dim() == 2:
+        resized, txys = crop(mask)
+    else:
+        parts = [crop(m) for m in mask]
+        resized, txys = torch.stack([r for r, _ in parts]), torch.stack([t for _, t in parts])
     return model(resized), txys
 
 
@@ -371,9 +385,10 @@ def crop_keypoints(pixel_yx: torch.Tensor, txys: torch.Tensor) -> torch.Tensor:
 
 
 def sample_crop_descriptors(grid: torch.Tensor, pixel_yx: torch.Tensor, txys: torch.Tensor,
-                            out_size: int = 256) -> torch.Tensor:
-    """Bilinear token sampling of a crop grid at the cloud's image pixels."""
-    return interpolate_features(grid, crop_keypoints(pixel_yx, txys), (out_size, out_size))
+                            out_size: int = 256, impl: str = "gather") -> torch.Tensor:
+    """Bilinear token sampling of a crop grid at the cloud's image pixels
+    (`impl` as in `interpolate_features`)."""
+    return interpolate_features(grid, crop_keypoints(pixel_yx, txys), (out_size, out_size), impl=impl)
 
 
 def bbox_crop_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
@@ -444,6 +459,64 @@ class DinoFeatureExtractor:
             grid = self.model(resized)
             return interpolate_features(grid, pts_xy.to(self.device, torch.float32), (h, w),
                                         impl=self.interp_impl)
+
+
+# ---------------------------------------------------------------------------
+# The official DINOv2 torch checkpoint (counterpart of port_torch_state_dict /
+# load_dinov2_params)
+# ---------------------------------------------------------------------------
+
+def port_torch_state_dict(sd, cfg: ViTConfig = VIT_L14):
+    """An official DINOv2 state dict (facebookresearch/dinov2 key layout:
+    `patch_embed.proj`, `blocks.N.{norm1, attn.qkv, attn.proj, ls1.gamma,
+    norm2, mlp.fc1, mlp.fc2, ls2.gamma}`, `norm`, `cls_token`, `pos_embed`)
+    as the JAX package's parameter tree, which `DinoFeatureExtractor(params=)`
+    and `models/porting.py::load_vit` take: float32 numpy leaves, the blocks
+    stacked on a depth axis.
+
+    The patch embedding is a (D, 3, p, p) convolution; the tree keeps it as
+    (p, p, 3, D), which `load_vit` flattens to a Dense over patches in
+    (py, px, c) order: the convolution's weight permuted to (D, p, p, 3)."""
+    def a(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to("cpu", torch.float32).numpy()
+        return np.asarray(x, np.float32)
+
+    def stack(suffix, transpose=False):
+        return np.stack([a(sd[f"blocks.{i}.{suffix}"]).T if transpose else a(sd[f"blocks.{i}.{suffix}"])
+                         for i in range(cfg.depth)])
+
+    def dense(name):
+        return {"kernel": stack(f"{name}.weight", transpose=True), "bias": stack(f"{name}.bias")}
+
+    return {"params": {
+        "patch_embed": {"kernel": a(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
+                        "bias": a(sd["patch_embed.proj.bias"])},
+        "cls_token": a(sd["cls_token"]).reshape(1, cfg.embed_dim),
+        "pos_embed": a(sd["pos_embed"]).reshape(-1, cfg.embed_dim),
+        "blocks": {
+            "norm1": {"scale": stack("norm1.weight"), "bias": stack("norm1.bias")},
+            "norm2": {"scale": stack("norm2.weight"), "bias": stack("norm2.bias")},
+            "ls1": stack("ls1.gamma"),
+            "ls2": stack("ls2.gamma"),
+            "attn": {"qkv": dense("attn.qkv"), "proj": dense("attn.proj")},
+            "mlp_fc1": dense("mlp.fc1"),
+            "mlp_fc2": dense("mlp.fc2"),
+        },
+        "norm": {"scale": a(sd["norm.weight"]), "bias": a(sd["norm.bias"])},
+    }}
+
+
+def load_dinov2_params(path: str, cfg: ViTConfig = VIT_L14):
+    """The parameter tree of an official DINOv2 `.pth` (a `{"model": sd}`
+    wrapper is unwrapped), read with `torch.load(weights_only=True)`; None
+    when there is no such file."""
+    if not os.path.exists(path):
+        return None
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "model" in sd:
+        sd = sd["model"]
+    return port_torch_state_dict(sd, cfg)
 
 
 # ---------------------------------------------------------------------------

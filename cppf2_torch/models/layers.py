@@ -8,10 +8,26 @@ unless the caller casts them).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence
 
 import torch
 from torch import nn
+
+# standard deviation of a standard normal truncated to [-2, 2]
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def lecun_normal_(weight: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Fill an (out, in) weight in place with flax's `lecun_normal`, the
+    default kernel init of `nn.Dense`: a standard normal truncated to
+    [-2, 2], times sqrt(1 / fan_in) / 0.87962566 (which gives the product
+    variance 1 / fan_in). Drawn on the generator's device."""
+    w = torch.empty(weight.shape, device=generator.device)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    with torch.no_grad():
+        weight.copy_(w * (math.sqrt(1.0 / weight.shape[1]) / TRUNC_NORMAL_STD))
+    return weight
 
 
 class Dense(nn.Linear):

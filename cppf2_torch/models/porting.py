@@ -1,5 +1,7 @@
 """Weight carry: the JAX package's parameter trees into the port's modules,
-and back (`branch_to_tree`, `vit_to_tree`, `load_train_state`).
+and back (`branch_to_tree`, `vit_to_tree`, `load_train_state`); and the
+reference's BeyondCPPF Lightning checkpoints as such trees
+(`port_beyondcppf_state_dict`, `load_beyondcppf_checkpoint`).
 
 A tree is nested dicts of numpy arrays (as `models/checkpoints.py` reads
 them from disk, or as `jax.device_get` returns them), with or without the
@@ -11,7 +13,9 @@ top-level "params" key. Two layout facts drive the mapping:
 
 from __future__ import annotations
 
-from typing import Any, Dict
+import os
+import re
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -84,6 +88,63 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
                          (b.mlp_fc1, blk["mlp_fc1"]), (b.mlp_fc2, blk["mlp_fc2"])):
             _dense(lin, {"kernel": at(src["kernel"]), "bias": at(src["bias"])})
     return module
+
+
+# ---------------------------------------------------------------------------
+# The reference's Lightning checkpoints (train_shot.py:52-73, train_dino.py:64-85)
+# ---------------------------------------------------------------------------
+
+def _sd_dense(sd: Dict[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    """A torch Linear (weight (out, in)) as a flax Dense (kernel (in, out))."""
+    return {"kernel": _np(torch.as_tensor(sd[f"{prefix}.weight"])).T.copy(),
+            "bias": _np(torch.as_tensor(sd[f"{prefix}.bias"]))}
+
+
+def _sd_res_mlp(sd: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The `nn.Sequential` of ResLayers under `prefix` (fc1, fc2, and fc0, the
+    skip projection where the widths differ) as res0, res1, ..."""
+    idxs = sorted({int(m.group(1)) for k in sd
+                   if (m := re.match(rf"{re.escape(prefix)}\.(\d+)\.fc1\.weight$", k))})
+    if not idxs:
+        raise KeyError(f"no ResLayer stack under '{prefix}' in state_dict")
+    out = {}
+    for i in idxs:
+        p = f"{prefix}.{i}"
+        layer = {"fc1": _sd_dense(sd, f"{p}.fc1"), "fc2": _sd_dense(sd, f"{p}.fc2")}
+        if f"{p}.fc0.weight" in sd:
+            layer["proj"] = _sd_dense(sd, f"{p}.fc0")
+        out[f"res{i}"] = layer
+    return out
+
+
+def port_beyondcppf_state_dict(sd: Dict[str, Any], branch: str) -> Dict[str, Any]:
+    """A BeyondCPPF state dict (Lightning's `ckpt["state_dict"]` or a bare
+    `model.state_dict()`) as the {"params": ...} tree of a ShotBranch
+    ("shot") or DinoBranch ("dino"), which `load_branch` takes."""
+    if branch not in ("shot", "dino"):
+        raise ValueError(f"branch must be 'shot' or 'dino', got {branch!r}")
+    params: Dict[str, Any] = {
+        "tuple_encoder": _sd_res_mlp(sd, "tuple_encoder"),
+        "heads": {"logit_encoder": _sd_res_mlp(sd, "logit_encoder"),
+                  "scale_encoder": _sd_res_mlp(sd, "scale_encoder")},
+    }
+    if branch == "shot":
+        params["shot_encoder"] = _sd_res_mlp(sd, "shot_encoder")
+    else:
+        params["desc_transform"] = _sd_dense(sd, "desc_transform")
+        params["desc_pair_transform"] = _sd_dense(sd, "desc_pair_transform")
+    return {"params": params}
+
+
+def load_beyondcppf_checkpoint(path: str, branch: str) -> Optional[Dict[str, Any]]:
+    """`port_beyondcppf_state_dict` of a Lightning checkpoint or a bare state
+    dict on disk, read with `torch.load(weights_only=True)`; None when there
+    is no such file."""
+    if not os.path.exists(path):
+        return None
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    sd = ckpt.get("state_dict", ckpt) if isinstance(ckpt, dict) else ckpt
+    return port_beyondcppf_state_dict(sd, branch)
 
 
 # ---------------------------------------------------------------------------

@@ -20,7 +20,6 @@ of the port: the branch MLPs are `torch.matmul` under autograd.
 from __future__ import annotations
 
 import dataclasses
-import math
 from typing import Callable, Dict, Optional
 
 import torch
@@ -30,7 +29,7 @@ from torch import nn
 from cppf2_torch.config import TrainConfig
 from cppf2_torch.core.binning import real2prob
 from cppf2_torch.device import resolve_device
-from cppf2_torch.models.layers import Dense
+from cppf2_torch.models.layers import Dense, lecun_normal_
 from cppf2_torch.ops.sampling import masked_tuple_choice
 from cppf2_torch.parallel.mesh import axis_size, rank_device, shard_batch
 
@@ -72,12 +71,12 @@ def make_optimizer(cfg: TrainConfig, params):
 
 def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Re-initialize every Dense of `module` in flax's default distributions
-    (kernel N(0, 1 / fan_in), zero bias), in place, from `generator`."""
+    (`lecun_normal` kernels: a normal truncated at two standard deviations,
+    variance 1 / fan_in; zero biases), in place, from `generator`."""
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, Dense):
-                w = torch.randn(m.weight.shape, generator=generator, device=generator.device)
-                m.weight.copy_(w / math.sqrt(m.weight.shape[1]))
+                lecun_normal_(m.weight, generator)
                 m.bias.zero_()
     return module
 

@@ -499,7 +499,72 @@ def test_evaluate_real275_entry_point_errors(tmp_path):
     with pytest.raises(FileNotFoundError):
         tdriver.evaluate_real275(str(tmp_path), str(tmp_path), str(tmp_path / "o"), None, device="cpu")
     (tmp_path / "dino.pth").write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a .pth is no save_backbone pair; the .pth route names a missing file
+    with pytest.raises(FileNotFoundError, match="msgpack"):
         tdriver._load_vit(str(tmp_path / "dino.pth"), torch.device("cpu"))
+    with pytest.raises(FileNotFoundError, match="DINOv2"):
+        tdriver.load_dino_extractor(str(tmp_path / "missing.pth"), "cpu")
     with pytest.raises(SystemExit):
         tdriver.main(["--images", "x"])
+
+
+def test_debug_frame_writes_the_overlay_png(mini_real275, tmp_path, capsys):
+    """`_debug_frame` prints each posed instance's errors and writes the
+    frame with every posed instance's overlay as `debug/<base>.png`: the
+    same lines and the same pixels as the JAX driver's (which writes through
+    cv2), on poses near the ground truth; nothing is written when nothing
+    was posed."""
+    _, img_dir, res = mini_real275
+    res = dict(res)
+    rng = np.random.default_rng(0)
+    rts = res["gt_RTs"].copy()
+    rts[:, :3, 3] += rng.normal(0, 0.01, (2, 3))
+    res["pred_RTs"] = rts
+    res["pred_scales"] = res["gt_scales"] / np.linalg.norm(res["gt_scales"], axis=-1, keepdims=True)
+    rgb = read_png_rgb8(os.path.join(img_dir, "scene_1_0000_color.png"))
+    tdriver._debug_frame(res, [0, 1], "results_scene_1_0000.pkl", rgb, str(tmp_path / "t"))
+    out_t = capsys.readouterr().out
+    jdriver._debug_frame(res, [0, 1], "results_scene_1_0000.pkl", rgb, str(tmp_path / "j"))
+    assert out_t == capsys.readouterr().out and out_t.count("[debug]") == 2
+    got = read_png_rgb8(str(tmp_path / "t" / "debug" / "results_scene_1_0000.png"))
+    want = cv2.imread(str(tmp_path / "j" / "debug" / "results_scene_1_0000.png"))[:, :, ::-1]
+    np.testing.assert_array_equal(got, want)
+    assert (got != rgb).any()
+    tdriver._debug_frame(res, [], "results_none.pkl", rgb, str(tmp_path / "none"))
+    assert not (tmp_path / "none").exists()
+
+
+def test_evaluate_real275_reads_a_dinov2_pth(mini_real275, tmp_path, monkeypatch):
+    """`evaluate_real275(dino_ckpt=<.pth>)` with no save_backbone pair beside
+    it ports the official state dict and runs the JAX driver's extractor
+    route: the same result pkls as handing it the extractor built from that
+    dict. The production route builds ViT-L/14 at stride 4; here the
+    loader's configuration is a depth-1 embed-1024 ViT at stride 8 (the
+    factory is wrapped), which the CPU runs in seconds."""
+    from cppf2_torch.config import PipelineConfig as TPipe
+    from cppf2_torch.models import dinov2 as tdino
+    from test_torch_weights import _dinov2_state_dict
+
+    det_dir, img_dir, _ = mini_real275
+    cfg = tdino.ViTConfig(embed_dim=1024, depth=1, num_heads=16, pretrain_grid=4, compute_dtype="float32")
+    sd = _dinov2_state_dict(cfg, seed=2)
+    torch.save(sd, tmp_path / "dinov2.pth")
+    real_params, real_ext = tdriver.load_dinov2_params, tdriver.DinoFeatureExtractor
+    monkeypatch.setattr(tdriver, "load_dinov2_params", lambda path: real_params(path, cfg))
+    monkeypatch.setattr(tdriver, "DinoFeatureExtractor",
+                        lambda params, device: real_ext(params=params, cfg=cfg, stride=8, device=device))
+    models = tdriver.load_category_models("ckpts_r3", None, torch.float32, "cpu")
+    kw = dict(pipe=TPipe(**EVAL_PIPE), run_opt=False, device="cpu", models=models)
+    tdriver.evaluate_real275(det_dir, img_dir, str(tmp_path / "pth"), dino_ckpt=str(tmp_path / "dinov2.pth"),
+                             **kw)
+    ext = real_ext(params=tdino.port_torch_state_dict(sd, cfg), cfg=cfg, stride=8, device="cpu")
+    tdriver.evaluate_real275(det_dir, img_dir, str(tmp_path / "ext"), dino_extractor=ext, **kw)
+    tdriver.evaluate_real275(det_dir, img_dir, str(tmp_path / "geo"), **kw)
+    out = {}
+    for name in ("pth", "ext", "geo"):
+        with open(tmp_path / name / "results_scene_1_0000.pkl", "rb") as f:
+            out[name] = pickle.load(f)["pred_RTs"]
+    np.testing.assert_array_equal(out["pth"], out["ext"])
+    assert not np.array_equal(out["pth"], out["geo"])   # the visual branch took part
+    with pytest.raises(FileNotFoundError):
+        tdriver.evaluate_real275(det_dir, img_dir, str(tmp_path / "x"), dino_ckpt=str(tmp_path / "no.pth"), **kw)

@@ -2,7 +2,8 @@
 `dispatch_frame` + `fetch_frames` on a frame of two categories fed the
 reference's own `jax.random` draws, the dispatch/fetch pair against
 `estimate_instance`, the degenerate-input guards, the host crop origin, and
-single-branch restarts.
+single-branch restarts, and the JAX driver's visual route through a
+`DinoFeatureExtractor` (host crop, the extractor's own stride).
 
 One JAX `dispatch_frame` call is compiled for the whole file (three ensemble
 programs and the ViT stage; tens of seconds on the CPU).
@@ -21,6 +22,7 @@ from cppf2_torch.infer import frontend as tfront
 from cppf2_torch.infer import pipeline as tpipeline
 from cppf2_torch.infer.pipeline import BranchDraws, PoseDraws
 from cppf2_torch.models import dinov2 as tdino
+from cppf2_torch.models import porting as tport
 from cppf2_torch.models.porting import load_vit
 from cppf2_tpu.config import CATEGORIES as J_CATEGORIES
 from cppf2_tpu.config import PipelineConfig as JPipe
@@ -349,3 +351,75 @@ def test_single_branch_restarts_match_jax():
     with pytest.raises(ValueError):
         tpipeline.estimate_pose_branch_restarts(lambda pts, ti: None, pc, valid, torch.tensor(1),
                                                 T_CATEGORIES["mug"], tpipe, draws=draws, restarts=2)
+
+
+def test_dispatch_instance_with_extractor_matches_jax(frame_reference):
+    """The JAX driver's visual route (the masked RGB cropped on the host to
+    256 x 256, DinoFeatureExtractor at stride 8 here, where the card runs
+    stride 4: 1025 tokens keep the CPU run short; the cloud's pixels mapped
+    into the crop) through `dispatch_instance` in both packages, the same
+    extractor weights (embed 1024, depth 1, f32, the "hbm" attention of the
+    JAX extractor off the TPU) and the JAX draws: the aligned pose within R
+    0.5 deg, T 2 mm, unit scales rtol 1e-3, as the slice's other pose
+    tests. The route needs no `vit`; giving both raises."""
+    rgb, depth, dets, _, _, tmodels, _ = frame_reference
+    jext = jdino.DinoFeatureExtractor(cfg=jdino.ViTConfig(**VIT), stride=STRIDE)
+    jext.init_random(hw=(256, 256), seed=1)
+    text = tdino.DinoFeatureExtractor(params=jax.device_get(jext.params),
+                                      cfg=tdino.ViTConfig(**VIT, attn_impl="hbm"), stride=STRIDE,
+                                      device="cpu")
+    jmodels = jdriver.load_category_models("ckpts_r3", ["mug"], infer_dtype="float32")
+    key = jax.random.key(11)
+    mask = dets[0][1]
+    want = jdriver.fetch_instances([jdriver.dispatch_instance(
+        rgb, depth, mask, K, jmodels["mug"], "mug", JPipe(**PIPE), key, dino_extractor=jext)])[0]
+    draws = _instance_draws(key, depth.shape, tfront.auto_crop(mask))
+    pipe = TPipe(**PIPE)
+    got = tdriver.fetch_instances([tdriver.dispatch_instance(
+        rgb, depth, mask, K, tmodels["mug"], "mug", pipe, device="cpu", draws=draws,
+        dino_extractor=text)])[0]
+    (rt, scales, _), (jrt, jscales, _) = got, want
+    assert _rt_angle_deg(rt, jrt) < 0.5
+    np.testing.assert_allclose(rt[:3, 3], jrt[:3, 3], atol=2e-3)
+    np.testing.assert_allclose(scales, jscales, rtol=1e-3)
+    est = tdriver.estimate_instance(rgb, depth, mask, K, tmodels["mug"], "mug", pipe, device="cpu",
+                                    draws=draws, dino_extractor=text)
+    np.testing.assert_allclose(tdriver._assemble_rt(est.rotation.numpy(), est.translation.numpy(),
+                                                    est.scale.numpy(), float(est.scale_norm))[0], rt,
+                               atol=1e-6)
+    with pytest.raises(ValueError, match="not both"):
+        tdriver.dispatch_instance(rgb, depth, mask, K, tmodels["mug"], "mug", pipe, device="cpu",
+                                  draws=draws, dino_extractor=text, vit=text.model)
+
+
+def test_dispatch_frame_with_extractor_runs_its_backbone(frame_reference):
+    """`dispatch_frame(dino_extractor=)`: the grouped instances go through
+    the extractor's backbone at its stride and crop size, which equals the
+    `vit=` route with that backbone exactly (and so the JAX driver's frame,
+    held above); the oversized mask takes the singles route through the
+    extractor's host crop and equals `dispatch_instance` with it."""
+    rgb, depth, dets, _, tvit, tmodels, draws = frame_reference
+    pipe = TPipe(**PIPE)
+    text = tdino.DinoFeatureExtractor(params=tport.vit_to_tree(tvit), cfg=tvit.cfg, stride=STRIDE,
+                                      out_size=OUT, device="cpu")
+    a = tdriver.fetch_frames(tdriver.dispatch_frame(rgb, depth, dets, K, tmodels, pipe, device="cpu",
+                                                    draws=draws, dino_extractor=text))
+    b = tdriver.fetch_frames(tdriver.dispatch_frame(rgb, depth, dets, K, tmodels, pipe, vit=tvit,
+                                                    device="cpu", draws=draws, stride=STRIDE,
+                                                    out_size=OUT))
+    assert sorted(a) == sorted(b) == [0, 1, 2, 3] and a[3] is None
+    for i in (0, 1, 2):
+        np.testing.assert_array_equal(a[i][0], b[i][0])
+    big = np.zeros((H, W), bool)
+    big[60:180, 1:319] = True
+    depth2 = np.where(big, 0.8 + 0.05 * np.sin(np.mgrid[0:H, 0:W][1] / 40.0)
+                      + np.random.default_rng(1).normal(0, 3e-4, (H, W)), 0).astype(np.float32)
+    assert tfront.auto_crop(big) is None
+    d = tdriver.draw_instance((H, W), big, "bowl", pipe, "cpu", torch.Generator().manual_seed(3))
+    got = tdriver.fetch_frames(tdriver.dispatch_frame(rgb, depth2, [("bowl", big)], K, tmodels, pipe,
+                                                      device="cpu", draws=[d], dino_extractor=text,
+                                                      run_opt=False))[0]
+    want = tdriver.fetch_instances([tdriver.dispatch_instance(
+        rgb, depth2, big, K, tmodels["bowl"], "bowl", pipe, device="cpu", draws=d, crop=None,
+        dino_extractor=text, run_opt=False)])[0]
+    np.testing.assert_array_equal(got[0], want[0])

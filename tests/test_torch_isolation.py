@@ -28,12 +28,17 @@ def test_every_module_imports_with_jax_blocked():
         leaked = sorted(m for m in sys.modules if m.split(".")[0] in {BLOCKED + NOT_ON_CARD!r}
                         and sys.modules[m] is not None)
         assert not leaked, leaked
+        # the demo path's modules, which replace the JAX package's cv2 calls
+        demo_path = {{"cppf2_torch.demo", "cppf2_torch.utils", "cppf2_torch.utils.imgproc",
+                      "cppf2_torch.utils.viz", "cppf2_torch.utils.profiling",
+                      "cppf2_torch.infer.segmenter"}}
+        assert demo_path <= set(names), demo_path - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 48
+    assert int(out.stdout.strip()) >= 54
 
 
 def _imports(path: pathlib.Path):
