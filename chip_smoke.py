@@ -114,11 +114,27 @@ Phases, each printing its own lines; any failure exits non-zero:
      within 3 mm. ms per frame split into image read, proposer, descriptor
      stage, pose, overlay + PNG write, and the device-busy share.
 
+ 10. the int8 ViT and the variants: DinoFeatureExtractor(quant="int8")
+     (ViT-L/14 at stride 4, layer scale 1, seeded weights quantized at load):
+     96 int8 linears and 24 K1 launches at (16, 4097, 64) a call, K1 against
+     its plain version under the int8 weights (max |diff| 1e-2, cosine
+     0.999), descriptor cosine of int8 and bf16 against the float32 "hbm"
+     route of the same weights (int8 0.999, bf16 0.9999), ms back to back
+     and on the device beside the bf16 extractor's; `estimate_instance` with
+     an int8 ViT-L/14 at stride 8 against its all-plain route (the same
+     pick, R 1 degree, T 3 mm), e2e and descriptor ms beside the bf16 ViT's;
+     `masked_window_descriptors` at crop 256 stride 4 (K1 against plain,
+     2e-3 and 0.9999); the chunked attention against "hbm" (cosine 0.9999);
+     colour SHOT of the slice's cloud on the card against the CPU; the exact
+     kNN against the default one in `preprocess_frame`; the native IoU and
+     record reader on the card's host, each equal to its Python route.
+
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 8 launches of the slice, all through the fused entry, with a fine
 level's times, and the demo's launches; the candidate-array entry's times
 stand inside it; K1's row holds the batched shape and the stride-4 shape
-nested, the latter with the demo's launches), then the card's name and power
+nested, the latter with the demo's launches; K1 and K2 carry the launches of
+phase 10's int8 paths as `int8_launches`), then the card's name and power
 limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1977,6 +1993,422 @@ def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
     return launches["mha"], launches["hist16_peak"], frame_ms, stages, 100 * busy_ms / wall_ms
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the int8 ViT and the variants
+# ---------------------------------------------------------------------------
+
+def unit_cos(a, b):
+    """(min, mean) cosine of two sets of unit descriptors, over the rows
+    where the reference is not zero (keypoints outside the grid)."""
+    import torch
+
+    keep = torch.linalg.norm(b, dim=-1) > 0
+    cos = torch.sum(a * b, dim=-1)[keep]
+    return float(cos.min()), float(cos.mean())
+
+
+def check_int8_extractor(dev, vit_cfg, out_size=256, n_pts=8192):
+    """Phase 10, part 1: DinoFeatureExtractor(quant="int8") at stride 4
+    (ViT-L/14, K1 at (16, 4097, 64)) with seeded random weights at layer
+    scale 1, on a random 256 x 256 crop and 8192 random keypoints (the
+    inputs of `scripts/dinov2_bench.py --parity`). The same seed gives
+    every route the same float weights. Returns the part's numbers."""
+    import torch
+
+    from cppf2_torch.models.dinov2 import DinoFeatureExtractor
+    from cppf2_torch.models.layers import QDense
+    from cppf2_torch.ops import attention
+
+    rng = np.random.default_rng(0)
+    img = torch.as_tensor(rng.uniform(0, 1, (out_size, out_size, 3)).astype(np.float32), device=dev)
+    kp = torch.as_tensor(rng.uniform(0, out_size - 1, (n_pts, 2)).astype(np.float32), device=dev)
+
+    def extractor(**kw):
+        cfg = dataclasses.replace(vit_cfg, layerscale_init=1.0, **kw)
+        return DinoFeatureExtractor(cfg=cfg, out_size=out_size, device=dev.type).init_random(
+            torch.Generator(device=dev).manual_seed(0))
+
+    t0 = time.perf_counter()
+    int8 = extractor(quant="int8")
+    quant_s = time.perf_counter() - t0
+    shapes = []
+    QDense.launches = 0
+    before = attention.mha.launches
+    with recorded(attention, "mha", lambda a, k, out: shapes.append(tuple(a[0].shape))):
+        got = int8(img, kp)
+        torch.cuda.synchronize()
+    k1 = attention.mha.launches - before
+    qd = QDense.launches
+    if (qd, k1) != (4 * vit_cfg.depth, vit_cfg.depth) or set(shapes) != {(16, 4097, 64)}:
+        raise AssertionError(f"int8 extractor: {qd} int8 linears and {k1} K1 launches at "
+                             f"{sorted(set(shapes))}; expected 96 and 24 at (16, 4097, 64)")
+    # K1 against its plain version under the same int8 weights: K1 swapped
+    # for mha_plain, nothing else changed
+    saved = attention.mha
+    attention.mha = attention.mha_plain
+    try:
+        plain = int8(img, kp)
+    finally:
+        attention.mha = saved
+    err = float(torch.max(torch.abs(got - plain)))
+    cos_min, cos_mean = unit_cos(got, plain)
+    # Limits: max |diff| 1e-2, every cosine 0.999. The int8 activation codes
+    # turn a last-bit difference of a linear's input into a step of
+    # max|x| / 127, so the bf16 extractor's limits (2e-3, 0.9999) do not
+    # hold here: on the CPU an online softmax over 64-key blocks in place of
+    # the plain attention (K1's rounding of P, block by block) read 2.25e-3
+    # and 0.99984 at ViT-L width, depth 12, layer scale 1 (0.00056 and
+    # 0.99999 for bf16 linears). A K1 that returned zeros drops a branch as
+    # large as the residual stream and fails both.
+    if not math.isfinite(err) or err > 1e-2 or cos_min < 0.999:
+        raise AssertionError(f"int8 extractor: K1 vs plain attention max |diff| {err}, min cos {cos_min}")
+    bf16 = extractor()
+    ref = extractor(compute_dtype="float32", attn_impl="hbm")
+    want = ref(img, kp)
+    q_cos = unit_cos(got, want)
+    b_cos = unit_cos(bf16(img, kp), want)
+    # the repo's int8 bound (tests/test_dinov2.py: every cosine against f32
+    # above 0.999), and the bf16 extractor's 0.9999
+    if q_cos[0] < 0.999 or b_cos[0] < 0.9999:
+        raise AssertionError(f"descriptor cosine vs f32: int8 {q_cos}, bf16 {b_cos}")
+    del ref, want
+    ms, dev_ms = timed(lambda: int8(img, kp), iters=5, repeats=3)
+    bf_ms, bf_dev_ms = timed(lambda: bf16(img, kp), iters=5, repeats=3)
+    top_kernels(lambda: int8(img, kp), "int8 extractor")
+    say(f"[int8 extractor] ViT-L/14 stride 4, 256x256 crop -> 896x896, {n_pts} keypoints, layer "
+        f"scale 1: {qd} int8 linears and {k1} K1 launches at (16, 4097, 64) a call; K1 vs plain "
+        f"attention max |diff| {err:.3g}, min cos {cos_min:.6f}, mean {cos_mean:.6f} (limits 1e-2, "
+        f"0.999); descriptor cosine vs f32 hbm: int8 mean {q_cos[1]:.5f} min {q_cos[0]:.5f}, "
+        f"bf16 mean {b_cos[1]:.5f} min {b_cos[0]:.5f}; ms per call back to back / device: int8 "
+        f"{ms:.2f} / {dev_ms:.2f}, bf16 {bf_ms:.2f} / {bf_dev_ms:.2f}; load + quantize "
+        f"{quant_s:.1f} s")
+    return dict(img=img, kp=kp, bf16=bf16, int8=int8, err=err, cos_min=cos_min, cos_mean=cos_mean,
+                int8_vs_f32=q_cos, bf16_vs_f32=b_cos, ms=ms, device_ms=dev_ms, bf16_ms=bf_ms,
+                bf16_device_ms=bf_dev_ms, qdense=qd, k1=k1)
+
+
+def top_kernels(fn, label, n=8):
+    """The device time of one call of `fn` by kernel name (torch.profiler),
+    the `n` largest, printed."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:n]
+    say(f"[{label}] device time of one call {total:.2f} ms; top kernels: "
+        + "; ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.2f} ms" for e in top))
+
+
+def check_int8_instance(dev, pipe, vit_cfg, frame_hw=(480, 640)):
+    """Phase 10, part 2: `estimate_instance` on the slice's frame with an
+    int8 ViT-L/14 at stride 8 (the int8 route of `bench.py:183`), seeded
+    production weights (layer scale 1e-5): the kernel route against the
+    all-plain route on the same draws (the same pick, R 1 degree, T 3 mm);
+    e2e ms and `bbox_crop_descriptors` ms beside the bf16 ViT's, in turns.
+    Returns (launches, e2e ms int8 / bf16, descriptor ms int8 / bf16,
+    the two poses)."""
+    import torch
+
+    from cppf2_torch.eval import driver
+    from cppf2_torch.models.dinov2 import DinoFeatureExtractor
+    from cppf2_torch.models.layers import QDense
+    from cppf2_torch.ops import attention, hist16
+
+    rgb, depth, mask = make_frame(np.random.default_rng(0), *frame_hw)
+    ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
+    models = driver.load_category_models(ckpts, ["mug"], torch.bfloat16, dev)["mug"]
+
+    def backbone(**kw):
+        return DinoFeatureExtractor(cfg=dataclasses.replace(vit_cfg, **kw), device=dev.type).init_random(
+            torch.Generator(device=dev).manual_seed(0)).model
+
+    vits = {"int8": backbone(quant="int8"), "bf16": backbone()}
+    draws = driver.draw_instance(depth.shape, mask, "mug", pipe, dev,
+                                 torch.Generator(device=dev).manual_seed(0))
+
+    def once(vit):
+        est = driver.estimate_instance(rgb, depth, mask, REAL275_K, models, "mug", pipe, vit=vit,
+                                       device=dev, draws=draws, stride=8)
+        torch.cuda.synchronize()
+        return est
+
+    QDense.launches = 0
+    counts0 = read_counts()
+    est = once(vits["int8"])
+    launches = {k: v - counts0[k] for k, v in read_counts().items()}
+    launches["qdense"] = QDense.launches
+    if launches != {"mha": vit_cfg.depth, "hist16_peak": 2 * pipe.vote_levels, "sphere_accumulate": 0,
+                    "qdense": 4 * vit_cfg.depth}:
+        raise AssertionError(f"int8 instance launches {launches}")
+    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
+    attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
+    hist16.hist16_level_peak = hist16.hist16_level_peak_plain
+    try:
+        plain = once(vits["int8"])
+    finally:
+        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak = saved
+    vals = [est.rotation, est.translation, est.scale, est.scale_norm, est.loss]
+    if not all(bool(torch.isfinite(x).all()) for x in vals):
+        raise AssertionError(f"int8 instance: non-finite pose {est}")
+    r, rp = (e.rotation.double().cpu().numpy() for e in (est, plain))
+    ang = rt_angle_deg(r, rp)
+    dt = float(torch.max(torch.abs(est.translation - plain.translation)))
+    say(f"[int8 instance] kernels vs plain: R {ang:.4f} deg, T {dt * 1e3:.4f} mm, pick "
+        f"{int(est.pick)} vs {int(plain.pick)}; launches {launches}")
+    if ang > 1.0 or dt > 3e-3 or int(est.pick) != int(plain.pick):
+        raise AssertionError("int8 instance: kernel path and plain path disagree")
+    e2e = {k: [] for k in vits}
+    desc = {k: [] for k in vits}
+    for name in ("bf16", "int8", "int8", "bf16", "bf16", "int8"):   # in turns
+        with timed_calls([(driver, "bbox_crop_descriptors")]) as spent:
+            t0 = time.perf_counter()
+            once(vits[name])
+            e2e[name].append((time.perf_counter() - t0) * 1e3)
+        desc[name].append(spent["bbox_crop_descriptors"])
+    e2e_ms = {k: statistics.median(v) for k, v in e2e.items()}
+    desc_ms = {k: statistics.median(v) for k, v in desc.items()}
+    say(f"[int8 instance] e2e ms per instance (median of 3, in turns): int8 {e2e_ms['int8']:.1f}, "
+        f"bf16 {e2e_ms['bf16']:.1f}; bbox_crop_descriptors ms: int8 {desc_ms['int8']:.2f}, bf16 "
+        f"{desc_ms['bf16']:.2f}")
+    return launches, e2e_ms, desc_ms, (est, plain)
+
+
+def check_variants(dev, pipe, ext, frame_hw=(480, 640), out_size=256):
+    """Phase 10, part 3: `masked_window_descriptors` at crop 256 stride 4
+    (K1 against its plain version, the bf16 extractor's backbone at layer
+    scale 1); the chunked attention against "hbm" at stride 4; colour SHOT
+    on the slice's cloud, card against CPU; the exact kNN against the
+    default one in `preprocess_frame`. Returns the part's numbers."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.eval import driver
+    from cppf2_torch.infer.frontend import auto_crop, crop_origin, preprocess_frame
+    from cppf2_torch.models.dinov2 import DinoFeatureExtractor, masked_window_descriptors
+    from cppf2_torch.ops import attention
+    from cppf2_torch.ops.neighbors import knn_radius_neighbors
+    from cppf2_torch.ops.shot import compute_cshot_features
+
+    out = {}
+    rgb, depth, mask = make_frame(np.random.default_rng(0), *frame_hw)
+    cat = get_category("mug")
+    crop = auto_crop(mask)
+    draws = driver.draw_instance(depth.shape, mask, "mug", pipe, dev,
+                                 torch.Generator(device=dev).manual_seed(1))
+    k_t = torch.as_tensor(REAL275_K, device=dev)
+    depth_t, mask_t = torch.as_tensor(depth, device=dev), torch.as_tensor(mask, device=dev)
+
+    def frontend(exact):
+        fi = preprocess_frame(depth_t, mask_t, k_t, draws.voxel_perm, draws.voxel_prio, res=cat.res,
+                              n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop,
+                              origin=crop_origin(mask, mask.shape, crop) if crop else None,
+                              exact_knn=exact)
+        torch.cuda.synchronize()
+        return fi
+
+    fi = frontend(False)
+    n = int(fi.count)
+
+    # the fixed window at the frame's own crop origin, 256 x 256, stride 4
+    rgb_t = torch.as_tensor(rgb, device=dev).float() / 255.0
+    window = torch.tensor(crop_origin(mask, mask.shape, out_size), device=dev)
+    model = ext["bf16"].model
+    with torch.no_grad():
+        shapes = []
+        before = attention.mha.launches
+        with recorded(attention, "mha", lambda a, k, o: shapes.append(tuple(a[0].shape))):
+            got = masked_window_descriptors(model, rgb_t, mask_t, fi.pixel_yx[:n], window,
+                                            crop=out_size, stride=4)
+        k1 = attention.mha.launches - before
+        saved = attention.mha
+        attention.mha = attention.mha_plain
+        try:
+            want = masked_window_descriptors(model, rgb_t, mask_t, fi.pixel_yx[:n], window,
+                                             crop=out_size, stride=4)
+        finally:
+            attention.mha = saved
+    err = float(torch.max(torch.abs(got - want)))
+    cos = unit_cos(got, want)
+    if k1 != model.cfg.depth or set(shapes) != {(16, 4097, 64)} or err > 2e-3 or cos[0] < 0.9999:
+        raise AssertionError(f"masked_window_descriptors: {k1} K1 launches at {sorted(set(shapes))}, "
+                             f"K1 vs plain max |diff| {err}, min cos {cos[0]}")
+    mw_ms = time_ms(lambda: masked_window_descriptors(model, rgb_t, mask_t, fi.pixel_yx[:n], window,
+                                                      crop=out_size, stride=4), iters=3, repeats=3)
+    say(f"[variants] masked_window_descriptors 256 x 256 stride 4, {n} points: {k1} K1 launches at "
+        f"(16, 4097, 64), K1 vs plain max |diff| {err:.3g}, min cos {cos[0]:.6f} (limits 2e-3, "
+        f"0.9999); {mw_ms:.2f} ms")
+    out["masked_window"] = dict(err=err, cos=cos, ms=mw_ms, k1=k1)
+
+    # chunked against hbm, both bf16, the same weights
+    def extractor(**kw):
+        cfg = dataclasses.replace(model.cfg, **kw)
+        return DinoFeatureExtractor(cfg=cfg, out_size=out_size, device=dev.type).init_random(
+            torch.Generator(device=dev).manual_seed(0))
+
+    img, kp = ext["img"], ext["kp"]
+    chunked, hbm = extractor(attn_impl="chunked"), extractor(attn_impl="hbm")
+    cos = unit_cos(chunked(img, kp), hbm(img, kp))
+    ch_ms = time_ms(lambda: chunked(img, kp), iters=2, repeats=2)
+    hbm_ms = time_ms(lambda: hbm(img, kp), iters=2, repeats=2)
+    # the same online softmax as K1's plain version's rounding, in another order
+    if cos[0] < 0.9999:
+        raise AssertionError(f"chunked vs hbm: min cos {cos[0]}")
+    say(f"[variants] chunked (512-key blocks) vs hbm at stride 4, layer scale 1: cos min "
+        f"{cos[0]:.6f} mean {cos[1]:.6f}; ms per call chunked {ch_ms:.1f}, hbm {hbm_ms:.1f}")
+    out["chunked"] = dict(cos=cos, ms=ch_ms, hbm_ms=hbm_ms)
+    del chunked, hbm
+
+    # colour SHOT of the slice's cloud: the card against the port on the CPU
+    colors = rgb_t[fi.pixel_yx[:, 0], fi.pixel_yx[:, 1]]
+    radius = cat.res * 10
+
+    def cshot(d):
+        return compute_cshot_features(fi.pc.to(d), colors.to(d), fi.valid.to(d), radius,
+                                      k=pipe.neighbor_k)
+
+    got_d, got_n = cshot(dev)
+    torch.cuda.synchronize()
+    want_d, want_n = cshot(torch.device("cpu"))
+    valid = fi.valid.cpu()
+    err_d = torch.max(torch.abs(got_d.cpu() - want_d), dim=-1).values[valid]
+    err_n = torch.max(torch.abs(got_n.cpu() - want_n), dim=-1).values[valid]
+    q_d, q_n = float(torch.quantile(err_d, 0.85)), float(torch.quantile(err_n, 0.99))
+    cs_ms = time_ms(lambda: cshot(dev), iters=3, repeats=3)
+    say(f"[variants] compute_cshot_features on {n} points, k {pipe.neighbor_k}: card vs CPU "
+        f"CSHOT 85% of rows within {q_d:.3g}, max {float(err_d.max()):.3g}; normals 99% within "
+        f"{q_n:.3g}, max {float(err_n.max()):.3g} (limits 1e-3 / 0.5, 1e-4); {cs_ms:.2f} ms")
+    # the frontend tests' quantiles, a decade looser: the card's products and
+    # sums round otherwise than the CPU's, and a soft bin near its edge moves
+    if not (q_d <= 1e-3 and float(err_d.max()) <= 0.5 and q_n <= 1e-4
+            and got_d.shape == (pipe.n_points, 1344)):
+        raise AssertionError("compute_cshot_features: card and CPU disagree")
+    out["cshot"] = dict(q85=q_d, max=float(err_d.max()), normals_q99=q_n, ms=cs_ms)
+
+    # the exact kNN against the default one on the same cloud, over the
+    # in-radius neighbours (beyond the radius the default route's keys all
+    # clip to r^2 and follow the column order, the exact route's the distance)
+    nb = [knn_radius_neighbors(fi.pc, fi.valid, radius, pipe.neighbor_k, exact=e) for e in (False, True)]
+    within = [torch.where(x.valid, x.idx, -1) for x in nb]
+    same_list = float(torch.all(within[0] == within[1], dim=-1)[fi.valid].float().mean())
+    same_set = float(torch.all(torch.sort(within[0], dim=-1).values == torch.sort(within[1], dim=-1).values,
+                               dim=-1)[fi.valid].float().mean())
+    ms_default = time_ms(lambda: frontend(False), iters=3, repeats=3)
+    ms_exact = time_ms(lambda: frontend(True), iters=3, repeats=3)
+    say(f"[variants] exact kNN vs default on {n} points: equal in-radius neighbour lists "
+        f"{100 * same_list:.2f}%, equal sets {100 * same_set:.2f}%; preprocess_frame ms default {ms_default:.2f}, "
+        f"exact_knn {ms_exact:.2f}")
+    if same_set < 0.5:
+        raise AssertionError(f"exact kNN: only {same_set:.3f} of the neighbour sets equal the default's")
+    out["exact_knn"] = dict(same_list=same_list, same_set=same_set, ms=ms_exact, default_ms=ms_default)
+    return out
+
+
+def check_native(poses, records_path):
+    """Phase 10, part 4: the host C++ core on the card's machine. The IoU
+    matrix of part 2's two poses against shifted and turned copies of them
+    must take the native route and equal the Python route within 1e-6; the
+    trainer's record file must open on the native backend and gather what
+    the Python backend gathers. Returns the two routes' ms."""
+    import torch
+
+    from cppf2_torch import native
+    from cppf2_torch.data.records import RecordReader
+    from cppf2_torch.eval import iou3d
+    from cppf2_torch.eval.pose_errors import _assemble_rt
+
+    lib = native.load()
+    if lib is None:
+        raise AssertionError("the native library did not build (g++ missing or failing)")
+    preds = [_assemble_rt(*(x.detach().cpu().numpy() for x in (e.rotation, e.translation, e.scale,
+                                                               e.scale_norm))) for e in poses]
+    p_rts = np.stack([rt for rt, _ in preds])
+    p_s = np.stack([s for _, s in preds])
+    turn = np.eye(4)
+    turn[:3, :3] = [[0.0, 0.0, 1.0], [0.0, 1.0, 0.0], [-1.0, 0.0, 0.0]]
+    g_rts = np.concatenate([p_rts + np.pad(np.full((2, 3, 1), 0.01), ((0, 0), (0, 1), (3, 0))),
+                            p_rts @ turn])
+    g_s = np.concatenate([p_s, p_s * 0.8])
+    rows = {}
+    for cls, vis in (("mug", np.array([0, 1, 1, 0])), ("laptop", np.ones(4, int))):
+        t0 = time.perf_counter()
+        got = iou3d.pairwise_iou_matrix(p_rts, p_s, g_rts, g_s, vis, cls)
+        nat_ms = (time.perf_counter() - t0) * 1e3
+        route = iou3d.LAST_ROUTE
+        saved = native.load
+        native.load = lambda: None
+        try:
+            t0 = time.perf_counter()
+            want = iou3d.pairwise_iou_matrix(p_rts, p_s, g_rts, g_s, vis, cls)
+            py_ms = (time.perf_counter() - t0) * 1e3
+            py_route = iou3d.LAST_ROUTE
+        finally:
+            native.load = saved
+        err = float(np.max(np.abs(got - want)))
+        if (route, py_route) != ("native", "python") or err > 1e-6 or not got.max() > 0.5:
+            raise AssertionError(f"pairwise_iou_matrix {cls}: routes {route}/{py_route}, max |diff| "
+                                 f"{err}, {got.tolist()}")
+        rows[cls] = dict(err=err, native_ms=nat_ms, python_ms=py_ms)
+    readers = [RecordReader(records_path)]
+    saved = native.load
+    native.load = lambda: None
+    try:
+        readers.append(RecordReader(records_path))
+    finally:
+        native.load = saved
+    if [r.backend for r in readers] != ["native", "python"] or len(readers[0]) != len(readers[1]):
+        raise AssertionError(f"RecordReader backends {[r.backend for r in readers]}")
+    ids = np.random.default_rng(3).integers(0, len(readers[0]), 16)
+    ms, batches = [], []
+    for r in readers:
+        t0 = time.perf_counter()
+        batches.append(r.batch(ids))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        r.close()
+    for name in batches[0]:
+        if not np.array_equal(batches[0][name], batches[1][name]):
+            raise AssertionError(f"RecordReader native and python differ on field {name}")
+    rows["records"] = dict(path=os.path.basename(records_path), n=len(readers[0]),
+                           native_ms=ms[0], python_ms=ms[1])
+    say(f"[native] {native.library_path().name}: pairwise_iou_matrix route native, equal to the "
+        f"python route within " + ", ".join(f"{c} {rows[c]['err']:.2g} ({rows[c]['native_ms']:.2f} vs "
+                                            f"{rows[c]['python_ms']:.2f} ms)" for c in ("mug", "laptop"))
+        + f"; RecordReader backend native on {rows['records']['path']} ({rows['records']['n']} "
+        f"records), 16 records gathered as the python backend gathers them "
+        f"({ms[0]:.2f} vs {ms[1]:.2f} ms)")
+    return rows
+
+
+def run_int8_variants(dev, pipe, records, vit_cfg=None, frame_hw=(480, 640)):
+    """Phase 10 (`records`: the trainer's record container, phase 7's);
+    returns (the int8 launches {mha, hist16_peak, qdense}, the parts'
+    numbers)."""
+    import torch
+
+    from cppf2_torch.models.dinov2 import VIT_L14
+    from cppf2_torch.models.layers import QDense
+
+    vit_cfg = vit_cfg or VIT_L14
+    with torch.no_grad():
+        # the phase's int8 paths: the extractor and the instance, counts zeroed just before
+        zero_counts()
+        QDense.launches = 0
+        ext = check_int8_extractor(dev, vit_cfg)
+        launches, e2e_ms, desc_ms, poses = check_int8_instance(dev, pipe, vit_cfg, frame_hw)
+        int8_launches = {"mha": ext["k1"] + launches["mha"], "hist16_peak": launches["hist16_peak"],
+                         "qdense": ext["qdense"] + launches["qdense"]}
+        variants = check_variants(dev, pipe, ext, frame_hw)
+    native_rows = check_native(poses, records)
+    numbers = dict(extractor={k: v for k, v in ext.items() if k not in ("img", "kp", "bf16", "int8")},
+                   instance=dict(e2e_ms=e2e_ms, desc_ms=desc_ms), variants=variants,
+                   native=native_rows)
+    return int8_launches, numbers
+
+
 def main() -> int:
     import torch
 
@@ -2021,6 +2453,9 @@ def main() -> int:
         t_phase = time.perf_counter()
         demo_k1, demo_k2, demo_ms, demo_stages, demo_busy = run_demo(dev, tmp)
         say(f"[demo] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        int8_launches, int8 = run_int8_variants(dev, pipe, os.path.join(tmp, "shot.rec"))
+        say(f"[int8] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2032,7 +2467,8 @@ def main() -> int:
     k1_4097 = k1[2]      # (16, 4097, 64): the ViT-L stride-4 shape of DinoFeatureExtractor
     kernels = [
         dict(name="mha", route="cuda", source=attention.SOURCE, replaces=attention.REPLACES,
-             launches=launches["mha"], max_abs_err=max(r["err"] for r in k1),
+             launches=launches["mha"], int8_launches=int8_launches["mha"],
+             max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by="operations", library_ms=k1_main["library_ms"],
              device_ms=k1_main["device_ms"],
@@ -2058,6 +2494,7 @@ def main() -> int:
         # with torch.bincount as the library call, stand beside it.
         dict(name="hist16_peak", route="cuda", source=hist16.SOURCE, replaces=hist16.REPLACES,
              entry="hist16_level_peak", launches=launches["hist16_peak"], demo_launches=demo_k2,
+             int8_launches=int8_launches["hist16_peak"],
              max_abs_err=max(r["err"] for r in k2 + k2_levels),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
@@ -2084,6 +2521,15 @@ def main() -> int:
     say(f"[demo] ms_per_frame {demo_ms:.1f} ("
         + ", ".join(f"{k} {v:.1f}" for k, v in demo_stages.items())
         + f"), device busy {demo_busy:.1f}%, launches K1 {demo_k1}, K2 {demo_k2}")
+    ix, iv = int8["extractor"], int8["variants"]
+    say(f"[int8] extractor ms_per_call int8 {ix['ms']:.2f} (device {ix['device_ms']:.2f}) vs bf16 "
+        f"{ix['bf16_ms']:.2f} (device {ix['bf16_device_ms']:.2f}); cosine vs f32 int8 "
+        f"{ix['int8_vs_f32'][1]:.5f} / {ix['int8_vs_f32'][0]:.5f}, bf16 {ix['bf16_vs_f32'][1]:.5f} / "
+        f"{ix['bf16_vs_f32'][0]:.5f} (mean / min); e2e_ms_per_instance int8 "
+        f"{int8['instance']['e2e_ms']['int8']:.1f} vs bf16 {int8['instance']['e2e_ms']['bf16']:.1f}; "
+        f"chunked {iv['chunked']['ms']:.1f} vs hbm {iv['chunked']['hbm_ms']:.1f} ms; cshot "
+        f"{iv['cshot']['ms']:.2f} ms; exact kNN equal lists {100 * iv['exact_knn']['same_list']:.2f}%; "
+        f"int8 launches {int8_launches}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -89,6 +89,50 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     ])
 
 
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """(x, y, z, w) quaternion of a rotation matrix, branchless Shepperd: all
+    four pivot constructions are formed and the largest diagonal pivot picks
+    one (the first on a tie), so a 180-degree flip, where w = 0 and the
+    antisymmetric part vanishes, keeps its axis's signs."""
+    tr = m[0, 0] + m[1, 1] + m[2, 2]
+    pivots_sq = torch.stack([1 + tr,
+                             1 + m[0, 0] - m[1, 1] - m[2, 2],
+                             1 - m[0, 0] + m[1, 1] - m[2, 2],
+                             1 - m[0, 0] - m[1, 1] + m[2, 2]])
+    s = torch.sqrt(torch.clamp(pivots_sq, min=1e-12))   # 2 |pivot|
+    d = 1.0 / (2.0 * s)
+    ax, ay, az = m[2, 1] - m[1, 2], m[0, 2] - m[2, 0], m[1, 0] - m[0, 1]
+    sxy, sxz, syz = m[0, 1] + m[1, 0], m[0, 2] + m[2, 0], m[1, 2] + m[2, 1]
+    cands = torch.stack([                    # rows: pivot w, x, y, z
+        torch.stack([ax * d[0], ay * d[0], az * d[0], s[0] / 2]),
+        torch.stack([s[1] / 2, sxy * d[1], sxz * d[1], ax * d[1]]),
+        torch.stack([sxy * d[2], s[2] / 2, syz * d[2], ay * d[2]]),
+        torch.stack([sxz * d[3], syz * d[3], s[3] / 2, az * d[3]]),
+    ])
+    q = cands[torch.argmax(pivots_sq)]
+    return q / (norm(q) + 1e-12)
+
+
+def so3_exp(omega: torch.Tensor) -> torch.Tensor:
+    """Exponential map so(3) -> SO(3) (Rodrigues), with the Taylor forms of
+    sin(t)/t and (1 - cos(t))/t^2 below t = 1e-6; K @ K is formed
+    elementwise as omega omega^T - t^2 I."""
+    theta = norm(omega)
+    theta_sq = theta * theta
+    small = theta < 1e-6
+    one = torch.ones_like(theta)
+    a = torch.where(small, 1.0 - theta_sq / 6.0, torch.sin(theta) / torch.where(small, one, theta))
+    b = torch.where(small, 0.5 - theta_sq / 24.0,
+                    (1 - torch.cos(theta)) / torch.where(small, one, theta_sq))
+    wx, wy, wz = omega[0], omega[1], omega[2]
+    zero = torch.zeros_like(wx)
+    k = torch.stack([torch.stack([zero, -wz, wy]), torch.stack([wz, zero, -wx]),
+                     torch.stack([-wy, wx, zero])])
+    eye = torch.eye(3, dtype=omega.dtype, device=omega.device)
+    ksq = omega[:, None] * omega[None, :] - theta_sq * eye
+    return eye + a * k + b * ksq
+
+
 def norm(x: torch.Tensor, dim: int = -1, keepdim: bool = False) -> torch.Tensor:
     """Euclidean norm as sqrt(sum(x * x)), the formula XLA lowers `norm` to."""
     return torch.sqrt(torch.sum(x * x, dim=dim, keepdim=keepdim))

@@ -48,6 +48,17 @@ def pair_targets(
     return PairTargets(tr, _angle(up), _angle(right), _angle(front))
 
 
+def tuple_pairwise_diffs(points: torch.Tensor, tuple_idx: torch.Tensor) -> torch.Tensor:
+    """All pairwise coordinate differences within each point tuple
+    (reference train_shot.py:81 / train_dino.py:92): points (N, 3), tuple
+    indices (T, k) -> (T, C(k, 2) * 3), pairs in
+    itertools.combinations(range(k), 2) order."""
+    gathered = points[tuple_idx]
+    ii, jj = _comb_indices(tuple_idx.shape[-1])
+    diffs = gathered[:, list(ii), :] - gathered[:, list(jj), :]
+    return diffs.reshape(diffs.shape[0], -1)
+
+
 def _comb_indices(k: int):
     """Index lists (ii, jj) of itertools.combinations(range(k), 2)."""
     ii, jj = [], []

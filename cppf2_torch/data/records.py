@@ -2,9 +2,11 @@
 
 Counterpart of `cppf2_tpu/data/records.py` (which replaces the reference's
 120k-pickle replay dataset, dataset.py:341-413), with the same bytes on disk:
-a file written by either package is read by the other. The reader is the
-numpy-memmap one (`backend == "python"`); the JAX package's optional native
-mmap core is host C++ and has no counterpart here.
+a file written by either package is read by the other. The reader takes the
+repo's native mmap core (`native/records.cpp`, through `cppf2_torch.native`)
+where it builds, as the JAX reader does, and a numpy memmap with the same
+semantics otherwise; `RecordReader.backend` says which ("native" or
+"python").
 
 Record schema is arbitrary (name -> fixed-shape f32/i32 array); the training
 schema is {pc, pc_canon, shot, normal, bound, count} (train/loop.py), with
@@ -14,6 +16,7 @@ end-to-end one.
 
 from __future__ import annotations
 
+import ctypes
 import struct
 from typing import Dict, Sequence
 
@@ -96,12 +99,34 @@ class RecordWriter:
 
 
 class RecordReader:
-    """Random-access reader over a numpy memmap of the container."""
-
-    backend = "python"
+    """Random-access reader: the native mmap core when the library loads
+    and opens the file, else a numpy memmap of the container."""
 
     def __init__(self, path: str):
+        from cppf2_torch.native import load
+
         self.path = path
+        self._lib = load()
+        self._h = self._lib.rec_open(path.encode()) if self._lib is not None else None
+        if self._h:
+            self._open_native()
+            self.backend = "native"
+        else:
+            self._open_python(path)
+            self.backend = "python"
+
+    def _open_native(self):
+        lib, h = self._lib, self._h
+        self.n = int(lib.rec_count(h))
+        self.fields = []
+        for i in range(int(lib.rec_field_count(h))):
+            shp = (ctypes.c_uint64 * 4)()
+            lib.rec_field_shape(h, i, shp)
+            shape = tuple(int(v) for v in shp[:lib.rec_field_ndim(h, i)])
+            self.fields.append((lib.rec_field_name(h, i).decode(), shape,
+                                np.dtype(_DTYPES[lib.rec_field_dtype(h, i)])))
+
+    def _open_python(self, path: str):
         with open(path, "rb") as f:
             head = f.read(32)
             if head[:8] != _MAGIC:
@@ -131,8 +156,13 @@ class RecordReader:
             raise KeyError(f"no field {name!r} in {self.path}")
         fi = idx[0]
         _, shape, dt = self.fields[fi]
-        ids = np.asarray(record_ids, np.int64)
+        ids = np.ascontiguousarray(np.asarray(record_ids, np.int64).reshape(-1))
         out = np.empty((len(ids), *shape), dt)
+        if self.backend == "native":
+            if len(ids) and (ids.min() < 0 or ids.max() >= self.n):
+                raise IndexError(f"record ids outside [0, {self.n}) in {self.path}")
+            self._lib.rec_gather(self._h, ids.ctypes.data, len(ids), fi, out.ctypes.data)
+            return out
         nbytes = int(np.prod(shape or (1,))) * dt.itemsize
         off = self._offsets[fi]
         for k, rid in enumerate(ids):
@@ -144,6 +174,9 @@ class RecordReader:
         return {n: self.gather(n, record_ids) for n, _, _ in self.fields}
 
     def close(self):
+        if self.backend == "native" and self._h:
+            self._lib.rec_close(self._h)
+            self._h = None
         self._mm = None
 
     def __len__(self):

@@ -6,9 +6,11 @@ this is the part of those calls the port uses, on zlib, struct and numpy
 alone. Readers: `read_png16` takes non-interlaced 16-bit grayscale images
 (depth in millimetres), `read_png_rgb8` non-interlaced 8-bit RGB or RGBA
 images (alpha dropped), `read_png8` 8-bit grayscale, RGB or RGBA images as
-stored (a mask file), each with any of the five PNG row filters; every other
-format raises. Writers: `write_png16`, `write_png_gray8`, `write_png_rgb8`,
-filter 0 on every row. Colours are RGB here; the JAX package flips them to
+stored (a mask file), `read_png` those and 16-bit grayscale as stored (what
+`cv2.imread(path, -1)` returns), each with any of the five PNG row filters;
+every other format raises. Writers: `write_png16`, `write_png_gray8`,
+`write_png_rgb8`, `write_png8` (8-bit gray, RGB or RGBA as given), filter 0
+on every row. Colours are RGB here; the JAX package flips them to
 and from cv2's BGR at its call sites.
 """
 
@@ -126,13 +128,25 @@ def read_png8(path: str) -> np.ndarray:
     return out.reshape(out.shape[0], -1, 3 if color == 2 else 4)
 
 
+def read_png(path: str) -> np.ndarray:
+    """The pixels of a PNG as stored, as `cv2.imread(path, -1)` gives them
+    but in RGB order: 8-bit (H, W) gray, (H, W, 3) RGB or (H, W, 4) RGBA as
+    uint8, 16-bit gray as (H, W) uint16."""
+    out, (depth, color) = _read_rows(path, {(8, 0): 1, (8, 2): 3, (8, 6): 4, (16, 0): 2})
+    if depth == 16:
+        return out.view(">u2").astype(np.uint16)
+    if color == 0:
+        return out
+    return out.reshape(out.shape[0], -1, 3 if color == 2 else 4)
+
+
 def _write(path: str, rows: np.ndarray, depth: int, color: int) -> None:
     """A PNG of (H, W * bytes per pixel) big-endian rows, filter 0."""
     def chunk(kind: bytes, body: bytes) -> bytes:
         return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", zlib.crc32(kind + body))
 
     h = rows.shape[0]
-    w = rows.shape[1] // ((depth // 8) * {0: 1, 2: 3}[color])
+    w = rows.shape[1] // ((depth // 8) * {0: 1, 2: 3, 6: 4}[color])
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1).tobytes()
     with open(path, "wb") as f:
         f.write(_SIGNATURE + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, depth, color, 0, 0, 0))
@@ -161,3 +175,15 @@ def write_png_rgb8(path: str, img: np.ndarray) -> None:
     if img.ndim != 3 or img.shape[2] != 3 or img.dtype != np.uint8:
         raise ValueError(f"write_png_rgb8 takes (H, W, 3) uint8 pixels, got {img.shape} {img.dtype}")
     _write(path, np.ascontiguousarray(img).reshape(img.shape[0], -1), 8, 2)
+
+
+def write_png8(path: str, img: np.ndarray) -> None:
+    """An 8-bit PNG of uint8 pixels as given, as `cv2.imwrite` writes a
+    uint8 array (RGB order here): (H, W) gray, (H, W, 3) RGB or (H, W, 4)
+    RGBA."""
+    img = np.asarray(img)
+    color = {2: 0, 3: {3: 2, 4: 6}.get(img.shape[-1])}.get(img.ndim)
+    if img.dtype != np.uint8 or color is None:
+        raise ValueError(f"write_png8 takes (H, W), (H, W, 3) or (H, W, 4) uint8 pixels, "
+                         f"got {img.shape} {img.dtype}")
+    _write(path, np.ascontiguousarray(img).reshape(img.shape[0], -1), 8, color)

@@ -211,6 +211,7 @@ def preprocess_frame(
     shot_k: int = 64,
     crop: Optional[int] = None,
     origin: Optional[Tuple[int, int]] = None,
+    exact_knn: bool = False,
 ) -> FrameInputs:
     """depth + mask -> padded downsampled cloud + SHOT features.
 
@@ -221,6 +222,7 @@ def preprocess_frame(
     mask; given it, this function reads nothing back from the device.
     `intrinsics` that already lie on the device are not validated here (that
     would be a read back): they must have passed `check_pinhole` on the host.
+    `exact_knn` takes the kNN's exact route for the normals and SHOT.
     """
     dev = depth.device
     if crop is not None:
@@ -242,6 +244,6 @@ def preprocess_frame(
     if crop is not None:
         off = torch.tensor([[y0, x0]], dtype=pix.dtype, device=dev)
         pix = torch.where(ds.valid[:, None], pix + off, torch.zeros_like(pix))
-    shot, normal = compute_shot_features(pc, ds.valid, res * 10, k=shot_k)
+    shot, normal = compute_shot_features(pc, ds.valid, res * 10, k=shot_k, exact=exact_knn)
     return FrameInputs(pc, ds.valid, torch.clamp(ds.count, max=n_max), shot, normal, pix,
                        torch.tensor([y0, x0], dtype=torch.int32, device=dev))

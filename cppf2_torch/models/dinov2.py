@@ -23,7 +23,14 @@ batched projection in one launch per block.
 `ViTConfig.attn_impl` picks the attention: "kernel" is K1, forward only, the
 default because every inference entry point runs it; "hbm" is the JAX
 package's default formulation in plain PyTorch, with its roundings, and is
-the route autograd can follow (training the backbone, `train/visual.py`).
+the route autograd can follow (training the backbone, `train/visual.py`);
+"chunked" is the JAX package's online softmax over key blocks of
+`attn_chunk`, plain PyTorch and differentiable too.
+
+`ViTConfig.quant="int8"` builds the blocks' four linears as `QDense` (W8A8,
+`models/layers.py`); `quantize_vit_params` / `DinoViT.quantize_` turn their
+float weights into int8 codes, which `DinoFeatureExtractor` and
+`load_backbone` do once at load. Attention stays bf16 and on K1.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cppf2_torch.core.geometry import norm
-from cppf2_torch.models.layers import Dense, lecun_normal_
+from cppf2_torch.models.layers import Dense, QDense, lecun_normal_, quantize_kernel
 from cppf2_torch.ops import attention
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -60,8 +67,15 @@ class ViTConfig:
     compute_dtype: str = "bfloat16"
     # "kernel": K1 (`ops/attention.py`), forward only. "hbm": (T, T) logits in
     # the compute dtype, exp in float32 rounded to the compute dtype, float32
-    # row sum divided after PV; plain PyTorch, differentiable.
+    # row sum divided after PV; plain PyTorch, differentiable. "chunked": an
+    # online softmax over key blocks of `attn_chunk` (float32 running max,
+    # sum and accumulator), plain PyTorch, differentiable.
     attn_impl: str = "kernel"
+    attn_chunk: int = 512
+    # "none": the linears compute in compute_dtype. "int8": the blocks' qkv,
+    # proj, mlp_fc1 and mlp_fc2 are `QDense` (W8A8 once their weights are
+    # quantized); attention stays bf16.
+    quant: str = "none"
 
 
 VIT_L14 = ViTConfig()
@@ -86,15 +100,56 @@ class LayerNorm(nn.Module):
         return (x - mean) * mul + self.bias.float()
 
 
+def _linear(cfg: ViTConfig):
+    """The blocks' linear layer: `QDense` under quant="int8", else `Dense`."""
+    if cfg.quant not in ("none", "int8"):
+        raise ValueError(f"unknown quant {cfg.quant!r} (expected 'none' or 'int8')")
+    return QDense if cfg.quant == "int8" else Dense
+
+
+def _chunked_attention(qh: torch.Tensor, kh: torch.Tensor, vh: torch.Tensor, chunk: int,
+                       dt) -> torch.Tensor:
+    """Online-softmax attention over key/value blocks of `chunk` keys
+    (`cppf2_tpu/models/dinov2.py::_chunked_attention`): ([B,] h, T, hd)
+    operands, float32 ([B,] h, T, hd) output. The keys are padded to a
+    multiple of `chunk` and the padded logits masked to -inf; each block's
+    logits and PV products accumulate in float32, its exponentials round to
+    `dt`; running max, sum and accumulator are float32."""
+    t = kh.shape[-2]
+    pad = (-t) % chunk
+    kp = F.pad(kh, (0, 0, 0, pad))
+    vp = F.pad(vh, (0, 0, 0, pad))
+    valid = torch.arange(t + pad, device=kh.device) < t
+    q32 = qh.float()
+    m_run = torch.full((*qh.shape[:-1], 1), -math.inf, device=qh.device)
+    s_run = torch.zeros_like(m_run)
+    o_run = torch.zeros(qh.shape, device=qh.device)
+    for start in range(0, t + pad, chunk):
+        k_blk, v_blk = kp[..., start:start + chunk, :], vp[..., start:start + chunk, :]
+        logits = torch.matmul(q32, k_blk.float().transpose(-1, -2))
+        logits = torch.where(valid[start:start + chunk], logits, -math.inf)
+        # detached as in the "hbm" route: the softmax does not depend on the
+        # shift, and its gradient through the max only adds rounding noise
+        m_new = torch.maximum(m_run, torch.amax(logits.detach(), dim=-1, keepdim=True))
+        scale = torch.exp(m_run - m_new)
+        e = torch.exp(logits - m_new).to(dt)
+        s_run = s_run * scale + torch.sum(e.float(), dim=-1, keepdim=True)
+        o_run = o_run * scale + torch.matmul(e.float(), v_blk.float())
+        m_run = m_new
+    return o_run / s_run
+
+
 class Attention(nn.Module):
     def __init__(self, cfg: ViTConfig):
         super().__init__()
-        if cfg.attn_impl not in ("kernel", "hbm"):
-            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} (expected 'kernel' or 'hbm')")
+        if cfg.attn_impl not in ("kernel", "hbm", "chunked"):
+            raise ValueError(f"unknown attn_impl {cfg.attn_impl!r} "
+                             "(expected 'kernel', 'hbm' or 'chunked')")
         dt = _DTYPES[cfg.compute_dtype]
         self.cfg = cfg
-        self.qkv = Dense(cfg.embed_dim, 3 * cfg.embed_dim, dt)
-        self.proj = Dense(cfg.embed_dim, cfg.embed_dim, dt)
+        linear = _linear(cfg)
+        self.qkv = linear(cfg.embed_dim, 3 * cfg.embed_dim, dt)
+        self.proj = linear(cfg.embed_dim, cfg.embed_dim, dt)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(T, D) tokens of one image, or (B, T, D) of B images."""
@@ -110,6 +165,8 @@ class Attention(nn.Module):
             bf = torch.bfloat16
             # ([B,] h, T, hd) views of the projection's output: K1 reads them in place
             o = attention.mha(qh.to(bf), kh.to(bf), vh.to(bf), t_real=t, out_dtype=dt)
+        elif self.cfg.attn_impl == "chunked":
+            o = _chunked_attention(qh, kh, vh, self.cfg.attn_chunk, dt)
         else:
             logits = torch.matmul(qh, kh.transpose(-1, -2))
             m = torch.amax(logits, dim=-1, keepdim=True).detach()
@@ -127,8 +184,9 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(d)
         self.norm2 = LayerNorm(d)
         self.attn = Attention(cfg)
-        self.mlp_fc1 = Dense(d, int(d * cfg.mlp_ratio), dt)
-        self.mlp_fc2 = Dense(int(d * cfg.mlp_ratio), d, dt)
+        linear = _linear(cfg)
+        self.mlp_fc1 = linear(d, int(d * cfg.mlp_ratio), dt)
+        self.mlp_fc2 = linear(int(d * cfg.mlp_ratio), d, dt)
         self.ls1 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
         self.ls2 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
 
@@ -191,14 +249,27 @@ class DinoViT(nn.Module):
                                                     device=self.pos_embed.device))
         return self
 
+    def quantize_(self) -> "DinoViT":
+        """The int8 codes and scales of every block's qkv, proj, mlp_fc1 and
+        mlp_fc2 (`QDense.quantize_`), in place; needs quant="int8". Call it
+        on the float32 weights, before `cast_for_inference`, as the JAX
+        extractor quantizes before it casts."""
+        if self.cfg.quant != "int8":
+            raise ValueError("quantize_ needs a ViTConfig with quant='int8'")
+        for b in self.blocks:
+            for lin in (b.attn.qkv, b.attn.proj, b.mlp_fc1, b.mlp_fc2):
+                lin.quantize_()
+        return self
+
     def cast_for_inference(self) -> "DinoViT":
         """Store matrices in the compute dtype, as the JAX extractor does
         (`DinoFeatureExtractor._cast`): Dense weights, the patch embed, the
-        class token and the position embedding; vectors stay float32."""
+        class token and the position embedding; vectors stay float32, and
+        int8 weights stay int8."""
         dt = _DTYPES[self.cfg.compute_dtype]
         with torch.no_grad():
             for m in self.modules():
-                if isinstance(m, Dense):
+                if isinstance(m, Dense) and m.weight.dtype != torch.int8:
                     m.weight.data = m.weight.data.to(dt)
             for prm in (self.cls_token, self.pos_embed):
                 prm.data = prm.data.to(dt)
@@ -400,6 +471,58 @@ def bbox_crop_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
     return sample_crop_descriptors(grid, pixel_yx, txys, out_size)
 
 
+def masked_window_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
+                              pixel_yx: torch.Tensor, window_yx: torch.Tensor, crop: int = 256,
+                              stride: int = 4, interp_impl: str = "gather") -> torch.Tensor:
+    """The fixed-window visual frontend (`cppf2_tpu/models/dinov2.py::
+    masked_window_descriptors`): the masked RGB cut at the crop window
+    `preprocess_frame` used for the depth (`FrameInputs.window_yx`), resized
+    bilinearly to (crop/stride * 14)^2, the ViT, and bilinear token sampling
+    at the cloud's image pixels: (n, D) unit descriptors. The object keeps
+    its native pixel scale, unlike the bbox-square convention the shipped
+    branches were trained on (`bbox_crop_descriptors`).
+
+    The window is cut as `jax.lax.dynamic_slice` cuts it: a negative start
+    counts from the frame's end, and a start that would run past the frame
+    moves back until the window fits. The keypoints are taken relative to
+    the window as given, unmoved, as the JAX function takes them. The cut
+    gathers rows and columns on the device, so nothing is read back."""
+    h, w = rgb.shape[:2]
+    ch, cw = min(crop, h), min(crop, w)
+    dev = rgb.device
+    window = window_yx.to(dev, torch.int64)
+
+    def start(i, size, n):
+        s0 = torch.where(window[i] < 0, window[i] + size, window[i])
+        return torch.clamp(s0, 0, size - n) + torch.arange(n, device=dev)
+
+    rows, cols = start(0, h, ch), start(1, w, cw)
+    img = rgb.index_select(0, rows).index_select(1, cols)
+    m = mask.to(dev).index_select(0, rows).index_select(1, cols)
+    img = img * m[..., None].to(img.dtype)
+    resized = resize_bilinear_matmul(img, ch // stride * 14, cw // stride * 14)
+    grid = model(resized)
+    kp_xy = (pixel_yx.to(dev).flip(-1) - window.flip(0)[None, :]).to(torch.float32)
+    return interpolate_features(grid, kp_xy, (ch, cw), impl=interp_impl)
+
+
+def quantize_vit_params(variables, cfg: ViTConfig = VIT_L14):
+    """A copy of a DinoViT parameter tree (the JAX layout, numpy leaves, the
+    blocks stacked on a depth axis) in the int8 W8A8 layout of
+    `cppf2_tpu/models/dinov2.py::quantize_vit_params`: the blocks' qkv,
+    proj, mlp_fc1 and mlp_fc2 kernels become int8 (depth, d_in, d_out) codes
+    with float32 per-output-channel `qscale` (depth, d_out)
+    (`layers.quantize_kernel`, bit for bit the JAX function's); every other
+    leaf is copied as it is. `cfg` is taken for the JAX signature's sake."""
+    import copy
+
+    variables = copy.deepcopy(variables)
+    blk = (variables["params"] if "params" in variables else variables)["blocks"]
+    for dense in (blk["attn"]["qkv"], blk["attn"]["proj"], blk["mlp_fc1"], blk["mlp_fc2"]):
+        dense["kernel"], dense["qscale"] = quantize_kernel(dense["kernel"])
+    return variables
+
+
 class DinoFeatureExtractor:
     """Crop image -> per-keypoint descriptors, the analog of the reference's
     `DINOV2` module (dataset.py:62-80): bilinear resize to (h/stride*14,
@@ -412,20 +535,21 @@ class DinoFeatureExtractor:
     K1 runs at T = 4097, once per block. Weights are a parameter tree of the
     JAX layout (`params`, carried by `models/porting.py::load_vit`) or
     `init_random`; matrices are then stored in the compute dtype, as the JAX
-    extractor stores them.
+    extractor stores them. With `cfg.quant == "int8"` the float weights are
+    quantized first (`DinoViT.quantize_`; a tree that is int8 already loads
+    as it is), as the JAX extractor's `_cast` quantizes. The `quant` keyword
+    sets `cfg.quant`.
     """
 
     def __init__(self, params=None, cfg: Optional[ViTConfig] = None, stride: int = 4,
                  interp_impl: str = "gather", out_size: int = 256, quant: Optional[str] = None,
                  device="cuda"):
-        if quant is not None:
-            raise NotImplementedError(
-                f"quant={quant!r}: the int8 ViT (_QDense) is not ported yet; it waits for the "
-                "slice that ports the rest of the ViT variants")
         from cppf2_torch.device import resolve_device
 
         self.device = resolve_device(device)
         self.cfg = cfg if cfg is not None else VIT_L14
+        if quant is not None:
+            self.cfg = dataclasses.replace(self.cfg, quant=quant)
         self.stride = stride
         self.interp_impl = interp_impl
         self.out_size = out_size  # bbox-square crop resolution (driver path)
@@ -435,14 +559,20 @@ class DinoFeatureExtractor:
         if params is not None:
             from cppf2_torch.models.porting import load_vit
 
-            load_vit(self.model, params).cast_for_inference()
-            self.ready = True
+            load_vit(self.model, params)
+            self._cast()
+
+    def _cast(self) -> None:
+        if self.cfg.quant == "int8":
+            self.model.quantize_()
+        self.model.cast_for_inference()
+        self.ready = True
 
     def init_random(self, generator: torch.Generator) -> "DinoFeatureExtractor":
         """Seeded random weights (`DinoViT.init_random`); `generator` lives on
         the extractor's device."""
-        self.model.init_random(generator).cast_for_inference()
-        self.ready = True
+        self.model.init_random(generator)
+        self._cast()
         return self
 
     def __call__(self, image: torch.Tensor, pts_xy: torch.Tensor) -> torch.Tensor:
@@ -523,13 +653,20 @@ def load_dinov2_params(path: str, cfg: ViTConfig = VIT_L14):
 # A trained backbone on disk (counterpart of save_backbone / load_backbone)
 # ---------------------------------------------------------------------------
 
+def _float32_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _float32_tree(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
 def save_backbone(prefix: str, model: DinoViT, stride: int = 8, out_size: int = 256) -> str:
     """Write `model` as `{prefix}.msgpack` (flax layout, float32, the blocks
     stacked on a depth axis) and `{prefix}.json` (the architecture and the
     descriptor convention it was trained with). The JAX package's
     `load_backbone` reads the pair, and this module's reads what that
-    package's `save_backbone` wrote. Compute dtype and attention
-    implementation are choices of the loader and are not stored."""
+    package's `save_backbone` wrote. Compute dtype, attention
+    implementation and quantization are choices of the loader and are not
+    stored; every leaf is written as float32, as the JAX function writes it."""
     from cppf2_torch.models.checkpoints import dumps_msgpack
     from cppf2_torch.models.porting import vit_to_tree
 
@@ -537,7 +674,7 @@ def save_backbone(prefix: str, model: DinoViT, stride: int = 8, out_size: int = 
     if d:
         os.makedirs(d, exist_ok=True)
     with open(prefix + ".msgpack", "wb") as f:
-        f.write(dumps_msgpack(vit_to_tree(model)))
+        f.write(dumps_msgpack(_float32_tree(vit_to_tree(model))))
     cfg = model.cfg
     meta = {
         "patch_size": cfg.patch_size, "embed_dim": cfg.embed_dim,
@@ -554,7 +691,9 @@ def save_backbone(prefix: str, model: DinoViT, stride: int = 8, out_size: int = 
 def load_backbone(prefix: str, device="cuda", **cfg_overrides) -> Optional[tuple]:
     """Read a `save_backbone` pair. Returns (DinoViT on `device`, cfg, stride,
     out_size), or None when there is no such file. `cfg_overrides` set the
-    loader's choices (compute_dtype, attn_impl)."""
+    loader's choices (compute_dtype, attn_impl, quant). With quant="int8"
+    the returned ViT is quantized (`DinoViT.quantize_`), which the JAX
+    package leaves to the `DinoFeatureExtractor` its caller builds."""
     from cppf2_torch.models.checkpoints import load_params_msgpack
     from cppf2_torch.models.porting import load_vit
 
@@ -566,4 +705,6 @@ def load_backbone(prefix: str, device="cuda", **cfg_overrides) -> Optional[tuple
     out_size = int(meta.pop("out_size"))
     cfg = ViTConfig(**meta, **cfg_overrides)
     model = load_vit(DinoViT(cfg), load_params_msgpack(prefix + ".msgpack"))
+    if cfg.quant == "int8":
+        model.quantize_()
     return model.to(device), cfg, stride, out_size

@@ -1,4 +1,6 @@
-"""Residual MLP building blocks (counterpart of `cppf2_tpu/models/layers.py`).
+"""Residual MLP building blocks (counterpart of `cppf2_tpu/models/layers.py`)
+and the ViT's W8A8 linear (`QDense`, counterpart of
+`cppf2_tpu/models/dinov2.py::_QDense`).
 
 `Dense` reproduces flax `nn.Dense(dtype=...)` exactly: input, weight and bias
 are cast to the compute dtype, the product is rounded to it, and the bias is
@@ -9,8 +11,9 @@ unless the caller casts them).
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -40,6 +43,80 @@ class Dense(nn.Linear):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         return torch.matmul(x.to(dt), self.weight.to(dt).t()) + self.bias.to(dt)
+
+
+# XLA folds the division by the constant 127 into a product with its float32
+# reciprocal; the port takes the same product so the activation codes agree
+_INV_127 = float(np.float32(1.0 / 127.0))
+
+
+def quantize_kernel(w: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Per-output-channel int8 codes of a flax-layout kernel (..., d_in,
+    d_out) and their float32 scales (..., d_out): s = max(max|w_col|,
+    1e-12) / 127, codes = clip(round(w / s), -127, 127), in numpy float32 as
+    `quantize_vit_params` computes them, so both agree bit for bit."""
+    w = np.asarray(w, np.float32)
+    s = np.maximum(np.abs(w).max(axis=-2), 1e-12) / 127.0
+    codes = np.clip(np.round(w / s[..., None, :]), -127, 127).astype(np.int8)
+    return codes, s.astype(np.float32)
+
+
+class QDense(Dense):
+    """Dense with the W8A8 int8 route of the JAX `_QDense`.
+
+    Holds nn.Linear's (d_out, d_in) weight, a float32 bias and a float32
+    per-output-channel `qscale` (ones until `quantize_`). The route follows
+    the weight's dtype, as the JAX layer follows its kernel's: a float weight
+    is exactly `Dense`; an int8 weight quantizes the activations per row
+    (ax = max|x| in x's dtype, times 1/127 in float32, floor 1e-12; codes
+    round(x / ax) half to even, clipped to +-127), multiplies the codes with
+    `torch._int_mm` into int32, and returns (y * ax * qscale + bias) in the
+    compute dtype. `_int_mm` has no fallback here: a shape it refuses (on
+    CUDA: 16 rows or fewer, d_in or d_out not a multiple of 8) raises.
+
+    XLA's CPU fusion contracts `* qscale + bias` into one fused multiply-add;
+    the port emulates it in float64 (the product of two float32 values is
+    exact there, so only a sum at an exact float32 midpoint can round
+    otherwise). Every call of the int8 route adds one to `QDense.launches`.
+    """
+
+    launches = 0
+
+    def __init__(self, d_in: int, d_out: int, compute_dtype=torch.float32):
+        super().__init__(d_in, d_out, compute_dtype)
+        self.register_buffer("qscale", torch.ones(d_out))
+
+    def quantize_(self) -> "QDense":
+        """Replace a float weight by its int8 codes and set `qscale`
+        (`quantize_kernel` of the float32 weight); an int8 weight stays."""
+        if self.weight.dtype == torch.int8:
+            return self
+        w = self.weight.detach().to("cpu", torch.float32).numpy().T
+        codes, s = quantize_kernel(w)
+        self.set_int8(codes.T, s)
+        return self
+
+    def set_int8(self, codes: np.ndarray, qscale: np.ndarray) -> None:
+        """Take (d_out, d_in) int8 codes and (d_out,) scales as the weight."""
+        dev = self.weight.device
+        codes = torch.from_numpy(np.ascontiguousarray(codes, np.int8)).to(dev)
+        if tuple(codes.shape) != tuple(self.weight.shape):
+            raise ValueError(f"shape mismatch: module {tuple(self.weight.shape)} vs codes {tuple(codes.shape)}")
+        self.weight = nn.Parameter(codes, requires_grad=False)
+        with torch.no_grad():
+            self.qscale.copy_(torch.from_numpy(np.asarray(qscale, np.float32)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.weight.dtype != torch.int8:
+            return super().forward(x)
+        QDense.launches += 1
+        ax = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True).float() * _INV_127,
+                         min=1e-12)
+        xq = torch.clamp(torch.round(x.float() / ax), -127, 127).to(torch.int8)
+        y = torch._int_mm(xq.reshape(-1, x.shape[-1]), self.weight.t())
+        y = y.reshape(*x.shape[:-1], -1).float() * ax
+        out = y.double() * self.qscale.double() + self.bias.double()
+        return out.float().to(self.compute_dtype)
 
 
 class ResLayer(nn.Module):

@@ -9,6 +9,9 @@ top-level "params" key. Two layout facts drive the mapping:
   * a flax Dense kernel is (in, out); a torch Linear weight is (out, in);
   * the ViT's `blocks` leaves carry a leading depth axis (flax `nn.scan`),
     unstacked here into one module per block.
+An int8 ViT tree (`quantize_vit_params`) holds int8 kernels and float32
+`qscale` under qkv, proj, mlp_fc1 and mlp_fc2; a quant="int8" model's tree
+holds `qscale` (ones until quantized) beside float kernels.
 """
 
 from __future__ import annotations
@@ -37,6 +40,21 @@ def _set(param: torch.Tensor, value) -> None:
 def _dense(lin: nn.Linear, p: Dict[str, Any]) -> None:
     _set(lin.weight, np.asarray(p["kernel"], np.float32).T)
     _set(lin.bias, p["bias"])
+
+
+def _qdense(lin: nn.Module, p: Dict[str, Any]) -> None:
+    """A Dense / QDense from a flax kernel (in, out), float or int8 codes,
+    with `qscale` where the tree has one. Int8 codes need a QDense."""
+    kernel = np.asarray(p["kernel"])
+    if kernel.dtype == np.int8:
+        if not hasattr(lin, "set_int8"):
+            raise ValueError("an int8 kernel needs a ViTConfig with quant='int8'")
+        lin.set_int8(kernel.T, p["qscale"])
+        _set(lin.bias, p["bias"])
+        return
+    _dense(lin, p)
+    if hasattr(lin, "qscale"):
+        _set(lin.qscale, p.get("qscale", np.ones(lin.qscale.shape, np.float32)))
 
 
 def _res_mlp(mlp: nn.Module, p: Dict[str, Any]) -> None:
@@ -86,7 +104,7 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         _set(b.ls2, at(blk["ls2"]))
         for lin, src in ((b.attn.qkv, blk["attn"]["qkv"]), (b.attn.proj, blk["attn"]["proj"]),
                          (b.mlp_fc1, blk["mlp_fc1"]), (b.mlp_fc2, blk["mlp_fc2"])):
-            _dense(lin, {"kernel": at(src["kernel"]), "bias": at(src["bias"])})
+            _qdense(lin, {k: np.asarray(v)[i] for k, v in src.items()})
     return module
 
 
@@ -185,16 +203,24 @@ def branch_to_tree(module: nn.Module) -> Dict[str, Any]:
 
 
 def vit_to_tree(module: nn.Module) -> Dict[str, Any]:
-    """The flax tree {"params": ...} of a DinoViT, float32, the blocks stacked
-    on a leading depth axis: the inverse of `load_vit`."""
+    """The flax tree {"params": ...} of a DinoViT, float32 (int8 kernels stay
+    int8, with their `qscale`), the blocks stacked on a leading depth axis:
+    the inverse of `load_vit`."""
     c = module.cfg
     p, d = c.patch_size, c.embed_dim
 
     def stack(get):
         return np.stack([get(b) for b in module.blocks])
 
+    def kernel(lin):
+        w = lin.weight.detach().cpu()
+        return w.numpy().T.copy() if w.dtype == torch.int8 else _np(w).T
+
     def dense(get):
-        return {"kernel": stack(lambda b: _np(get(b).weight).T), "bias": stack(lambda b: _np(get(b).bias))}
+        out = {"kernel": stack(lambda b: kernel(get(b))), "bias": stack(lambda b: _np(get(b).bias))}
+        if hasattr(get(module.blocks[0]), "qscale"):
+            out["qscale"] = stack(lambda b: _np(get(b).qscale))
+        return out
 
     def ln(get):
         return {"scale": stack(lambda b: _np(get(b).weight)), "bias": stack(lambda b: _np(get(b).bias))}

@@ -6,6 +6,11 @@ round(clip(d2, 0, r2) * levels / r2) * n + col, exact in float32, so the k
 smallest keys name the neighbors (nearest first, ties to the lower column).
 The port selects them exactly with torch.topk; the reference's
 approx_min_k is exact on the CPU, where the tests compare the two.
+
+`exact=True` is the reference's `lax.top_k(-d2, k)` route: the k smallest
+unquantized d2, ties to the lower column (a stable sort, since torch.topk
+leaves the order of ties undefined), and distances sqrt(max(d2, 0)) of the
+selected keys instead of the norms of the offsets.
 """
 
 from __future__ import annotations
@@ -44,11 +49,13 @@ def knn_radius_neighbors(
     valid: torch.Tensor,
     radius: float,
     k: int,
+    exact: bool = False,
 ) -> Neighbors:
     """K nearest neighbors within `radius` of every point, fixed shape.
 
     Invalid points are parked at 1e6 so they fail every radius test. The
-    (chunk, N) distance block is the only quadratic buffer."""
+    (chunk, N) distance block is the only quadratic buffer. `exact` selects
+    on the unquantized squared distances (module docstring)."""
     n = points.shape[0]
     k = min(k, n)
     query_chunk = min(_QUERY_CHUNK, max(-(-n // 256) * 256, 256))
@@ -68,6 +75,14 @@ def knn_radius_neighbors(
         qsq = q_sq[start:start + query_chunk]
         cross = q @ pts.t()
         d2 = qsq[:, None] + sq[None, :] - 2.0 * cross
+        if exact:
+            d2_k, idx = torch.sort(d2, dim=-1, stable=True)
+            d2_k, idx = d2_k[:, :k], idx[:, :k]
+            diff = pts[idx] - q[:, None, :]
+            dists.append(torch.sqrt(torch.clamp(d2_k, min=0.0)))
+            idxs.append(idx)
+            rels.append(diff)
+            continue
         qd2 = torch.round(torch.clamp(d2, 0.0, r2) * (levels / r2))
         enc = qd2 * n + col[None, :]
         enc_k = torch.topk(enc, k, dim=-1, largest=False, sorted=True).values

@@ -3,8 +3,9 @@ reference src_shot/shot.cpp:45-100 through PCL, radii cfg.res * 10).
 
 The descriptor is assembled as a dense product of soft binning weights,
 desc[n, v, c] = sum_k Wspatial[n, k, v] * Wcos[n, k, c], over 32 spatial
-volumes (8 azimuth x 2 elevation x 2 radial) and 11 cosine bins. The color
-variant (CSHOT) is not part of this slice.
+volumes (8 azimuth x 2 elevation x 2 radial) and 11 cosine bins. The colour
+variant (CSHOT-1344, reference src_shot/shot.cpp:102-161) adds 31 bins of
+CIELAB colour distance per volume, on the same spatial weights.
 """
 
 from __future__ import annotations
@@ -96,9 +97,12 @@ def _lrf_spatial_weights(points, neighbors: Neighbors, radius: float):
 
 
 def compute_shot(points: torch.Tensor, normals: torch.Tensor, neighbors: Neighbors,
-                 radius: float) -> torch.Tensor:
-    """(N, 352) SHOT descriptors, L2-normalized per point (zero rows when empty)."""
-    frames, w_spatial = _lrf_spatial_weights(points, neighbors, radius)
+                 radius: float, _lrf_spatial=None) -> torch.Tensor:
+    """(N, 352) SHOT descriptors, L2-normalized per point (zero rows when
+    empty). `_lrf_spatial`: a precomputed `_lrf_spatial_weights` result
+    (`compute_cshot` shares it between its two halves)."""
+    frames, w_spatial = (_lrf_spatial if _lrf_spatial is not None
+                         else _lrf_spatial_weights(points, neighbors, radius))
     d = neighbors.dist
     nb_normal = normals[neighbors.idx]
     has_normal = torch.sum(nb_normal * nb_normal, dim=-1) > 0.5
@@ -112,9 +116,71 @@ def compute_shot(points: torch.Tensor, normals: torch.Tensor, neighbors: Neighbo
     return torch.where(dn > _EPS, desc / torch.clamp(dn, min=_EPS), torch.zeros_like(desc))
 
 
-def compute_shot_features(points: torch.Tensor, valid: torch.Tensor, radius: float, k: int = 96):
+def compute_shot_features(points: torch.Tensor, valid: torch.Tensor, radius: float, k: int = 96,
+                          exact: bool = False):
     """Normals and SHOT in one call (the reference's shot.compute with
-    normal_r == shot_r). Returns (shot (N, 352), normals (N, 3))."""
-    nbrs = knn_radius_neighbors(points, valid, radius, k)
+    normal_r == shot_r). Returns (shot (N, 352), normals (N, 3)). `exact`
+    is the kNN's exact route."""
+    nbrs = knn_radius_neighbors(points, valid, radius, k, exact=exact)
     normals = estimate_normals(points, nbrs)
     return compute_shot(points, normals, nbrs, radius), normals
+
+
+# --- CSHOT (colour SHOT-1344) ------------------------------------------------
+
+N_COLOR_BINS = 31           # PCL nr_color_bins=30 -> 31 slots per volume
+CSHOT_DIM = SHOT_DIM + N_AZIMUTH * N_ELEVATION * N_RADIAL * N_COLOR_BINS  # 1344
+
+_RGB_TO_XYZ = ((0.412453, 0.357580, 0.180423),
+               (0.212671, 0.715160, 0.072169),
+               (0.019334, 0.119193, 0.950227))
+
+
+def _rgb_to_cielab(rgb: torch.Tensor) -> torch.Tensor:
+    """sRGB in [0, 1] -> CIELAB (D65), PCL's RGB2CIELAB. The cube root is
+    pow(x, 1/3) on the branch where x > 0.008856."""
+    c = torch.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4, rgb / 12.92)
+    m = torch.tensor(_RGB_TO_XYZ, dtype=rgb.dtype, device=rgb.device)
+    xyz = c @ m.t()
+    xyz = xyz / torch.tensor([0.95047, 1.0, 1.08883], dtype=rgb.dtype, device=rgb.device)
+    f = torch.where(xyz > 0.008856, torch.pow(torch.clamp(xyz, min=0.008856), 1.0 / 3.0),
+                    7.787 * xyz + 16.0 / 116.0)
+    lab_l = 116.0 * f[..., 1] - 16.0
+    lab_a = 500.0 * (f[..., 0] - f[..., 1])
+    lab_b = 200.0 * (f[..., 1] - f[..., 2])
+    return torch.stack([lab_l, lab_a, lab_b], dim=-1)
+
+
+def compute_cshot(points: torch.Tensor, colors: torch.Tensor, normals: torch.Tensor,
+                  neighbors: Neighbors, radius: float) -> torch.Tensor:
+    """(N, 1344) colour SHOT, the reference's `shot.compute_color` (PCL
+    SHOTColorEstimation): the 352 shape values, then 32 volumes x 31 bins of
+    the CIELAB distance |lab_q - lab_p| / 3 (per channel over the ranges
+    100, 120, 120) between each neighbour and the point, on the shape half's
+    spatial weights; every in-radius neighbour feeds the colour half, with
+    no normal test. The 1344 values are L2-normalized jointly (zero rows
+    when empty). `colors`: (N, 3) RGB in [0, 1]."""
+    lrf_spatial = _lrf_spatial_weights(points, neighbors, radius)
+    shape_desc = compute_shot(points, normals, neighbors, radius, _lrf_spatial=lrf_spatial)
+    _, w_spatial = lrf_spatial
+    contrib = neighbors.valid & (neighbors.dist > _EPS)
+    cw = contrib.to(points.dtype)
+    lab_n = _rgb_to_cielab(colors) / torch.tensor([100.0, 120.0, 120.0], dtype=points.dtype,
+                                                  device=points.device)
+    cdist = torch.sum(torch.abs(lab_n[neighbors.idx] - lab_n[:, None, :]), dim=-1) / 3.0
+    c_cont = torch.clamp(cdist, 0.0, 1.0) * (N_COLOR_BINS - 1)
+    C = _soft_bins_centers_int(c_cont, N_COLOR_BINS)
+    cdesc = torch.einsum("nkv,nkc->nvc", w_spatial * cw[..., None], C).reshape(-1, CSHOT_DIM - SHOT_DIM)
+    full = torch.cat([shape_desc, cdesc], dim=-1)
+    fn = norm(full, keepdim=True)
+    return torch.where(fn > _EPS, full / torch.clamp(fn, min=_EPS), torch.zeros_like(full))
+
+
+def compute_cshot_features(points: torch.Tensor, colors: torch.Tensor, valid: torch.Tensor,
+                           radius: float, k: int = 96):
+    """Normals and colour SHOT in one call, the analog of the reference's
+    `shot.compute_color(pc, pc_color, normal_r, shot_r)`. Returns (cshot
+    (N, 1344), normals (N, 3))."""
+    nbrs = knn_radius_neighbors(points, valid, radius, k)
+    normals = estimate_normals(points, nbrs)
+    return compute_cshot(points, colors, normals, nbrs, radius), normals

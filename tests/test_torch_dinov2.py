@@ -225,8 +225,10 @@ def test_dino_feature_extractor_matches_jax(interp_impl, attn_impl):
 
 
 def test_dino_feature_extractor_refusals():
-    """No weights, a downscale (stride above 14) and the int8 route each
-    raise; init_random is seeded; the default is ViT-L/14 on K1."""
+    """No weights, a downscale (stride above 14) and an unknown quantization
+    each raise; `quant="int8"` sets the config's quantization and
+    init_random then stores int8 linears; init_random is seeded; the
+    default is ViT-L/14 on K1."""
     cfg = tdino.ViTConfig(embed_dim=64, depth=1, num_heads=4, pretrain_grid=4)
     ext = tdino.DinoFeatureExtractor(cfg=cfg, out_size=32, device="cpu")
     img, kp = torch.rand(32, 32, 3), torch.rand(5, 2) * 32
@@ -239,7 +241,11 @@ def test_dino_feature_extractor_refusals():
     ext.stride = 16
     with pytest.raises(ValueError, match="upscale"):
         ext(img, kp)
-    with pytest.raises(NotImplementedError, match="int8"):
-        tdino.DinoFeatureExtractor(cfg=cfg, quant="int8", device="cpu")
+    with pytest.raises(ValueError, match="quant"):
+        tdino.DinoFeatureExtractor(cfg=cfg, quant="int4", device="cpu")
+    q = tdino.DinoFeatureExtractor(cfg=cfg, quant="int8", device="cpu")
+    assert q.cfg.quant == "int8" and cfg.quant == "none"
+    q.init_random(torch.Generator().manual_seed(3))
+    assert q.model.blocks[0].attn.qkv.weight.dtype == torch.int8
     assert inspect.signature(tdino.DinoFeatureExtractor).parameters["stride"].default == 4
     assert tdino.VIT_L14.attn_impl == "kernel" and tdino.VIT_L14.depth == 24

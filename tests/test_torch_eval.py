@@ -35,11 +35,14 @@ CLASSES = ["bottle", "bowl", "camera", "can", "laptop", "mug"]
 
 @pytest.fixture
 def python_iou(monkeypatch):
-    """The JAX package's IoU on its pure-Python path (the native core agrees
-    with it only within 1e-6)."""
+    """Both packages' IoU on their pure-Python paths (the native cores agree
+    with them only within 1e-6; `tests/test_torch_native.py` holds the
+    port's native route)."""
+    import cppf2_torch.native as tnative
     import cppf2_tpu.native as native
 
     monkeypatch.setattr(native, "load", lambda: None)
+    monkeypatch.setattr(tnative, "load", lambda: None)
 
 
 def _rot(rng):

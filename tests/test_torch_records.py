@@ -35,11 +35,14 @@ def _write(mod, path, recs):
 
 @pytest.fixture
 def python_reader(monkeypatch):
-    """The JAX package's reader on its numpy path (its native core is
-    optional and reads the same bytes)."""
+    """Both packages' readers on their numpy paths (their native cores are
+    optional and read the same bytes; `tests/test_torch_native.py` holds
+    the native backends)."""
+    import cppf2_torch.native as tnative
     import cppf2_tpu.native as native
 
     monkeypatch.setattr(native, "load", lambda: None)
+    monkeypatch.setattr(tnative, "load", lambda: None)
 
 
 @pytest.mark.parametrize("n", [0, 3, 300])
