@@ -28,13 +28,20 @@ Phases, each printing its own lines; any failure exits non-zero:
      sphere, 100 alignment steps, ViT-L/14 at stride 8 with seeded random
      weights, bf16 branches with the shipped mug weights. The launch counts
      are zeroed just before it and read just after: 24 K1 launches (one ViT
-     forward) and 8 K2 launches (4 levels x 2 branches). It runs again with
+     forward) and 4 K2 launches (4 levels, both branches as the two rows of
+     each launch). It runs again with
      every kernel swapped for its plain version and the same draws, and the
      two poses must agree. Then the e2e time per instance, the stage
      breakdown and the device-busy share. Then the fused level
-     (hist16_level_peak) against its plain version on the inputs of all 8
-     levels of that instance (both branches): the same peak cell and the
-     same count, exactly; timed at level 0, a coarse arc level and a fine one.
+     (hist16_level_peak) against its plain version on the inputs of all 4
+     levels of that instance (two rows each): the same peak cell and the
+     same count on every row, exactly; timed at level 0, a coarse arc level
+     and a fine one. Then the fused level over rows at the production shapes
+     (6,250 x 16 circle, 6,250 x 16 arc, 50,000 x 8 arc twice) for B = 2, 8
+     and 16 rows of different windows, row 0 without a valid vote and every
+     other row with a forced tie: one launch a call, each row exact against
+     the batched plain version; the fine level timed beside B single-row
+     launches and its bound, B x the single row's.
   4. the multi-device path, on a world-1 NCCL process group (FileStore in a
      temporary directory, no network):
        K3 sphere_accumulate against its plain version at (1, 900k, 720) and
@@ -61,8 +68,8 @@ Phases, each printing its own lines; any failure exits non-zero:
      of four categories each, a 16-bit depth PNG and an 8-bit colour PNG)
      through `evaluate_real275` at the production PipelineConfig, ViT-L/14 at
      stride 8 (seeded random weights), bf16 branches from ckpts_r3, injected
-     draws. One ViT forward per frame: 24 K1 launches a frame, and 8 K2
-     launches an instance. Every instance is posed; each pose equals
+     draws. One ViT forward per frame: 24 K1 launches a frame, and 4 K2
+     launches a (category, crop tier) group. Every instance is posed; each pose equals
      `fetch_instances([dispatch_instance(...)])` on the same draws within R
      1 degree, T 3 mm, with the same branch pick; the batched token grids
      equal the single-image grids within 2e-2; the first frame's
@@ -106,7 +113,7 @@ Phases, each printing its own lines; any failure exits non-zero:
      tree whose version_10 holds ckpts_r3's mug branches in BeyondCPPF's key
      layout and version_9 the bowl's (loaded branches equal ckpts_r3's, every
      tensor); then `--auto-mask` at the production PipelineConfig with the
-     extractor at stride 4: 24 K1 launches at (16, 4097, 64) and 8 K2
+     extractor at stride 4: 24 K1 launches at (16, 4097, 64) and 4 K2
      launches per frame, the .pth loads as the ViT it came from, an overlay
      PNG and a pose file per frame read back, the proposer's pick overlaps the
      mug on every frame (IoU 0.5); the same run with every kernel swapped for
@@ -129,10 +136,23 @@ Phases, each printing its own lines; any failure exits non-zero:
      kNN against the default one in `preprocess_frame`; the native IoU and
      record reader on the card's host, each equal to its Python route.
 
+ 11. a frame group's instances in one batched pose graph: two REAL275-format
+     frames of eight instances (eight mugs, one group of 16 rows; four mugs,
+     two bowls and two cans, groups of 8, 4 and 4 rows) through
+     `dispatch_frame` and through groups of one (`dispatch_instance` for each
+     detection) on the same draws: the same picks, R within 1 degree, T
+     within 3 mm; per frame and route the ms, the K2 launches (4 a group)
+     and the `align_pose` calls (one a group) and rows, and the batched
+     route's device-busy share. Then `evaluate_real275_parallel` at world 1
+     on the two frames, a rank block of four instances one pose group (4
+     rows), against each instance alone on the same draws (R 1 degree, T
+     3 mm) and its launches (4 K2 a block).
+
 Before the last line: one JSON object with every kernel's numbers (K2 is one
-row: the 8 launches of the slice, all through the fused entry, with a fine
-level's times, and the demo's launches; the candidate-array entry's times
-stand inside it; K1's row holds the batched shape and the stride-4 shape
+row: the 4 launches of the slice, all through the fused entry at two rows,
+with a fine level's times, and the demo's launches; the candidate-array
+entry's times stand inside it, and the fine level at 16 rows as `batched`,
+with phase 11's launches; K1's row holds the batched shape and the stride-4 shape
 nested, the latter with the demo's launches; K1 and K2 carry the launches of
 phase 10's int8 paths as `int8_launches`), then the card's name and power
 limit. The last line:
@@ -468,13 +488,15 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     est = once()
     first_ms = (time.perf_counter() - t0) * 1e3
     # hist16_peak.launches counts every K2 launch, hist16_level_peak.launches
-    # the ones through the fused entry: on this path all of them
+    # the ones through the fused entry: on this path all of them, one a level
+    # for both branches (B = 2 rows)
     launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
                 "hist16_level_peak": hist16.hist16_level_peak.launches}
     say(f"[slice] first call {first_ms:.1f} ms, launches {launches}")
-    if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels * 2,
-                    "hist16_level_peak": pipe.vote_levels * 2}:
-        raise AssertionError(f"launch counts {launches}: expected 24 K1 and 8 K2, all fused levels")
+    if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels,
+                    "hist16_level_peak": pipe.vote_levels}:
+        raise AssertionError(f"launch counts {launches}: expected 24 K1 and 4 K2 (two rows each), "
+                             f"all fused levels")
 
     r = est.rotation.double().cpu().numpy()
     vals = [est.rotation, est.translation, est.scale, est.scale_norm, est.loss]
@@ -523,9 +545,14 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     stage_breakdown(once, "fused levels", repeats=2)
 
     def written_out(c, x0, y0, odist, ok, samples, lo, cell, theta_star=None, span=None):
-        # a level as it ran before the fusion: the candidates in device memory, read back by K2
-        cand, ok_v = hist16.level_candidates(c, x0, y0, odist, ok, samples, theta_star, span)
-        return hist16.hist16_peak(cand, ok_v, lo, cell)
+        # a level as it ran before the fusion: each row's candidates in device
+        # memory, read back by a K2 launch of their own
+        peaks = []
+        for r in range(c.shape[0]):
+            arc = (None, None) if theta_star is None else (theta_star[r], span[r])
+            cand, ok_v = hist16.level_candidates(c[r], x0[r], y0[r], odist[r], ok[r], samples, *arc)
+            peaks.append(hist16.hist16_peak(cand, ok_v, lo[r], cell[r]))
+        return torch.stack([p[0] for p in peaks]), torch.stack([p[1] for p in peaks])
 
     fused, hist16.hist16_level_peak = hist16.hist16_level_peak, written_out
     try:
@@ -536,11 +563,26 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     return launches, e2e_ms, level_rows
 
 
+def level_bound(sub, n_smp, arc, rows=1):
+    """(bound ms, what bounds it) of one fused K2 level over `rows` rows of
+    `sub` pairs x `n_smp` samples: each row's pair data read once (c, x0, y0,
+    odist, ok and, on an arc level, theta_star and span), the shared table,
+    each row's window read and (4,) result written; the f32 instructions of
+    every vote."""
+    per_pair = (9 + 1 + (2 if arc else 0)) * 4 + 1
+    table = (1 if arc else 2) * n_smp * 4
+    bytes_moved = rows * (sub * per_pair + 2 * 3 * 4 + 4 * 4) + table
+    ops = rows * sub * n_smp * (LEVEL_INSTR_ARC if arc else LEVEL_INSTR_CIRCLE)
+    by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32_INSTR * 1e3
+    return max(by_bytes, by_ops), ("operations" if by_ops > by_bytes else "bytes")
+
+
 def check_levels(once, pipe):
     """The fused K2 level against its plain version on the inputs of every
-    level of one instance (both branches): the same peak cell and the same
-    count, exactly. Then its time at level 0, a coarse arc level and a fine
-    level of the first branch. Returns one row per timed level."""
+    level of one instance, both branches as the two rows of each launch:
+    the same peak cell and the same count on every row, exactly. Then its
+    time at level 0, a coarse arc level and a fine level. Returns one row per
+    timed level."""
     import torch
 
     from cppf2_torch.ops import hist16
@@ -554,10 +596,10 @@ def check_levels(once, pipe):
         torch.cuda.synchronize()
         calls.append(args)
         errs.append(max(float(torch.max(torch.abs(got[0] - want[0]))),
-                        abs(float(got[1]) - float(want[1]))))
+                        float(torch.max(torch.abs(got[1] - want[1])))))
         if errs[-1] != 0.0 or not torch.equal(got[0], want[0]):
             raise AssertionError(f"fused level {len(calls) - 1}: kernel {got[0].tolist()} "
-                                 f"{float(got[1])} vs plain {want[0].tolist()} {float(want[1])}")
+                                 f"{got[1].tolist()} vs plain {want[0].tolist()} {want[1].tolist()}")
         return got
 
     hist16.hist16_level_peak = both
@@ -566,32 +608,139 @@ def check_levels(once, pipe):
     finally:
         hist16.hist16_level_peak = kernel
     levels = pipe.vote_levels
-    if len(calls) != 2 * levels:
-        raise AssertionError(f"{len(calls)} fused levels in one instance, expected {2 * levels}")
-    say(f"[K2 hist16_level_peak] {len(calls)} levels of both branches: peak cell and count equal "
-        f"the plain version's exactly")
+    if len(calls) != levels or any(a[0].shape[0] != 2 for a in calls):
+        raise AssertionError(f"{[tuple(a[0].shape) for a in calls]}: expected {levels} fused levels "
+                             f"of two rows in one instance")
+    say(f"[K2 hist16_level_peak] {len(calls)} levels, both branches as two rows of each launch: "
+        f"peak cell and count equal the plain version's exactly on every row")
     rows = []
     for level in (0, 1, levels - 1):
         args = calls[level]
         c, samples, theta_star = args[0], args[5], args[8] if len(args) > 8 else None
-        sub, n_smp, arc = c.shape[0], samples.shape[-1], theta_star is not None
+        n_rows, sub, n_smp, arc = c.shape[0], c.shape[1], samples.shape[-1], theta_star is not None
         ms, dev_ms = timed(lambda: kernel(*args))
         plain_ms, plain_dev_ms = timed(lambda: hist16.hist16_level_peak_plain(*args), iters=10)
-        per_pair = (9 + 1 + (2 if arc else 0)) * 4 + 1
-        bytes_moved = sub * per_pair + samples.numel() * 4 + 2 * 3 * 4 + 4 * 4
-        ops = sub * n_smp * (LEVEL_INSTR_ARC if arc else LEVEL_INSTR_CIRCLE)
-        by_bytes, by_ops = bytes_moved / PEAK_BYTES * 1e3, ops / PEAK_F32_INSTR * 1e3
-        above_bound(f"hist16_level_peak level {level}", max(by_bytes, by_ops), ms=ms,
-                    device_ms=dev_ms)
-        say(f"[K2 hist16_level_peak] level {level} ({'arc' if arc else 'circle'}) {sub} pairs x "
-            f"{n_smp} samples  back to back / on the device alone, ms: kernel {ms:.4f} / "
-            f"{dev_ms:.4f}  plain {plain_ms:.4f} / {plain_dev_ms:.4f}  bound "
-            f"{max(by_bytes, by_ops):.5f} ms ({'operations' if by_ops > by_bytes else 'bytes'}; "
-            f"bytes {by_bytes:.5f}, operations {by_ops:.5f})")
-        rows.append(dict(level=level, err=max(errs), ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                         bound_ms=max(by_bytes, by_ops),
-                         bound_by="operations" if by_ops > by_bytes else "bytes"))
+        bound_ms, bound_by = level_bound(sub, n_smp, arc, n_rows)
+        above_bound(f"hist16_level_peak level {level}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K2 hist16_level_peak] level {level} ({'arc' if arc else 'circle'}) {n_rows} rows x "
+            f"{sub} pairs x {n_smp} samples  back to back / on the device alone, ms: kernel "
+            f"{ms:.4f} / {dev_ms:.4f}  plain {plain_ms:.4f} / {plain_dev_ms:.4f}  bound "
+            f"{bound_ms:.5f} ms ({bound_by})")
+        rows.append(dict(level=level, rows=n_rows, err=max(errs), ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by))
     return rows
+
+
+def batched_level_inputs(dev, n_rows, sub, n_smp, arc, seed):
+    """One fused level's inputs for `n_rows` rows at the pose graph's shapes,
+    each row its own window (cells of 1 to 12 mm around a center at 0.6 to
+    1 m) and its own pairs. Row 0 has no valid vote; rows 1, 3, 5, ... have a
+    tie: two cells, (2, 12, 7) and (9, 3, 4), get the same count, above every
+    other cell's, from pairs whose circle is far smaller than a cell, and no
+    other vote falls into either (the lower flat index, (2, 12, 7), must
+    win). Returns the args of `hist16_level_peak`."""
+    import torch
+
+    from cppf2_torch.ops import hist16, voting
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.rand(shape, generator=g, device=dev)
+
+    cell = 0.001 + 0.011 * rand(n_rows, 3)
+    lo = torch.tensor([0.0, 0.0, 0.6], device=dev) + 0.4 * rand(n_rows, 3) - cell * 8
+    c = lo[:, None] + cell[:, None] * (2.0 + 12.0 * rand(n_rows, sub, 3))
+    x0 = torch.nn.functional.normalize(torch.randn((n_rows, sub, 3), generator=g, device=dev), dim=-1)
+    y0 = torch.randn((n_rows, sub, 3), generator=g, device=dev)
+    y0 = torch.nn.functional.normalize(y0 - (y0 * x0).sum(-1, keepdim=True) * x0, dim=-1)
+    od = cell.amax(-1, keepdim=True) * (0.3 + 5.0 * rand(n_rows, sub))
+    ok = rand(n_rows, sub) < 0.9
+    ok[0] = False
+    if arc:
+        samples = voting._linspace(n_smp, dev)
+        theta_star = (2 * rand(n_rows, sub) - 1) * math.pi
+        span = torch.clamp(1.2 * 8 * cell.amax(-1, keepdim=True) / od, 0.0, math.pi)
+        extra = [theta_star, span]
+    else:
+        ang = torch.arange(n_smp, dtype=torch.float32, device=dev) / n_smp * 2 * math.pi
+        samples, extra = torch.stack([torch.cos(ang), torch.sin(ang)]), [None, None]
+    tie_cells = torch.tensor([[2.0, 12.0, 7.0], [9.0, 3.0, 4.0]], device=dev)
+    for r in range(1, n_rows, 2):
+        # keep every other vote out of the two tie cells, then give each the same count
+        cand, _ = hist16.level_candidates(c[r], x0[r], y0[r], od[r], ok[r], samples,
+                                          *(None if e is None else e[r] for e in extra))
+        flat, inside = hist16._quantize(cand, torch.ones_like(cand[:, 0], dtype=torch.bool), lo[r],
+                                        cell[r])
+        hits = inside & ((flat == 2 * 256 + 12 * 16 + 7) | (flat == 9 * 256 + 3 * 16 + 4))
+        ok[r] &= ~hits.reshape(sub, n_smp).any(-1)
+        counts = hist16.hist16_counts_plain(cand, ok[r].repeat_interleave(n_smp), lo[r], cell[r])
+        n_tie = int(counts.max()) // n_smp + 2
+        for k in range(2):
+            sl = slice(k * n_tie, (k + 1) * n_tie)
+            c[r, sl] = lo[r] + tie_cells[k] * cell[r]
+            od[r, sl] = cell[r].min() * 1e-3
+            ok[r, sl] = True
+            if arc:
+                extra[1][r, sl] = 0.0
+    return [c, x0, y0, od, ok, samples, lo, cell, *extra], tie_cells
+
+
+def check_hist16_batched(dev):
+    """The batched fused level against its batched plain version on all 4
+    levels of the center vote at the production shapes (50,000 pairs; the
+    coarse levels' 6,250), at B = 2, 8 and 16 rows: the same center and count
+    on every row, exactly, the tie rows' peak at the lower flat index and the
+    empty row at count 0; one launch per call. Then the fine level's time at
+    each B beside B single-row launches and its bound (B x the single-row
+    bound). Returns one row per B, with the fine level's numbers."""
+    import torch
+
+    from cppf2_torch.ops import hist16
+
+    shapes = [(6250, 16, False), (6250, 16, True), (50000, 8, True), (50000, 8, True)]
+    out = []
+    for n_rows in (2, 8, 16):
+        err = 0.0
+        for level, (sub, n_smp, arc) in enumerate(shapes):
+            args, tie_cells = batched_level_inputs(dev, n_rows, sub, n_smp, arc, seed=100 * n_rows + level)
+            before = hist16.hist16_level_peak.launches
+            got_c, got_n = hist16.hist16_level_peak(*args)
+            if hist16.hist16_level_peak.launches != before + 1:
+                raise AssertionError(f"B={n_rows} level {level}: more than one launch")
+            want_c, want_n = hist16.hist16_level_peak_plain(*args)
+            torch.cuda.synchronize()
+            err = max(err, float(torch.max(torch.abs(got_c - want_c))),
+                      float(torch.max(torch.abs(got_n - want_n))))
+            if not (torch.equal(got_c, want_c) and torch.equal(got_n, want_n)):
+                bad = [r for r in range(n_rows) if not (torch.equal(got_c[r], want_c[r])
+                                                        and torch.equal(got_n[r], want_n[r]))]
+                raise AssertionError(f"B={n_rows} level {level}: rows {bad} differ: kernel "
+                                     f"{got_c[bad].tolist()} {got_n[bad].tolist()} vs plain "
+                                     f"{want_c[bad].tolist()} {want_n[bad].tolist()}")
+            lo, cell = args[6], args[7]
+            ids = torch.round((got_c - lo) / cell)
+            if float(got_n[0]) != 0.0 or not all(torch.equal(ids[r], tie_cells[0])
+                                                 for r in range(1, n_rows, 2)):
+                raise AssertionError(f"B={n_rows} level {level}: empty row count {float(got_n[0])}, "
+                                     f"tie rows' peaks {ids[1::2].tolist()}")
+        # the fine level, timed: one launch of B rows, B launches of one row, the plain version
+        single = [[a if a is None or a is args[5] else a[r] for a in args] for r in range(n_rows)]
+        ms, dev_ms = timed(lambda: hist16.hist16_level_peak(*args))
+        each_ms, each_dev_ms = timed(lambda: [hist16.hist16_level_peak(*a) for a in single], iters=5)
+        plain_ms = time_ms(lambda: hist16.hist16_level_peak_plain(*args), iters=2, repeats=1)
+        bound_ms, bound_by = level_bound(50000, 8, True, n_rows)
+        above_bound(f"hist16_level_peak B={n_rows}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K2 hist16_level_peak, rows] B={n_rows}: 4 levels (6,250 x 16 circle, 6,250 x 16 arc, "
+            f"50,000 x 8 arc twice), one launch each, every row exact (the empty row 0, the tie rows "
+            f"at (2, 12, 7)); fine level back to back / on the device alone, ms: one launch "
+            f"{ms:.4f} / {dev_ms:.4f}  {n_rows} single-row launches {each_ms:.4f} / {each_dev_ms:.4f}"
+            f"  plain {plain_ms:.4f}  bound {bound_ms:.5f} ms ({bound_by}; B x the single row's "
+            f"{level_bound(50000, 8, True)[0]:.5f})")
+        out.append(dict(b=n_rows, err=err, ms=ms, device_ms=dev_ms, singles_ms=each_ms,
+                        singles_device_ms=each_dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                        bound_by=bound_by))
+    return out
 
 
 @contextlib.contextmanager
@@ -759,17 +908,21 @@ def check_sphere(dev, votes, sph, tol):
 FRAME_CATS = ["bottle", "bowl", "can", "mug"]
 
 
-def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0.0, color=False):
-    """One REAL275-format frame: four sphere caps of four categories at
-    0.8-0.9 m (moved sideways by `shift` metres), their masks as detections, a
-    depth PNG in millimetres and, with `color`, a random 8-bit colour PNG."""
+def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0.0, color=False,
+                        cats=None, centers=None, radii=None):
+    """One REAL275-format frame: sphere caps (by default four, of four
+    categories, at 0.8-0.9 m) moved sideways by `shift` metres, their masks
+    as detections, a depth PNG in millimetres and, with `color`, a random
+    8-bit colour PNG."""
     from cppf2_torch.config import SYNSET_NAMES
     from cppf2_torch.eval.png import write_png16, write_png_rgb8
 
-    cats = FRAME_CATS
-    centers = [(-0.13 + shift, -0.08, 0.82), (0.12 + shift, -0.07, 0.88),
-               (-0.11 + shift, 0.09, 0.85), (0.13 + shift, 0.08, 0.8)]
-    radii = [0.045, 0.07, 0.05, 0.06]
+    cats = cats or FRAME_CATS
+    centers = centers or [(-0.13, -0.08, 0.82), (0.12, -0.07, 0.88), (-0.11, 0.09, 0.85),
+                          (0.13, 0.08, 0.8)]
+    centers = [(x + shift, y, z) for x, y, z in centers]
+    radii = radii or [0.045, 0.07, 0.05, 0.06]
+    n = len(cats)
     rng = np.random.default_rng(seed)
     fx, fy = REAL275_K[0, 0], REAL275_K[1, 1]
     ys, xs = np.mgrid[0:h, 0:w]
@@ -795,9 +948,9 @@ def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0
     ids = np.array([SYNSET_NAMES.index(c) for c in cats])
     res = {"image_path": f"data/real/test/{name}", "gt_class_ids": ids,
            "gt_RTs": np.stack(rts), "gt_scales": np.stack(scales),
-           "gt_handle_visibility": np.ones(4, np.int64), "pred_class_ids": ids,
-           "pred_masks": np.stack(masks, -1), "pred_bboxes": np.zeros((4, 4), np.int64),
-           "pred_scores": np.ones(4)}
+           "gt_handle_visibility": np.ones(n, np.int64), "pred_class_ids": ids,
+           "pred_masks": np.stack(masks, -1), "pred_bboxes": np.zeros((n, 4), np.int64),
+           "pred_scores": np.ones(n)}
     with open(os.path.join(root, "detections", f"results_{name}.pkl"), "wb") as f:
         pickle.dump(res, f)
     return os.path.join(root, "detections"), os.path.join(root, "images")
@@ -1049,11 +1202,12 @@ def run_frame_driver(dev, pipe, vit_cfg, tmp, hw=(480, 640), n_frames=2, stride=
     zero_counts()
     _, first, _ = evaluate("frames0")
     launches = read_counts()
-    want = {"mha": vit_cfg.depth * n_frames, "hist16_peak": 2 * pipe.vote_levels * n_inst,
+    n_groups = sum(len(_groups(f[2])) for f in frames)
+    want = {"mha": vit_cfg.depth * n_frames, "hist16_peak": pipe.vote_levels * n_groups,
             "sphere_accumulate": 0}
     say(f"[frames] evaluate_real275 on {n_frames} frames x {len(FRAME_CATS)} instances: launches "
         f"{launches} (one ViT forward a frame: {vit_cfg.depth} K1 launches; "
-        f"{2 * pipe.vote_levels} K2 launches an instance)")
+        f"{pipe.vote_levels} K2 launches a (category, crop tier) group, {n_groups} groups)")
     if launches != want:
         raise AssertionError(f"launch counts {launches}: expected {want}")
     for name, res in zip(names, first):
@@ -1381,7 +1535,7 @@ def run_trainer(dev, pipe, vit_cfg, tmp, backend="nccl", n_frames=64, n_points=2
                                            device=dev, **kw)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            posed, want = read_counts(), {"mha": v.cfg.depth, "hist16_peak": 2 * pipe.vote_levels,
+            posed, want = read_counts(), {"mha": v.cfg.depth, "hist16_peak": pipe.vote_levels,
                                           "sphere_accumulate": 0}
             if posed != want:
                 raise AssertionError(f"{label}: launch counts {posed}, expected {want}")
@@ -1680,7 +1834,7 @@ def run_render_trainer(dev, pipe, tmp, backend="nccl", hw=(480, 640), samples=25
                                            device=dev, **kw)
             if dev.type == "cuda":
                 torch.cuda.synchronize()
-            posed, want = read_counts(), {"mha": v.cfg.depth, "hist16_peak": 2 * pipe.vote_levels,
+            posed, want = read_counts(), {"mha": v.cfg.depth, "hist16_peak": pipe.vote_levels,
                                           "sphere_accumulate": 0}
             if posed != want:
                 raise AssertionError(f"{label}: launch counts {posed}, expected {want}")
@@ -1914,8 +2068,9 @@ def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
     calls, _, run_s = run(out_k)
     launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
                 "hist16_level_peak": hist16.hist16_level_peak.launches}
-    want_launches = {"mha": vit_cfg.depth * n_frames, "hist16_peak": 2 * pipe.vote_levels * n_frames,
-                     "hist16_level_peak": 2 * pipe.vote_levels * n_frames}
+    # both branches of a frame's one instance are the two rows of each level's launch
+    want_launches = {"mha": vit_cfg.depth * n_frames, "hist16_peak": pipe.vote_levels * n_frames,
+                     "hist16_level_peak": pipe.vote_levels * n_frames}
     t_tokens = (256 // 4) ** 2 + 1
     if launches != want_launches or set(calls["k1_shapes"]) != {(vit_cfg.num_heads, t_tokens, 64)}:
         raise AssertionError(f"demo: launches {launches} at K1 shapes {set(calls['k1_shapes'])}, expected "
@@ -2142,7 +2297,7 @@ def check_int8_instance(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     est = once(vits["int8"])
     launches = {k: v - counts0[k] for k, v in read_counts().items()}
     launches["qdense"] = QDense.launches
-    if launches != {"mha": vit_cfg.depth, "hist16_peak": 2 * pipe.vote_levels, "sphere_accumulate": 0,
+    if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels, "sphere_accumulate": 0,
                     "qdense": 4 * vit_cfg.depth}:
         raise AssertionError(f"int8 instance launches {launches}")
     saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
@@ -2409,6 +2564,207 @@ def run_int8_variants(dev, pipe, records, vit_cfg=None, frame_hw=(480, 640)):
     return int8_launches, numbers
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: a frame group's instances in one batched pose graph
+# ---------------------------------------------------------------------------
+
+BATCH_LAYOUTS = [["mug"] * 8, ["mug"] * 4 + ["bowl"] * 2 + ["can"] * 2]
+BATCH_CENTERS = [(x, y, 0.85) for y in (-0.09, 0.09) for x in (-0.21, -0.07, 0.07, 0.21)]
+
+
+@contextlib.contextmanager
+def counted_align():
+    """Count the calls of the pose graph's `align_pose` and the rows each took."""
+    from cppf2_torch.infer import pipeline
+
+    rows, align = [], pipeline.align_pose
+
+    def counting(points, *args, **kwargs):
+        rows.append(points.shape[0])
+        return align(points, *args, **kwargs)
+
+    pipeline.align_pose = counting
+    try:
+        yield rows
+    finally:
+        pipeline.align_pose = align
+
+
+def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_size=256,
+                       backend="nccl"):
+    """Phase 11: two REAL275-format frames of eight instances (eight mugs: one
+    group of 16 rows; four mugs, two bowls, two cans: groups of 8, 4 and 4
+    rows) through `dispatch_frame`, whose groups each make one batched pose
+    call, and through groups of one (`dispatch_instance` for each detection,
+    the same draws). The same picks, R within 1 degree, T within 3 mm; K2
+    launches and `align_pose` calls per frame on each route, ms per frame
+    on each route and the busy share of the batched one. Then
+    `evaluate_real275_parallel` at world 1 on the two frames, whose rank
+    block of four instances is one pose group (geometry branch: 4 rows),
+    against `dispatch_instance` of each instance on the same draws. Returns
+    a dict of the phase's numbers."""
+    import torch
+    import torch.distributed as dist
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cppf2_torch.eval import driver, parallel_eval
+    from cppf2_torch.models.dinov2 import DinoViT
+
+    root = os.path.join(tmp, "batched")
+    names = [f"scene_2_{i:04d}" for i in range(len(BATCH_LAYOUTS))]
+    for i, (name, cats) in enumerate(zip(names, BATCH_LAYOUTS)):
+        det_dir, img_dir = write_real275_frame(root, *hw, name=name, seed=40 + i, shift=0.01 * i,
+                                               color=True, cats=cats, centers=BATCH_CENTERS,
+                                               radii=[0.04] * len(cats))
+    ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
+    cat_names = sorted({c for cats in BATCH_LAYOUTS for c in cats})
+    models = driver.load_category_models(ckpts, cat_names, torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    with torch.device(dev):
+        vit = DinoViT(vit_cfg).eval()
+    vit.init_random(gen).cast_for_inference()
+    kw = dict(vit=vit, device=dev, stride=stride, out_size=out_size)
+
+    out = dict(frames=[])
+    worst = dict(r=0.0, t=0.0)
+    for name, cats in zip(names, BATCH_LAYOUTS):
+        with open(os.path.join(det_dir, f"results_{name}.pkl"), "rb") as f:
+            res = pickle.load(f)
+        rgb = driver.read_png_rgb8(os.path.join(img_dir, f"{name}_color.png"))
+        depth = driver.read_png16(os.path.join(img_dir, f"{name}_depth.png")).astype(np.float32) / 1000
+        dets = [(c, res["pred_masks"][:, :, i].astype(bool)) for i, c in enumerate(cats)]
+        draws = [driver.draw_instance(depth.shape, m, c, pipe, dev, gen) for c, m in dets]
+        groups = _groups(dets)
+        if None in {tier for _, tier in groups}:
+            raise AssertionError(f"{name}: a mask fits no crop tier")
+        rows = sorted((2 * len(v) for v in groups.values()), reverse=True)
+
+        def batched():
+            got = driver.fetch_frames(driver.dispatch_frame(rgb, depth, dets, REAL275_K, models, pipe,
+                                                            draws=draws, **kw), return_picks=True)
+            torch.cuda.synchronize()
+            return got
+
+        def singles():
+            got = driver.fetch_instances(
+                [driver.dispatch_instance(rgb, depth, m, REAL275_K, models[c], c, pipe, draws=d, **kw)
+                 for (c, m), d in zip(dets, draws)], return_picks=True)
+            torch.cuda.synchronize()
+            return got
+
+        batched()   # warm-up of both routes: they run the same kernels
+        routes = {}
+        for label, fn in (("batched", batched), ("groups of one", singles)):
+            zero_counts()
+            with counted_align() as aligned:
+                t0 = time.perf_counter()
+                got = fn()
+                ms = (time.perf_counter() - t0) * 1e3
+            routes[label] = dict(got=got, ms=ms, launches=read_counts(), align=list(aligned))
+        b, one = routes["batched"], routes["groups of one"]
+        want_b = {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels * len(groups),
+                  "sphere_accumulate": 0}
+        want_1 = {"mha": vit_cfg.depth * len(dets), "hist16_peak": pipe.vote_levels * len(dets),
+                  "sphere_accumulate": 0}
+        if b["launches"] != want_b or sorted(b["align"], reverse=True) != rows:
+            raise AssertionError(f"{name} batched: launches {b['launches']} (expected {want_b}), "
+                                 f"align_pose rows {b['align']} (expected {rows})")
+        if one["launches"] != want_1 or one["align"] != [2] * len(dets):
+            raise AssertionError(f"{name} groups of one: launches {one['launches']} (expected "
+                                 f"{want_1}), align_pose rows {one['align']}")
+        (res_b, picks_b), (res_1, picks_1) = b["got"], one["got"]
+        for i in range(len(dets)):
+            if res_b[i] is None or res_1[i] is None:
+                raise AssertionError(f"{name} instance {i} came back as None")
+            ang = rt_angle_deg(res_b[i][0], res_1[i][0])
+            dt = float(np.max(np.abs(res_b[i][0][:3, 3] - res_1[i][0][:3, 3])))
+            worst["r"], worst["t"] = max(worst["r"], ang), max(worst["t"], dt)
+            if ang > 1.0 or dt > 3e-3 or picks_b[i] != picks_1[i]:
+                raise AssertionError(f"{name} instance {i}: batched vs groups of one R {ang:.3f} deg, "
+                                     f"T {dt * 1e3:.3f} mm, picks {picks_b[i]} vs {picks_1[i]}")
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            batched()
+        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA) / 1e3
+        say(f"[batched frames] {name}: {len(dets)} instances in groups of {rows} rows; batched route "
+            f"{b['ms']:.1f} ms per frame, K2 launches {b['launches']['hist16_peak']}, align_pose "
+            f"calls {len(b['align'])} (rows {b['align']}); groups of one {one['ms']:.1f} ms, K2 "
+            f"launches {one['launches']['hist16_peak']}, align_pose calls {len(one['align'])}; same "
+            f"picks {[picks_b[i] for i in range(len(dets))]}; device busy {busy_ms:.1f} ms of "
+            f"{b['ms']:.1f} ({100 * busy_ms / b['ms']:.1f}%, the batched route profiled)")
+        out["frames"].append(dict(name=name, instances=len(dets), rows=rows, ms=b["ms"],
+                                  singles_ms=one["ms"], k2=b["launches"]["hist16_peak"],
+                                  singles_k2=one["launches"]["hist16_peak"], align=len(b["align"]),
+                                  singles_align=len(one["align"]), busy_ms=busy_ms,
+                                  draws=draws, dets=dets, depth=depth))
+    say(f"[batched frames] batched vs groups of one on the same draws: R {worst['r']:.4f} deg, T "
+        f"{worst['t'] * 1e3:.4f} mm, the same picks")
+    out.update(r_deg=worst["r"], t_mm=worst["t"] * 1e3)
+
+    # evaluate_real275_parallel on the two frames: a rank block of four instances is one group
+    serial = [d for f in out["frames"] for d in f["draws"]]
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store11"), 1),
+                            rank=0, world_size=1)
+    try:
+        zero_counts()
+        with counted_align() as aligned:
+            t0 = time.perf_counter()
+            parallel_eval.evaluate_real275_parallel(det_dir, img_dir, os.path.join(tmp, "eval11"),
+                                                    ckpt_root=ckpts, pipe=pipe, draws=serial,
+                                                    device=dev.type)
+            eval_ms = (time.perf_counter() - t0) * 1e3
+        eval_launches = read_counts()
+    finally:
+        dist.destroy_process_group()
+    # the parallel driver groups by (category, crop tier) over all frames, in blocks of 4 at world 1
+    per_group = {}
+    for f in out["frames"]:
+        for key, members in _groups(f["dets"]).items():
+            per_group[key] = per_group.get(key, 0) + len(members)
+    blocks = sum(-(-n // 4) for n in per_group.values())
+    if eval_launches["hist16_peak"] != pipe.vote_levels * blocks or len(aligned) != blocks \
+            or max(aligned) != 4:
+        raise AssertionError(f"evaluate_real275_parallel: K2 launches {eval_launches}, align_pose rows "
+                             f"{aligned}, expected {blocks} blocks of at most 4 rows")
+    worst_eval = dict(r=0.0, t=0.0)
+    for f in out["frames"]:
+        with open(os.path.join(tmp, "eval11", f"results_{f['name']}.pkl"), "rb") as fh:
+            res = pickle.load(fh)
+        one = driver.fetch_instances(
+            [driver.dispatch_instance(None, f["depth"], m, REAL275_K, models[c], c, pipe, draws=d,
+                                      device=dev, use_visual=False)
+             for (c, m), d in zip(f["dets"], f["draws"])])
+        for i, o in enumerate(one):
+            ang = rt_angle_deg(res["pred_RTs"][i], o[0])
+            dt = float(np.max(np.abs(res["pred_RTs"][i][:3, 3] - o[0][:3, 3])))
+            worst_eval["r"], worst_eval["t"] = max(worst_eval["r"], ang), max(worst_eval["t"], dt)
+            if ang > 1.0 or dt > 3e-3:
+                raise AssertionError(f"evaluate_real275_parallel {f['name']} instance {i}: R {ang:.3f} "
+                                     f"deg, T {dt * 1e3:.3f} mm from the instance alone")
+    n_inst = sum(f["instances"] for f in out["frames"])
+    say(f"[batched frames] evaluate_real275_parallel (world 1) on the two frames: {eval_ms:.1f} ms for "
+        f"{n_inst} instances ({eval_ms / n_inst:.1f} ms per instance, model loading and scoring "
+        f"included), K2 launches {eval_launches['hist16_peak']}, align_pose rows {aligned}; against "
+        f"each instance alone (geometry branch, same draws) R {worst_eval['r']:.4f} deg, T "
+        f"{worst_eval['t'] * 1e3:.4f} mm")
+    for f in out["frames"]:
+        for k in ("draws", "dets", "depth"):
+            del f[k]
+    out.update(eval_ms_per_instance=eval_ms / n_inst, eval_k2=eval_launches["hist16_peak"],
+               eval_align=list(aligned))
+    return out
+
+
+def _groups(dets):
+    from cppf2_torch.infer.frontend import auto_crop
+
+    groups = {}
+    for i, (c, m) in enumerate(dets):
+        groups.setdefault((c, auto_crop(m)), []).append(i)
+    return groups
+
+
 def main() -> int:
     import torch
 
@@ -2439,6 +2795,9 @@ def main() -> int:
     if (pipe.n_points, pipe.num_pairs, pipe.angle_tol_deg, pipe.opt_steps) != (8192, 50000, 1.0, 100):
         raise AssertionError(f"not the production configuration: {pipe}")
     launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
+    t_phase = time.perf_counter()
+    k2_rows = check_hist16_batched(dev)
+    say(f"[K2 rows] the check took {time.perf_counter() - t_phase:.1f} s")
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -2456,12 +2815,16 @@ def main() -> int:
         t_phase = time.perf_counter()
         int8_launches, int8 = run_int8_variants(dev, pipe, os.path.join(tmp, "shot.rec"))
         say(f"[int8] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        batched = run_batched_frames(dev, pipe, VIT_L14, tmp)
+        say(f"[batched frames] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
     k1_main = k1[0]      # (16, 1025, 64): the ViT-L stride-8 shape
     k2_cand = k2[1]      # the candidate-array entry at 400k votes, which no path launches now
-    k2_level = k2_levels[-1]   # the last (fine) level of the slice's first branch
+    k2_level = k2_levels[-1]   # the last (fine) level of the slice: both branches, two rows
+    k2_b16 = k2_rows[-1]       # the fine level at 16 rows: a group of eight instances
     k3_main = k3[0]      # (1, 900k, 720): one instance's sampled rotation votes
     k1_frame = k1_batched[0]   # (4, 16, 1025, 64): the four crops of one written frame
     k1_4097 = k1[2]      # (16, 4097, 64): the ViT-L stride-4 shape of DinoFeatureExtractor
@@ -2486,18 +2849,33 @@ def main() -> int:
                           ms=k1_4097["ms"], device_ms=k1_4097["device_ms"], plain_ms=k1_4097["plain_ms"],
                           bound_ms=k1_4097["bound_ms"], bound_by="operations",
                           library_ms=k1_4097["library_ms"])),
-        # One row for K2. The main path launches it 8 times, all through the
-        # fused entry hist16_level_peak, so the row's times and bound are those
-        # of a fine level of the slice; no single PyTorch call makes a level's
-        # candidates and histograms them. The candidate-array entry hist16_peak
-        # is the same kernel behind another reader; its numbers at 400k votes,
-        # with torch.bincount as the library call, stand beside it.
+        # One row for K2. The main path launches it 4 times, all through the
+        # fused entry hist16_level_peak with both branches as two rows, so the
+        # row's times and bound are those of a fine level of the slice at
+        # B = 2; no single PyTorch call makes a level's candidates and
+        # histograms them. The candidate-array entry hist16_peak is the same
+        # kernel behind another reader; its numbers at 400k votes, with
+        # torch.bincount as the library call, stand beside it. `batched` is the
+        # fine level at 16 rows (a frame group of eight instances, phase 11's
+        # first frame), its launches those of phase 11's batched frame route;
+        # `by_rows` holds B = 2, 8 and 16.
         dict(name="hist16_peak", route="cuda", source=hist16.SOURCE, replaces=hist16.REPLACES,
              entry="hist16_level_peak", launches=launches["hist16_peak"], demo_launches=demo_k2,
              int8_launches=int8_launches["hist16_peak"],
-             max_abs_err=max(r["err"] for r in k2 + k2_levels),
+             max_abs_err=max(r["err"] for r in k2 + k2_levels + k2_rows),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
+             rows=k2_level["rows"],
+             batched=dict(shape=[k2_b16["b"], 50000, 8],
+                          launches=sum(f["k2"] for f in batched["frames"]),
+                          max_abs_err=max(r["err"] for r in k2_rows), ms=k2_b16["ms"],
+                          device_ms=k2_b16["device_ms"], plain_ms=k2_b16["plain_ms"],
+                          bound_ms=k2_b16["bound_ms"], bound_by=k2_b16["bound_by"], library_ms=None,
+                          singles_ms=k2_b16["singles_ms"],
+                          singles_device_ms=k2_b16["singles_device_ms"],
+                          by_rows=[{k: r[k] for k in ("b", "ms", "device_ms", "singles_ms",
+                                                      "singles_device_ms", "plain_ms", "bound_ms")}
+                                   for r in k2_rows]),
              candidate_array_entry=dict(ms=k2_cand["ms"], device_ms=k2_cand["device_ms"],
                                         plain_ms=k2_cand["plain_ms"], bound_ms=k2_cand["bound_ms"],
                                         bound_by="bytes", library_ms=k2_cand["library_ms"])),
@@ -2530,6 +2908,13 @@ def main() -> int:
         f"chunked {iv['chunked']['ms']:.1f} vs hbm {iv['chunked']['hbm_ms']:.1f} ms; cshot "
         f"{iv['cshot']['ms']:.2f} ms; exact kNN equal lists {100 * iv['exact_knn']['same_list']:.2f}%; "
         f"int8 launches {int8_launches}")
+    for f in batched["frames"]:
+        say(f"[batched frames] {f['name']}: ms_per_frame batched {f['ms']:.1f} / groups of one "
+            f"{f['singles_ms']:.1f}; K2 launches {f['k2']} / {f['singles_k2']}; align_pose calls "
+            f"{f['align']} / {f['singles_align']}; busy {100 * f['busy_ms'] / f['ms']:.1f}%")
+    say(f"[batched frames] evaluate_real275_parallel ms_per_instance "
+        f"{batched['eval_ms_per_instance']:.1f} (blocks of {batched['eval_align']} rows, K2 launches "
+        f"{batched['eval_k2']})")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

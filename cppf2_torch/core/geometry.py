@@ -77,16 +77,17 @@ def fibonacci_sphere(samples: int) -> np.ndarray:
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
-    """Rotation matrix from an (x, y, z, w) quaternion, normalized inside.
+    """Rotation matrix (..., 3, 3) from (x, y, z, w) quaternions (..., 4),
+    each normalized inside.
 
     Differentiable: the alignment optimizer takes its gradient."""
-    q = q / (torch.sqrt(torch.sum(q * q)) + 1e-12)
-    x, y, z, w = q[0], q[1], q[2], q[3]
+    q = q / (torch.sqrt(torch.sum(q * q, dim=-1, keepdim=True)) + 1e-12)
+    x, y, z, w = q.unbind(-1)
     return torch.stack([
-        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)]),
-        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)]),
-        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)]),
-    ])
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], dim=-1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], dim=-1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], dim=-1),
+    ], dim=-2)
 
 
 def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:

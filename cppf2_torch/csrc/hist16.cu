@@ -10,7 +10,9 @@
 //
 // Two entry points share the counting and the peak:
 //   cppf2_hist16_peak        votes read from a (V, 3) candidate array;
-//   cppf2_hist16_level_peak  one level of the center vote: every (pair, sample)
+//   cppf2_hist16_level_peak  one level of the center vote for B rows at once
+//       (a row is one instance's branch; the JAX package reaches this by
+//       jax.vmap over branches and instances): every (pair, sample)
 //       candidate c + (cos t * x0 + sin t * y0) * odist is made in registers
 //       from the per-pair quantities and the level's sample table, quantized
 //       and counted; no candidate is ever written to device memory. Each
@@ -39,6 +41,13 @@
 // are not what a call waits for. The fixed parts are the launch, the merge of
 // up to 4096 bins per block, and the last block's pass over the counts. The
 // aggregated adds stayed because they leave room for more blocks per SM.
+//
+// Rows. blockIdx.y is the row and blockIdx.x strides that row's votes; each
+// row has its own window, its own 4096 counts and ticket in the scratch and
+// its own (4,) result, so a row's peak is exactly the one a launch of that
+// row alone gives. The blocks per row follow the single-row formula, capped
+// so that all rows together stay near kMaxBlocks: 16 rows at the fine level
+// launch 16 x 16 blocks instead of 16 x 196.
 //
 // Bound on the H100 at the fine-level size (V = 400k): the candidate array is
 // 13 bytes a vote (3 f32 + 1 bool), 5.2 MB, about 1.6 us at 3.35 TB/s; the
@@ -74,20 +83,21 @@ __device__ __forceinline__ int cell_of(float x, float y, float z, const Window& 
   return -1;
 }
 
-// Votes read from memory.
+// Votes read from memory (one row).
 struct CandVotes {
   const float* cand;
   const uint8_t* ok;
-  __device__ __forceinline__ int operator()(int i, const Window& w) const {
+  __device__ __forceinline__ int operator()(int /*row*/, int i, const Window& w) const {
     if (!ok[i]) return -1;
     return cell_of(cand[3 * i], cand[3 * i + 1], cand[3 * i + 2], w);
   }
 };
 
-// Votes made on the fly: vote i is sample i % n_smp of pair i / n_smp. With
-// theta_star == nullptr the table holds cos (first n_smp) and sin (next n_smp)
-// of angles shared by all pairs; otherwise it holds the arc positions ts, and
-// the angle is theta_star + ts * span of the pair.
+// Votes made on the fly: vote i of a row is sample i % n_smp of that row's
+// pair i / n_smp; the per-pair arrays hold n_pairs pairs a row, row after row.
+// With theta_star == nullptr the table holds cos (first n_smp) and sin (next
+// n_smp) of angles shared by all pairs and rows; otherwise it holds the arc
+// positions ts, and the angle is theta_star + ts * span of the pair.
 struct LevelVotes {
   const float* c;
   const float* x0;
@@ -97,10 +107,12 @@ struct LevelVotes {
   const float* table;
   const float* theta_star;
   const float* span;
+  int n_pairs;
   int n_smp;
-  __device__ __forceinline__ int operator()(int i, const Window& w) const {
-    const int pair = i / n_smp;
-    const int smp = i - pair * n_smp;
+  __device__ __forceinline__ int operator()(int row, int i, const Window& w) const {
+    const int local = i / n_smp;
+    const int smp = i - local * n_smp;
+    const size_t pair = static_cast<size_t>(row) * n_pairs + local;
     if (!ok[pair]) return -1;
     float cs, sn;
     if (theta_star == nullptr) {
@@ -122,8 +134,8 @@ struct LevelVotes {
   }
 };
 
-// scratch: 4096 counts and a ticket, all zero on entry and on exit.
-// out: center x, y, z and the peak count.
+// Per row (blockIdx.y): n votes; lo, cell (3,); scratch 4096 counts and a
+// ticket, all zero on entry and on exit; out: center x, y, z and the peak count.
 template <typename Votes>
 __global__ void __launch_bounds__(kThreads)
 hist16_kernel(Votes votes, int n, const float* __restrict__ lo, const float* __restrict__ cell,
@@ -131,6 +143,11 @@ hist16_kernel(Votes votes, int n, const float* __restrict__ lo, const float* __r
   __shared__ int sh[kBins];
   __shared__ unsigned long long warp_best[kWarps];
   __shared__ int is_last;
+  const int row = blockIdx.y;
+  lo += 3 * row;
+  cell += 3 * row;
+  scratch += static_cast<size_t>(row) * (kBins + 1);
+  out += 4 * row;
   for (int i = threadIdx.x; i < kBins; i += kThreads) sh[i] = 0;
   __syncthreads();
 
@@ -139,7 +156,7 @@ hist16_kernel(Votes votes, int n, const float* __restrict__ lo, const float* __r
   // the bound is the same for a whole block: every lane reaches the match
   for (int i0 = blockIdx.x * kThreads; i0 < n; i0 += gridDim.x * kThreads) {
     const int i = i0 + threadIdx.x;
-    const int bin = i < n ? votes(i, w) : -1;
+    const int bin = i < n ? votes(row, i, w) : -1;
     const unsigned peers = __match_any_sync(0xffffffffu, bin);
     if (bin >= 0 && lane == __ffs(peers) - 1) atomicAdd(&sh[bin], __popc(peers));
   }
@@ -185,11 +202,13 @@ hist16_kernel(Votes votes, int n, const float* __restrict__ lo, const float* __r
 }
 
 template <typename Votes>
-int launch(const Votes& votes, int n, const void* lo, const void* cell, void* scratch, void* out,
-           void* stream) {
+int launch(const Votes& votes, int n, int rows, const void* lo, const void* cell, void* scratch,
+           void* out, void* stream) {
+  const int cap = rows < kMaxBlocks ? kMaxBlocks / rows : 1;
   int blocks = (n + 4 * kThreads - 1) / (4 * kThreads);
-  blocks = blocks < 1 ? 1 : (blocks > kMaxBlocks ? kMaxBlocks : blocks);
-  hist16_kernel<Votes><<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  blocks = blocks < 1 ? 1 : (blocks > cap ? cap : blocks);
+  const dim3 grid(blocks, rows);
+  hist16_kernel<Votes><<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       votes, n, static_cast<const float*>(lo), static_cast<const float*>(cell),
       static_cast<int*>(scratch), static_cast<float*>(out));
   return static_cast<int>(cudaGetLastError());
@@ -203,21 +222,24 @@ int launch(const Votes& votes, int n, const void* lo, const void* cell, void* sc
 extern "C" int cppf2_hist16_peak(const void* cand, const void* ok, int n, const void* lo,
                                  const void* cell, void* scratch, void* out, void* stream) {
   const CandVotes votes = {static_cast<const float*>(cand), static_cast<const uint8_t*>(ok)};
-  return launch(votes, n, lo, cell, scratch, out, stream);
+  return launch(votes, n, 1, lo, cell, scratch, out, stream);
 }
 
-// c, x0, y0 (n_pairs, 3) f32, odist (n_pairs,) f32, ok (n_pairs,) uint8; table
-// (2 * n_smp,) f32 cos then sin when theta_star is null, else (n_smp,) arc
-// positions with theta_star and span (n_pairs,) f32. The rest as above.
+// For `rows` rows: c, x0, y0 (rows, n_pairs, 3) f32, odist (rows, n_pairs)
+// f32, ok (rows, n_pairs) uint8; table (2 * n_smp,) f32 cos then sin when
+// theta_star is null, else (n_smp,) arc positions with theta_star and span
+// (rows, n_pairs) f32; lo, cell (rows, 3) f32; scratch (rows, 4097) int32,
+// zero on entry and left zero; writes out (rows, 4). Returns
+// cudaGetLastError() after the launch.
 extern "C" int cppf2_hist16_level_peak(const void* c, const void* x0, const void* y0,
                                        const void* odist, const void* ok, const void* table,
-                                       const void* theta_star, const void* span, int n_pairs,
-                                       int n_smp, const void* lo, const void* cell, void* scratch,
-                                       void* out, void* stream) {
+                                       const void* theta_star, const void* span, int rows,
+                                       int n_pairs, int n_smp, const void* lo, const void* cell,
+                                       void* scratch, void* out, void* stream) {
   const LevelVotes votes = {static_cast<const float*>(c),     static_cast<const float*>(x0),
                             static_cast<const float*>(y0),    static_cast<const float*>(odist),
                             static_cast<const uint8_t*>(ok),  static_cast<const float*>(table),
                             static_cast<const float*>(theta_star),
-                            static_cast<const float*>(span),  n_smp};
-  return launch(votes, n_pairs * n_smp, lo, cell, scratch, out, stream);
+                            static_cast<const float*>(span),  n_pairs, n_smp};
+  return launch(votes, n_pairs * n_smp, rows, lo, cell, scratch, out, stream);
 }

@@ -11,9 +11,10 @@ levels, each built on the one before:
     convention. `estimate_instance` is the same graph returning the raw
     `PoseEstimate` on the device.
   * one frame: `dispatch_frame` groups the detections by (category, crop
-    tier), runs one batched ViT forward for all of the frame's crops and then
-    the per-instance graphs back to back; `fetch_frames` is the frame's one
-    host copy.
+    tier), runs one batched ViT forward for all of the frame's crops, then
+    each instance's frontend and branch MLPs, and each group's pose graph as
+    one batched call over its (instance, branch) rows; `fetch_frames` is the
+    frame's one host copy.
   * the dataset: `evaluate_real275` walks the detection pkls with frame k + 1
     dispatched before frame k is fetched, writes the result pkls and scores
     them; `main` is its command line (`python -m cppf2_torch.eval.driver`).
@@ -64,7 +65,13 @@ from cppf2_torch.infer.frontend import (
     resize_crop,
     window_shape,
 )
-from cppf2_torch.infer.pipeline import PoseDraws, PoseEstimate, draw_pose, estimate_pose_ensemble
+from cppf2_torch.infer.pipeline import (
+    EnsembleInput,
+    PoseDraws,
+    PoseEstimate,
+    draw_pose,
+    estimate_pose_ensembles,
+)
 from cppf2_torch.models.checkpoints import load_params_msgpack
 from cppf2_torch.models.cppf import DinoBranch, ShotBranch
 from cppf2_torch.models.dinov2 import (
@@ -199,26 +206,51 @@ def _draws_on(d: InstanceDraws, dev) -> InstanceDraws:
     return InstanceDraws(d.voxel_perm.to(dev), d.voxel_prio.to(dev), pose)
 
 
+class GroupItem(NamedTuple):
+    """One instance of a pose group, before its frontend."""
+
+    depth: torch.Tensor             # (H, W) metres
+    mask: torch.Tensor              # (H, W) bool
+    origin: Optional[Tuple[int, int]]  # the crop window's origin, from the host mask
+    desc_fn: Optional[object]       # pixel_yx -> descriptors, or None for zeros
+    draws: InstanceDraws            # on the device
+
+
+def _pose_group(items: Sequence[GroupItem], k_t, crop, models: CategoryModels, cat,
+                pipe: PipelineConfig, run_opt: bool, use_visual: bool, use_geo: bool):
+    """Frontend + ensemble of a group of instances of one category and crop
+    tier on the device, nothing read back: each instance's frontend,
+    descriptors and branch MLPs, then one batched pose graph over the group's
+    (instance, branch) rows. Returns (FrameInputs per instance, PoseEstimate
+    with a leading (instances,) axis)."""
+    fis, inputs = [], []
+    for it in items:
+        d = it.draws
+        fi = preprocess_frame(it.depth, it.mask, k_t, d.voxel_perm, d.voxel_prio, res=cat.res,
+                              n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop,
+                              origin=it.origin)
+        desc = None
+        if use_visual:
+            # no descriptors for an enabled visual branch: zeros, as in the JAX driver
+            desc = (it.desc_fn(fi.pixel_yx) if it.desc_fn is not None else
+                    torch.zeros((pipe.n_points, models.dino.desc_transform.in_features),
+                                device=it.depth.device))
+        fis.append(fi)
+        inputs.append(EnsembleInput(
+            lambda pts, ti, desc=desc: models.dino(pts, desc, ti),
+            lambda pts, ti, fi=fi: models.shot(pts, fi.shot, fi.normal, ti),
+            fi.pc, fi.valid, fi.count, d.pose if isinstance(d.pose, list) else [d.pose]))
+    return fis, estimate_pose_ensembles(inputs, cat, pipe, run_opt, use_visual, use_geo)
+
+
 def _pose_graph(depth_t, mask_t, k_t, origin, crop, desc_fn, models: CategoryModels, cat,
                 pipe: PipelineConfig, draws: InstanceDraws, run_opt: bool, use_visual: bool,
                 use_geo: bool):
-    """Frontend + ensemble of one instance on the device, nothing read back.
-    `desc_fn(pixel_yx)` gives the cloud's descriptors, or is None for zeros.
-    Returns (FrameInputs, PoseEstimate)."""
-    fi = preprocess_frame(depth_t, mask_t, k_t, draws.voxel_perm, draws.voxel_prio, res=cat.res,
-                          n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop, origin=origin)
-    desc = None
-    if use_visual:
-        # no descriptors for an enabled visual branch: zeros, as in the JAX driver
-        desc = (desc_fn(fi.pixel_yx) if desc_fn is not None else
-                torch.zeros((pipe.n_points, models.dino.desc_transform.in_features),
-                            device=depth_t.device))
-    est = estimate_pose_ensemble(
-        lambda pts, ti: models.dino(pts, desc, ti),
-        lambda pts, ti: models.shot(pts, fi.shot, fi.normal, ti),
-        fi.pc, fi.valid, fi.count, cat, pipe, draws=draws.pose, run_opt=run_opt,
-        use_visual=use_visual, use_geo=use_geo)
-    return fi, est
+    """`_pose_group` of one instance: its branches are the rows. Returns
+    (FrameInputs, PoseEstimate)."""
+    fis, est = _pose_group([GroupItem(depth_t, mask_t, origin, desc_fn, draws)], k_t, crop, models,
+                           cat, pipe, run_opt, use_visual, use_geo)
+    return fis[0], PoseEstimate(*(f[0] for f in est))
 
 
 def _kp_to_crop(pixel_yx: torch.Tensor, inv_transform: torch.Tensor) -> torch.Tensor:
@@ -350,6 +382,12 @@ def _pack(fi, est: PoseEstimate) -> torch.Tensor:
     return torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
 
 
+def _pack_group(fis, est: PoseEstimate) -> torch.Tensor:
+    """(instances, 22) rows of `_pack` for a group's FrameInputs and its
+    PoseEstimate with a leading (instances,) axis."""
+    return torch.stack([_pack(fi, PoseEstimate(*(f[i] for f in est))) for i, fi in enumerate(fis)])
+
+
 @torch.no_grad()
 def dispatch_instance(
     rgb: np.ndarray,
@@ -412,7 +450,7 @@ def fetch_instances(pendings: Sequence[PendingInstance], return_picks: bool = Fa
 
 
 # ---------------------------------------------------------------------------
-# The frame path: one batched ViT forward, then the instances back to back
+# The frame path: one batched ViT forward, then one batched pose graph a group
 # ---------------------------------------------------------------------------
 
 class PendingFrameGroup(NamedTuple):
@@ -510,20 +548,20 @@ def dispatch_frame(
         row = 0
         for (name, tier), members in groups.items():
             cat = get_category(name)
-            rows = []
+            items = []
             for idx in members:
                 desc_fn = None
                 if grids is not None:
                     def desc_fn(pixel_yx, row=row):
                         return sample_crop_descriptors(grids[row], pixel_yx, txys[row], out_size,
                                                        impl=impl)
-                fi, est = _pose_graph(depth_t, masks_t[row], k_t,
-                                      crop_origin(dets[idx][1], depth.shape, tier), tier, desc_fn,
-                                      models[name], cat, pipe, _draws_on(draws[idx], dev), run_opt,
-                                      use_visual, use_geo)
-                rows.append(_pack(fi, est))
+                items.append(GroupItem(depth_t, masks_t[row],
+                                       crop_origin(dets[idx][1], depth.shape, tier), desc_fn,
+                                       _draws_on(draws[idx], dev)))
                 row += 1
-            pendings.append(PendingFrameGroup(torch.stack(rows), cat.res, tuple(members)))
+            fis, est = _pose_group(items, k_t, tier, models[name], cat, pipe, run_opt, use_visual,
+                                   use_geo)
+            pendings.append(PendingFrameGroup(_pack_group(fis, est), cat.res, tuple(members)))
     pendings.extend(singles)
     return pendings
 

@@ -2,10 +2,19 @@
 `cppf2_tpu/infer/pipeline.py`, reference eval.py:219-372).
 
 Bin sampling -> pair targets -> center vote (kernel K2) -> noisy-pair filter
--> fused up/right cone votes -> alignment -> branch arbitration. The branch
-axis is a two-iteration loop. The random draws (tuple uniforms and each
-branch's Gumbel noise) are injected through `PoseDraws`; `draw_pose` makes
-them from a torch.Generator. jax.random.categorical(key, logits) equals
+-> fused up/right cone votes -> alignment -> branch arbitration. Everything
+after the branch MLPs runs once over a leading row axis, a row being one
+(instance, branch) pair, instance-major: the JAX package's jax.vmap over the
+branch axis (`cppf2_tpu/infer/pipeline.py:444`) and over a frame group's
+instances (`cppf2_tpu/eval/driver.py::_frame_group_fn`). So a group's votes,
+sorts and alignment loops are one batched computation: four K2 launches and
+one Adam loop for the whole group. `estimate_pose_group` takes a group's
+per-instance MLP outputs; `estimate_pose_ensembles` runs the MLPs and the
+restarts (one after another, as lax.map does) around it;
+`estimate_pose_ensemble` is a group of one. The random draws (tuple uniforms
+and each branch's Gumbel noise) are injected through `PoseDraws`, one set per
+instance, so batching changes no draw; `draw_pose` makes them from a
+torch.Generator. jax.random.categorical(key, logits) equals
 argmax(logits + jax.random.gumbel(key, logits.shape)), so the tests feed the
 port the reference's exact draws.
 """
@@ -23,7 +32,7 @@ from cppf2_torch.core.pairs import pair_targets
 from cppf2_torch.infer.alignment import align_pose, yaw_sweep
 from cppf2_torch.models.cppf import TuplePredictions
 from cppf2_torch.ops.sampling import masked_tuple_choice
-from cppf2_torch.ops.voting import backvote_filter, sphere_vote_cone, vote_center
+from cppf2_torch.ops.voting import backvote_filter, sphere_vote_cone, take_rows, vote_center
 
 _EPS = 1e-7
 
@@ -73,12 +82,14 @@ def draw_branch(cat: CategoryConfig, pipe: PipelineConfig, device,
 
 
 class BranchPose(NamedTuple):
-    rotation: torch.Tensor         # (3, 3)
-    translation: torch.Tensor      # (3,)
-    scale: torch.Tensor            # (3,) this branch's median scale
-    kept_pairs: torch.Tensor       # (K, 2) point indices of kept pairs
-    kept_mask: torch.Tensor        # (K,) bool
-    pred_pairs_kept: torch.Tensor  # (K, 2, 3) unscaled canonical predictions
+    """One branch's pose per row (the leading axis, B rows or (I, branches))."""
+
+    rotation: torch.Tensor         # (B, 3, 3)
+    translation: torch.Tensor      # (B, 3)
+    scale: torch.Tensor            # (B, 3) this branch's median scale
+    kept_pairs: torch.Tensor       # (B, K, 2) point indices of kept pairs
+    kept_mask: torch.Tensor        # (B, K) bool
+    pred_pairs_kept: torch.Tensor  # (B, K, 2, 3) unscaled canonical predictions
 
 
 def _axis(v, device) -> torch.Tensor:
@@ -109,128 +120,147 @@ def _pose_from_preds(
     sphere_pts: torch.Tensor,
     run_opt: bool,
 ) -> BranchPose:
-    """Everything downstream of one branch's tuple MLP."""
+    """Everything downstream of the tuple MLPs, for B rows at once: logits
+    (B, P, 6, bins), scales (B, P, 3), points (B, N, 3), point_valid (B, N),
+    count (B,), tuple_idx (B, P, tuple size) and Gumbel noise (B, P * 6, bins)."""
     dev = points.device
     up, right, front = _axis(cat.up, dev), _axis(cat.right, dev), _axis(cat.front, dev)
     nb = pipe.num_bins
-    p = tuple_idx.shape[0]
+    n_rows, p = tuple_idx.shape[:2]
 
-    samples = torch.argmax(logits.reshape(p * 6, nb) + gumbel, dim=-1)
-    pred_pairs = samples.reshape(p, 2, 3).to(points.dtype) / (nb - 1) - 0.5
+    samples = torch.argmax(logits.reshape(n_rows, p * 6, nb) + gumbel, dim=-1)
+    pred_pairs = samples.reshape(n_rows, p, 2, 3).to(points.dtype) / (nb - 1) - 0.5
 
-    a_obs = points[tuple_idx[:, 0]]
-    b_obs = points[tuple_idx[:, 1]]
+    a_obs = take_rows(points, tuple_idx[..., 0])
+    b_obs = take_rows(points, tuple_idx[..., 1])
     obs_len = norm(a_obs - b_obs)
-    pred_len = norm(pred_pairs[:, 0] - pred_pairs[:, 1])
-    pair_valid = (tuple_idx[:, 0] < count) & (tuple_idx[:, 1] < count) & (pred_len > _EPS)
+    pred_len = norm(pred_pairs[:, :, 0] - pred_pairs[:, :, 1])
+    cnt = count[:, None]
+    pair_valid = (tuple_idx[..., 0] < cnt) & (tuple_idx[..., 1] < cnt) & (pred_len > _EPS)
 
     scale_mode = pipe.scale_mode or cat.scale_mode
     if scale_mode in ("head", "split"):
         nan = torch.full_like(scales, float("nan"))
-        head_bound = torch.nanquantile(torch.where(pair_valid[:, None], scales, nan), 0.5, dim=0)
-        factor = torch.amax(torch.abs(head_bound)).to(points.dtype)
-        pred_pairs_scaled = pred_pairs * factor
+        head_bound = torch.nanquantile(torch.where(pair_valid[..., None], scales, nan), 0.5, dim=1)
+        factor = torch.amax(torch.abs(head_bound), dim=-1).to(points.dtype)   # (B,)
+        pred_pairs_scaled = pred_pairs * factor[:, None, None, None]
         tr_pairs = pred_pairs_scaled
         if scale_mode == "split":
             up_loc = cat.up_axis_index
-            d = pred_pairs[:, 0] - pred_pairs[:, 1]
-            dy2 = torch.square(d[:, up_loc])
+            f = factor[:, None]
+            d = pred_pairs[:, :, 0] - pred_pairs[:, :, 1]
+            dy2 = torch.square(d[..., up_loc])
             dxz2 = torch.clamp(torch.sum(d * d, dim=-1) - dy2, min=0.0)
-            fxz2 = torch.clamp(torch.square(obs_len) - torch.square(factor) * dy2, min=0.0)
+            fxz2 = torch.clamp(torch.square(obs_len) - torch.square(f) * dy2, min=0.0)
             fxz = torch.sqrt(fxz2 / torch.clamp(dxz2, min=_EPS))
-            fxz = torch.minimum(torch.maximum(fxz, 0.25 * factor), 4.0 * factor)
-            fxz = torch.where(dxz2 > 1e-6, fxz, factor)
+            fxz = torch.minimum(torch.maximum(fxz, 0.25 * f), 4.0 * f)
+            fxz = torch.where(dxz2 > 1e-6, fxz, f)
             axis_scale = torch.where(
-                torch.arange(3, device=dev) == up_loc, factor, fxz[:, None]).to(points.dtype)
-            tr_pairs = pred_pairs * axis_scale[:, None, :]
+                torch.arange(3, device=dev) == up_loc, f[..., None], fxz[..., None]).to(points.dtype)
+            tr_pairs = pred_pairs * axis_scale[:, :, None, :]
     else:
         pair_scale = obs_len / torch.clamp(pred_len, min=_EPS)
-        pred_pairs_scaled = pred_pairs * pair_scale[:, None, None]
+        pred_pairs_scaled = pred_pairs * pair_scale[..., None, None]
         tr_pairs = pred_pairs_scaled
 
-    t = pair_targets(pred_pairs_scaled[:, 0], pred_pairs_scaled[:, 1], up, right, front)
+    t = pair_targets(pred_pairs_scaled[:, :, 0], pred_pairs_scaled[:, :, 1], up, right, front)
     if tr_pairs is not pred_pairs_scaled:
-        t = t._replace(tr=pair_targets(tr_pairs[:, 0], tr_pairs[:, 1], up, right, front).tr)
+        t = t._replace(tr=pair_targets(tr_pairs[:, :, 0], tr_pairs[:, :, 1], up, right, front).tr)
 
-    cv = vote_center(points, point_valid, t.tr, tuple_idx[:, :2], pair_valid, cat.res,
+    pair_idx = tuple_idx[..., :2]
+    cv = vote_center(points, point_valid, t.tr, pair_idx, pair_valid, cat.res,
                      levels=pipe.vote_levels, fine_samples=pipe.vote_fine_samples)
     t_est = cv.center
 
-    bv = backvote_filter(points, t.tr, tuple_idx[:, :2], pair_valid, t_est,
+    bv = backvote_filter(points, t.tr, pair_idx, pair_valid, t_est,
                          pipe.num_kept_pairs, pipe.imp_wt_margin)
-    ki = bv.kept_idx
-    kept_pairs = tuple_idx[ki, :2]
-    kept_w = bv.pair_weight[ki]
+    ki = bv.kept_idx                                             # (B, K)
+    kept_pairs = take_rows(pair_idx, ki)
+    kept_w = take_rows(bv.pair_weight, ki)
     inv_w = torch.where(kept_w > 0, 1.0 / torch.clamp(kept_w, min=_EPS), torch.zeros_like(kept_w))
 
-    axis_angles = torch.stack([t.up_angle[ki], t.right_angle[ki]])
+    axis_angles = torch.stack([take_rows(t.up_angle, ki), take_rows(t.right_angle, ki)], dim=1)
     top_dirs, _ = sphere_vote_cone(points, axis_angles, kept_pairs, inv_w, sphere_pts,
                                    pipe.angle_tol_deg)
-    pred_up, pred_right = top_dirs[0], top_dirs[1]
-    pred_right = pred_right - torch.dot(pred_up, pred_right) * pred_up
-    pred_right = pred_right / (norm(pred_right) + 1e-9)
+    pred_up, pred_right = top_dirs[:, 0], top_dirs[:, 1]
+    pred_right = pred_right - torch.sum(pred_up * pred_right, dim=-1, keepdim=True) * pred_up
+    pred_right = pred_right / (norm(pred_right, keepdim=True) + 1e-9)
 
     up_loc, right_loc = cat.up_axis_index, cat.right_axis_index
     other_loc = ({0, 1, 2} - {up_loc, right_loc}).pop()
     cols = [None, None, None]
     cols[up_loc], cols[right_loc] = pred_up, pred_right
     cols[other_loc] = torch.linalg.cross(cols[(other_loc + 1) % 3], cols[(other_loc + 2) % 3], dim=-1)
-    r_est = torch.stack(cols, dim=1)
+    r_est = torch.stack(cols, dim=-1)
 
-    pred_scale = _median0(scales[ki])
+    pred_scale = _median0(take_rows(scales, ki).transpose(0, 1))   # each row over its own pairs
+    scaled_kept = take_rows(pred_pairs_scaled, ki)
+    pred_kept = take_rows(pred_pairs, ki)
 
     if run_opt:
-        ar = align_pose(points, kept_pairs, kept_w, pred_pairs_scaled[ki], r_est, t_est,
+        ar = align_pose(points, kept_pairs, kept_w, scaled_kept, r_est, t_est,
                         cat.up_sym, cat.up_axis_index, pipe.opt_steps, pipe.opt_lr)
         r_est, t_est = ar.rotation, ar.translation
 
     do_sweep = cat.yaw_sweep if pipe.yaw_sweep is None else pipe.yaw_sweep
     if do_sweep and not cat.up_sym:
-        r_est = yaw_sweep(points, kept_pairs, kept_w, pred_pairs_scaled[ki], pred_pairs[ki],
-                          r_est, t_est, cat.up_axis_index)
-    return BranchPose(r_est, t_est, pred_scale, kept_pairs, kept_w > 0, pred_pairs[ki])
+        r_est = yaw_sweep(points, kept_pairs, kept_w, scaled_kept, pred_kept, r_est, t_est,
+                          cat.up_axis_index)
+    return BranchPose(r_est, t_est, pred_scale, kept_pairs, kept_w > 0, pred_kept)
 
 
 def _recon_loss_rt(points, rotation, translation, yard: BranchPose, scale_norm, up_sym: bool,
                    up_axis: int = 1) -> torch.Tensor:
     """Clipped canonical reconstruction loss of (R, T) against one branch's
-    kept pairs and predictions (eval.py:358-363)."""
-    canon = (points - translation) @ rotation / torch.clamp(scale_norm, min=_EPS)
-    diff = torch.abs(canon[yard.kept_pairs] - yard.pred_pairs_kept)
+    kept pairs and predictions (eval.py:358-363), per row: points (B, N, 3),
+    rotation (B, 3, 3), translation (B, 3), scale_norm (B,) -> (B,)."""
+    canon = (torch.bmm(points - translation[:, None, :], rotation)
+             / torch.clamp(scale_norm, min=_EPS)[:, None, None])
+    diff = torch.abs(take_rows(canon, yard.kept_pairs) - yard.pred_pairs_kept)
     if up_sym:
         diff = diff[..., up_axis:up_axis + 1]
     diff = torch.clamp(diff, 0.0, 0.1)
-    wmask = yard.kept_mask.to(points.dtype)[:, None, None]
-    return torch.sum(diff * wmask) / torch.clamp(torch.sum(wmask) * 2 * diff.shape[-1], min=1.0)
+    wmask = yard.kept_mask.to(points.dtype)[..., None, None]
+    dims = (1, 2, 3)
+    return (torch.sum(diff * wmask, dim=dims)
+            / torch.clamp(torch.sum(wmask, dim=dims) * 2 * diff.shape[-1], min=1.0))
 
 
 def _recon_loss(points, pose: BranchPose, scale_norm, up_sym: bool, up_axis: int = 1):
     return _recon_loss_rt(points, pose.rotation, pose.translation, pose, scale_norm, up_sym, up_axis)
 
 
-def _arbitrate(points, poses: List[BranchPose], scale_norm, up_sym: bool, arbiter: str,
+def _branch(poses: BranchPose, j: int) -> BranchPose:
+    return BranchPose(*(f[:, j] for f in poses))
+
+
+def _arbitrate(points, poses: BranchPose, scale_norm, up_sym: bool, arbiter: str,
                margin: float, up_axis: int = 1):
-    """(pick, reported loss) among the branch poses; see the JAX counterpart.
+    """(pick, reported loss), each (I,), among the branch poses stacked on
+    axis 1 of every field of `poses` (I instances, one column per branch);
+    points (I, N, 3), scale_norm (I,). See the JAX counterpart.
 
     "recon": argmin of each branch's own loss, ties to the visual branch;
     "cross": argmin of each pose's mean loss over every branch's yardstick;
     "margin": the visual branch (0) wins only by at least `margin`."""
     if arbiter not in ("recon", "cross", "margin"):
         raise ValueError(f"unknown arbiter {arbiter!r} (expected 'recon', 'cross' or 'margin')")
-    own = torch.stack([_recon_loss(points, p, scale_norm, up_sym, up_axis) for p in poses])
-    if arbiter == "cross" and len(poses) > 1:
+    n_br = poses.rotation.shape[1]
+    branches = [_branch(poses, j) for j in range(n_br)]
+    own = torch.stack([_recon_loss(points, p, scale_norm, up_sym, up_axis) for p in branches], dim=1)
+    if arbiter == "cross" and n_br > 1:
         lmat = torch.stack([
             torch.stack([_recon_loss_rt(points, pi.rotation, pi.translation, pj, scale_norm,
-                                        up_sym, up_axis) for pj in poses])
-            for pi in poses])
-        score = torch.mean(lmat, dim=1)
-        pick = torch.argmin(score)
-        return pick, _at(score, pick)
-    if arbiter == "margin" and len(poses) > 1:
-        pick = torch.where(own[0] <= own[1] - margin, 0, 1)
-        return pick, _at(own, pick)
-    pick = torch.argmin(own)
-    return pick, _at(own, pick)
+                                        up_sym, up_axis) for pj in branches], dim=1)
+            for pi in branches], dim=1)
+        score = torch.mean(lmat, dim=2)
+        pick = torch.argmin(score, dim=1)
+        return pick, score.gather(1, pick[:, None])[:, 0]
+    if arbiter == "margin" and n_br > 1:
+        pick = torch.where(own[:, 0] <= own[:, 1] - margin, 0, 1)
+        return pick, own.gather(1, pick[:, None])[:, 0]
+    pick = torch.argmin(own, dim=1)
+    return pick, own.gather(1, pick[:, None])[:, 0]
 
 
 def estimate_pose_branch(
@@ -248,11 +278,12 @@ def estimate_pose_branch(
     own reconstruction loss (`pick` stays None: there is nothing to pick)."""
     sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(points.device)
     preds = branch_fn(points, tuple_idx)
-    pose = _pose_from_preds(preds.logits, preds.scales, points, point_valid, count, tuple_idx,
-                            gumbel, cat, pipe, sphere_pts, run_opt)
+    rows = [x[None] for x in (preds.logits, preds.scales, points, point_valid, count, tuple_idx,
+                              gumbel)]
+    pose = _pose_from_preds(*rows, cat, pipe, sphere_pts, run_opt)
     scale_norm = norm(pose.scale)
-    loss = _recon_loss(points, pose, scale_norm, cat.up_sym, cat.up_axis_index)
-    return PoseEstimate(pose.rotation, pose.translation, pose.scale, scale_norm, loss)
+    loss = _recon_loss(points[None], pose, scale_norm, cat.up_sym, cat.up_axis_index)
+    return PoseEstimate(pose.rotation[0], pose.translation[0], pose.scale[0], scale_norm[0], loss[0])
 
 
 def estimate_pose_branch_restarts(
@@ -284,6 +315,109 @@ def estimate_pose_branch_restarts(
                           for f in PoseEstimate._fields[:5]))
 
 
+class GroupMember(NamedTuple):
+    """One instance of a group after its branch MLPs: the enabled branches'
+    outputs stacked on a leading branch axis, visual first."""
+
+    points: torch.Tensor       # (N, 3)
+    point_valid: torch.Tensor  # (N,)
+    count: torch.Tensor        # ()
+    tuple_idx: torch.Tensor    # (P, tuple size), shared by the branches
+    logits: torch.Tensor       # (branches, P, 6, bins)
+    scales: torch.Tensor       # (branches, P, 3)
+    gumbel: torch.Tensor       # (branches, P * 6, bins)
+
+
+class EnsembleInput(NamedTuple):
+    """One instance of a group before its branch MLPs."""
+
+    dino_fn: Optional[BranchFn]
+    shot_fn: Optional[BranchFn]
+    points: torch.Tensor
+    point_valid: torch.Tensor
+    count: torch.Tensor
+    draws: Sequence[PoseDraws]  # one per restart
+
+
+def branch_outputs(dino_fn, shot_fn, points, point_valid, count, draws: PoseDraws,
+                   use_visual: bool = True, use_geo: bool = True) -> GroupMember:
+    """Tuple choice and the enabled branch MLPs of one instance (one shared
+    tuple sample, like the reference's single `point_idxs_all`)."""
+    tuple_idx = masked_tuple_choice(draws.tuple_u, count)
+    outs = []
+    if use_visual:
+        outs.append((dino_fn(points, tuple_idx), draws.gumbel_dino))
+    if use_geo:
+        outs.append((shot_fn(points, tuple_idx), draws.gumbel_shot))
+    return GroupMember(points, point_valid, count, tuple_idx,
+                       torch.stack([pr.logits for pr, _ in outs]),
+                       torch.stack([pr.scales for pr, _ in outs]),
+                       torch.stack([g for _, g in outs]))
+
+
+def estimate_pose_group(members: Sequence[GroupMember], cat: CategoryConfig, pipe: PipelineConfig,
+                        run_opt: bool = True, use_visual: bool = True) -> PoseEstimate:
+    """The pose graph after the MLPs for a group of instances that share a
+    category and a PipelineConfig: every (instance, branch) row through one
+    batched vote, noisy-pair filter, cone vote and alignment, then each
+    instance's branch arbitration. The counterpart of the vmapped `one` in
+    the JAX driver's `_frame_group_fn`. Returns a PoseEstimate whose every
+    field has a leading (instances,) axis; `use_visual` says whether the
+    first branch of each member is the visual one (for `pick`)."""
+    n_inst, n_br = len(members), members[0].logits.shape[0]
+    dev = members[0].points.device
+    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(dev)
+
+    def per_instance(name):
+        return torch.stack([getattr(m, name) for m in members])
+
+    def per_row(name):    # instance-major: instance 0's branches, then instance 1's
+        return torch.cat([getattr(m, name) for m in members])
+
+    inst = [per_instance(f) for f in ("points", "point_valid", "count", "tuple_idx")]
+    points = inst[0]
+    rows = [x.repeat_interleave(n_br, dim=0) for x in inst]
+    poses = _pose_from_preds(per_row("logits"), per_row("scales"), *rows, per_row("gumbel"),
+                             cat, pipe, sphere_pts, run_opt)
+    poses = BranchPose(*(f.reshape(n_inst, n_br, *f.shape[1:]) for f in poses))
+
+    scale = poses.scale[:, 0]
+    scale_norm = norm(scale)
+    pick, loss = _arbitrate(points, poses, scale_norm, cat.up_sym, pipe.arbiter,
+                            pipe.arbiter_margin, cat.up_axis_index)
+    branch_id = pick if use_visual else pick + 1
+    which = torch.arange(n_inst, device=dev)
+    return PoseEstimate(poses.rotation[which, pick], poses.translation[which, pick], scale,
+                        scale_norm, loss, branch_id.to(torch.int32))
+
+
+def estimate_pose_ensembles(instances: Sequence[EnsembleInput], cat: CategoryConfig,
+                            pipe: PipelineConfig, run_opt: bool = True, use_visual: bool = True,
+                            use_geo: bool = True) -> PoseEstimate:
+    """`estimate_pose_ensemble` for a group of instances at once: each
+    restart runs every instance's MLPs, then one `estimate_pose_group` call
+    for the group; restarts run one after another (lax.map in the JAX
+    package) and each instance keeps its lowest reported loss, the first on
+    ties. Every field has a leading (instances,) axis."""
+    if not (use_visual or use_geo):
+        raise ValueError("at least one branch must be enabled")
+    n_runs = pipe.restarts
+    for x in instances:
+        if len(x.draws) != n_runs:
+            raise ValueError(f"expected {n_runs} PoseDraws (pipe.restarts), got {len(x.draws)}")
+    single = dataclasses.replace(pipe, restarts=1)
+    ests = [estimate_pose_group(
+        [branch_outputs(x.dino_fn, x.shot_fn, x.points, x.point_valid, x.count, x.draws[r],
+                        use_visual, use_geo) for x in instances],
+        cat, single, run_opt, use_visual) for r in range(n_runs)]
+    if n_runs == 1:
+        return ests[0]
+    i = torch.argmin(torch.stack([e.loss for e in ests]), dim=0)
+    which = torch.arange(len(instances), device=i.device)
+    return PoseEstimate(*(torch.stack([getattr(e, f) for e in ests])[i, which]
+                          for f in PoseEstimate._fields))
+
+
 def estimate_pose_ensemble(
     dino_fn: Optional[BranchFn],
     shot_fn: Optional[BranchFn],
@@ -304,46 +438,16 @@ def estimate_pose_ensemble(
     branch's TuplePredictions. `draws` holds one PoseDraws per restart (a
     bare PoseDraws when `pipe.restarts` is 1); when None they are drawn from
     `generator`. With restarts > 1 the ensemble reruns on each draw and the
-    lowest reported loss wins (first on ties).
+    lowest reported loss wins (first on ties). Both branches run as the two
+    rows of one `estimate_pose_group` call.
     """
     if not (use_visual or use_geo):
         raise ValueError("at least one branch must be enabled")
-    n_runs = pipe.restarts
     if draws is None:
-        draws = [draw_pose(cat, pipe, points.device, generator) for _ in range(n_runs)]
+        draws = [draw_pose(cat, pipe, points.device, generator) for _ in range(pipe.restarts)]
     elif isinstance(draws, PoseDraws):
         draws = [draws]
-    if len(draws) != n_runs:
-        raise ValueError(f"expected {n_runs} PoseDraws (pipe.restarts), got {len(draws)}")
-    single = dataclasses.replace(pipe, restarts=1)
-    ests = [_ensemble_once(dino_fn, shot_fn, points, point_valid, count, cat, single, d,
-                           run_opt, use_visual, use_geo) for d in draws]
-    if n_runs == 1:
-        return ests[0]
-    i = torch.argmin(torch.stack([e.loss for e in ests]))
-    return PoseEstimate(*(_at(torch.stack([getattr(e, f) for e in ests]), i)
-                          for f in PoseEstimate._fields))
-
-
-def _ensemble_once(dino_fn, shot_fn, points, point_valid, count, cat, pipe, draws: PoseDraws,
-                   run_opt, use_visual, use_geo) -> PoseEstimate:
-    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(points.device)
-    tuple_idx = masked_tuple_choice(draws.tuple_u, count)
-
-    branches = []
-    if use_visual:
-        branches.append((dino_fn(points, tuple_idx), draws.gumbel_dino))
-    if use_geo:
-        branches.append((shot_fn(points, tuple_idx), draws.gumbel_shot))
-    poses = [_pose_from_preds(pr.logits, pr.scales, points, point_valid, count, tuple_idx, gum,
-                              cat, pipe, sphere_pts, run_opt) for pr, gum in branches]
-
-    scale = poses[0].scale
-    scale_norm = norm(scale)
-    pick, loss = _arbitrate(points, poses, scale_norm, cat.up_sym, pipe.arbiter,
-                            pipe.arbiter_margin, cat.up_axis_index)
-    branch_id = pick if use_visual else pick + 1
-    return PoseEstimate(
-        _at(torch.stack([p.rotation for p in poses]), pick),
-        _at(torch.stack([p.translation for p in poses]), pick),
-        scale, scale_norm, loss, branch_id.to(torch.int32))
+    est = estimate_pose_ensembles(
+        [EnsembleInput(dino_fn, shot_fn, points, point_valid, count, list(draws))], cat, pipe,
+        run_opt, use_visual, use_geo)
+    return PoseEstimate(*(f[0] for f in est))

@@ -15,7 +15,11 @@ votes read from a (V, 3) candidate array.
 quantities and the level's sample table and makes every (pair, sample)
 candidate c + (cos t * x0 + sin t * y0) * odist inside the kernel, in the
 plain version's rounding order, so no candidate tensor is written to device
-memory and the counts stay exactly those of the plain version.
+memory and the counts stay exactly those of the plain version. It takes B
+rows at once (a leading axis on every per-pair input and on the window; the
+sample table is shared), one launch for all of them: a row is one
+(instance, branch) pair of the pose graph, which the JAX package batches with
+jax.vmap. Each row's peak is the one a launch of that row alone gives.
 
 On the H100 a call is a few microseconds of work (5.2 MB of candidates at
 V = 400k, about 1.6 us at 3.35 TB/s; 2.5 MB of pair data for a fused fine
@@ -43,7 +47,9 @@ SOURCE = "cppf2_torch/csrc/hist16.cu"
 REPLACES = "cppf2_tpu/ops/pallas_kernels.py:69"  # the TPU kernel's pallas_call
 _G = 16
 _BINS = _G * _G * _G
-_scratch: Dict[int, List] = {}   # device index -> [zeroed counts and ticket, the stream last used]
+_MAX_ROWS = 65535  # the grid's y extent
+# device index -> [zeroed (rows, 4096 counts and a ticket), the stream last used]
+_scratch: Dict[int, List] = {}
 
 
 def _quantize(cand, ok, lo, cell):
@@ -86,32 +92,34 @@ def _check(cand, ok, lo, cell):
         raise ValueError("more than 2^31 votes")
 
 
-def _launch(symbol: str, argtypes, dev: torch.device, *args):
-    """Launch one K2 entry on `dev`'s current stream: `args`, then the
-    device's zeroed scratch (4096 counts and a ticket, which the kernel
-    leaves zeroed), a fresh (4,) output and the stream; returns
-    (center (3,), count ()). Launches on one stream reuse the scratch in
-    stream order; a launch on another stream than the last one first waits
-    for the device. A launch that fails drops the scratch, so that the next
-    one starts from zeros."""
+def _launch(symbol: str, argtypes, dev: torch.device, rows: int, *args) -> torch.Tensor:
+    """Launch one K2 entry for `rows` rows on `dev`'s current stream: `args`,
+    then the device's zeroed scratch (per row 4096 counts and a ticket, which
+    the kernel leaves zeroed), a fresh (rows, 4) output and the stream;
+    returns the output, each row's center and count. Launches on one stream
+    reuse the scratch in stream order, and a launch with more rows than it
+    holds replaces it by a larger zeroed one; a launch on another stream than
+    the last one first waits for the device. A launch that fails drops the
+    scratch, so that the next one starts from zeros."""
     from cppf2_torch.ops import _build
 
     fn = _build.function("hist16", symbol, list(argtypes) + [ctypes.c_void_p] * 3)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     stream = _build.raw_stream(idx)
     entry = _scratch.get(idx)
-    if entry is None:
-        entry = _scratch[idx] = [torch.zeros(_BINS + 1, dtype=torch.int32, device=dev), stream]
-    elif entry[1] != stream:
+    if entry is not None and entry[1] != stream:
         torch.cuda.synchronize(idx)
         entry[1] = stream
-    out = torch.empty(4, dtype=torch.float32, device=dev)
+    if entry is None or entry[0].shape[0] < rows:
+        entry = _scratch[idx] = [torch.zeros((rows, _BINS + 1), dtype=torch.int32, device=dev),
+                                 stream]
+    out = torch.empty((rows, 4), dtype=torch.float32, device=dev)
     err = _build.launch(fn, dev, *args, entry[0].data_ptr(), out.data_ptr())
     if err != 0:
         del _scratch[idx]
     _build.check(err, symbol)
     _PEAK.launches += 1
-    return out[:3], out[3]
+    return out
 
 
 def hist16_peak(cand: torch.Tensor, ok: torch.Tensor, lo: torch.Tensor,
@@ -125,10 +133,11 @@ def hist16_peak(cand: torch.Tensor, ok: torch.Tensor, lo: torch.Tensor,
         raise ValueError(f"unsupported device {cand.device}")
     cand, ok_u8 = cand.contiguous(), ok.contiguous().view(torch.uint8)
     lo, cell = lo.contiguous(), cell.contiguous()
-    return _launch("cppf2_hist16_peak",
-                   [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
-                   cand.device, cand.data_ptr(), ok_u8.data_ptr(), cand.shape[0], lo.data_ptr(),
-                   cell.data_ptr())
+    out = _launch("cppf2_hist16_peak",
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2,
+                  cand.device, 1, cand.data_ptr(), ok_u8.data_ptr(), cand.shape[0], lo.data_ptr(),
+                  cell.data_ptr())[0]
+    return out[:3], out[3]
 
 
 hist16_peak.launches = 0
@@ -160,18 +169,26 @@ def level_candidates(c, x0, y0, odist, ok, samples, theta_star=None, span=None):
 def hist16_level_peak_plain(c, x0, y0, odist, ok, samples, lo, cell, theta_star=None,
                             span=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of the fused level: the candidates written out,
-    then `hist16_peak_plain`."""
+    then `hist16_peak_plain`; with a leading row axis, row by row, stacked."""
+    if c.dim() == 3:
+        arcs = [(None, None)] * c.shape[0] if theta_star is None else zip(theta_star, span)
+        peaks = [hist16_level_peak_plain(*row, samples, lo_r, cell_r, ts, sp)
+                 for row, lo_r, cell_r, (ts, sp) in zip(zip(c, x0, y0, odist, ok), lo, cell, arcs)]
+        return torch.stack([p[0] for p in peaks]), torch.stack([p[1] for p in peaks])
     cand, ok_v = level_candidates(c, x0, y0, odist, ok, samples, theta_star, span)
     return hist16_peak_plain(cand, ok_v, lo, cell)
 
 
 def _check_level(c, x0, y0, odist, ok, samples, lo, cell, theta_star, span):
-    if c.dtype != torch.float32 or c.dim() != 2 or c.shape[1] != 3:
-        raise ValueError(f"c must be (P, 3) float32, got {tuple(c.shape)} {c.dtype}")
-    sub = c.shape[0]
+    if c.dtype != torch.float32 or c.dim() not in (2, 3) or c.shape[-1] != 3:
+        raise ValueError(f"c must be (P, 3) or (B, P, 3) float32, got {tuple(c.shape)} {c.dtype}")
+    lead, pairs = tuple(c.shape[:-2]), tuple(c.shape[:-1])
+    if lead and not 1 <= lead[0] <= _MAX_ROWS:
+        raise ValueError(f"between 1 and {_MAX_ROWS} rows, got {lead[0]}")
     for name, t in (("x0", x0), ("y0", y0)):
         if t.dtype != torch.float32 or t.shape != c.shape:
-            raise ValueError(f"{name} must be ({sub}, 3) float32, got {tuple(t.shape)} {t.dtype}")
+            raise ValueError(f"{name} must be {tuple(c.shape)} float32, got {tuple(t.shape)} "
+                             f"{t.dtype}")
     per_pair = [("odist", odist)]
     if (theta_star is None) != (span is None):
         raise ValueError("theta_star and span go together")
@@ -186,19 +203,20 @@ def _check_level(c, x0, y0, odist, ok, samples, lo, cell, theta_star, span):
         raise ValueError(f"samples must be {want} float32, got {tuple(samples.shape)} "
                          f"{samples.dtype}")
     for name, t in per_pair:
-        if t.dtype != torch.float32 or t.shape != (sub,):
-            raise ValueError(f"{name} must be ({sub},) float32, got {tuple(t.shape)} {t.dtype}")
-    if ok.dtype != torch.bool or ok.shape != (sub,):
-        raise ValueError(f"ok must be ({sub},) bool, got {tuple(ok.shape)} {ok.dtype}")
+        if t.dtype != torch.float32 or t.shape != pairs:
+            raise ValueError(f"{name} must be {pairs} float32, got {tuple(t.shape)} {t.dtype}")
+    if ok.dtype != torch.bool or ok.shape != pairs:
+        raise ValueError(f"ok must be {pairs} bool, got {tuple(ok.shape)} {ok.dtype}")
     for name, t in (("lo", lo), ("cell", cell)):
-        if t.dtype != torch.float32 or t.shape != (3,):
-            raise ValueError(f"{name} must be (3,) float32, got {tuple(t.shape)} {t.dtype}")
+        if t.dtype != torch.float32 or t.shape != lead + (3,):
+            raise ValueError(f"{name} must be {lead + (3,)} float32, got {tuple(t.shape)} "
+                             f"{t.dtype}")
     devs = {t.device for t in (c, x0, y0, odist, ok, samples, lo, cell)}
     devs |= {t.device for _, t in per_pair}
     if len(devs) != 1:
         raise ValueError(f"inputs lie on several devices: {devs}")
-    if sub * samples.shape[-1] >= 2 ** 31:
-        raise ValueError("more than 2^31 votes")
+    if pairs[-1] * samples.shape[-1] >= 2 ** 31:
+        raise ValueError("more than 2^31 votes a row")
 
 
 def hist16_level_peak(c: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, odist: torch.Tensor,
@@ -207,22 +225,31 @@ def hist16_level_peak(c: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, odist
                       span: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Peak of the 16^3 histogram of one level's candidates (see
     `level_candidates`) over the window at `lo` with per-axis `cell`, without
-    writing the candidates out. Returns (center (3,), count ())."""
+    writing the candidates out. Returns (center (3,), count ()).
+
+    Rows: with c, x0, y0 (B, P, 3), odist, ok, theta_star, span (B, P) and
+    lo, cell (B, 3), each row is one such level over its own window, all in
+    one launch; returns (centers (B, 3), counts (B,)). The sample table is
+    shared by the rows."""
     _check_level(c, x0, y0, odist, ok, samples, lo, cell, theta_star, span)
     if c.device.type == "cpu":
         return hist16_level_peak_plain(c, x0, y0, odist, ok, samples, lo, cell, theta_star, span)
     if c.device.type != "cuda":
         raise ValueError(f"unsupported device {c.device}")
+    rows = c.shape[0] if c.dim() == 3 else 1
     tensors = [c.contiguous(), x0.contiguous(), y0.contiguous(), odist.contiguous(),
                ok.contiguous().view(torch.uint8), samples.contiguous()]
     arc = [] if theta_star is None else [theta_star.contiguous(), span.contiguous()]
     lo, cell = lo.contiguous(), cell.contiguous()
     ptrs = [t.data_ptr() for t in tensors] + ([t.data_ptr() for t in arc] or [None, None])
-    result = _launch("cppf2_hist16_level_peak",
-                     [ctypes.c_void_p] * 8 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2,
-                     c.device, *ptrs, c.shape[0], samples.shape[-1], lo.data_ptr(), cell.data_ptr())
+    out = _launch("cppf2_hist16_level_peak",
+                  [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
+                  c.device, rows, *ptrs, rows, c.shape[-2], samples.shape[-1], lo.data_ptr(),
+                  cell.data_ptr())
     _LEVEL.launches += 1
-    return result
+    if c.dim() == 2:
+        out = out[0]
+    return out[..., :3], out[..., 3]
 
 
 hist16_level_peak.launches = 0
