@@ -136,17 +136,21 @@ Phases, each printing its own lines; any failure exits non-zero:
      kNN against the default one in `preprocess_frame`; the native IoU and
      record reader on the card's host, each equal to its Python route.
 
- 11. a frame group's instances in one batched pose graph: two REAL275-format
+ 11. a frame group's instances in one batched pass: two REAL275-format
      frames of eight instances (eight mugs, one group of 16 rows; four mugs,
      two bowls and two cans, groups of 8, 4 and 4 rows) through
      `dispatch_frame` and through groups of one (`dispatch_instance` for each
      detection) on the same draws: the same picks, R within 1 degree, T
-     within 3 mm; per frame and route the ms, the K2 launches (4 a group)
-     and the `align_pose` calls (one a group) and rows, and the batched
-     route's device-busy share. Then `evaluate_real275_parallel` at world 1
-     on the two frames, a rank block of four instances one pose group (4
-     rows), against each instance alone on the same draws (R 1 degree, T
-     3 mm) and its launches (4 K2 a block).
+     within 3 mm; per frame and route the ms, the K2 launches (4 a group),
+     the `align_pose` calls (one a group) and rows, the frontend calls and
+     each branch MLP's forwards (one a group, each over the group's
+     instances), the peak device memory, and the batched route's
+     device-busy share. Per group, the frontend alone batched against one
+     call an instance, and the largest |logit| difference between one MLP
+     forward for the group and one an instance. Then `evaluate_real275_parallel` at world 1 on the two
+     frames, a rank block of four instances one pose group (4 rows), against
+     each instance alone on the same draws (R 1 degree, T 3 mm) and its
+     launches (4 K2 a block).
 
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 4 launches of the slice, all through the fused entry at two rows,
@@ -2590,6 +2594,85 @@ def counted_align():
         pipeline.align_pose = align
 
 
+@contextlib.contextmanager
+def counted_group_stages(models):
+    """Count the stages that run once a group before its pose graph: the
+    frontend calls (`driver.preprocess_frame`) and each branch MLP's
+    forwards, each with the instances it took."""
+    from cppf2_torch.eval import driver
+
+    seen = {"frontend": [], "shot": [], "dino": []}
+    front = driver.preprocess_frame
+
+    def counting(depth, mask, *args, **kwargs):
+        seen["frontend"].append(mask.shape[0])
+        return front(depth, mask, *args, **kwargs)
+
+    hooks = [getattr(m, branch).register_forward_pre_hook(
+        lambda mod, args, branch=branch: seen[branch].append(args[-1].shape[0]))
+        for m in models.values() for branch in ("shot", "dino")]
+    driver.preprocess_frame = counting
+    try:
+        yield seen
+    finally:
+        driver.preprocess_frame = front
+        for h in hooks:
+            h.remove()
+
+
+def group_stages(dev, pipe, models, vit, rgb, depth, dets, draws, groups, stride, out_size):
+    """Each group's frontend on its own: one batched `preprocess_frame` call
+    against one call per instance (back to back, CUDA events: 3 windows of 3
+    calls), and the largest |logit| difference of each branch MLP between
+    one forward over the group's tuples and one forward per instance, on the
+    group's real descriptors and the instances' tuple draws."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.infer.frontend import crop_origin, preprocess_frame
+    from cppf2_torch.models.dinov2 import bbox_crop_token_grid, sample_crop_descriptors
+    from cppf2_torch.ops.sampling import masked_tuple_choice
+
+    depth_t = torch.as_tensor(depth, device=dev)
+    k_t = torch.as_tensor(REAL275_K, device=dev)
+    rgb_t = torch.as_tensor(rgb, device=dev).to(torch.float32) / 255.0
+    out = []
+    for (name, tier), members in groups.items():
+        masks_t = torch.as_tensor(np.stack([dets[i][1] for i in members]), device=dev)
+        origins = [crop_origin(dets[i][1], depth.shape, tier) for i in members]
+        perm = torch.stack([draws[i].voxel_perm for i in members])
+        prio = torch.stack([draws[i].voxel_prio for i in members])
+        kw = dict(res=get_category(name).res, n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=tier)
+
+        def batched():
+            return preprocess_frame(depth_t, masks_t, k_t, perm, prio, origin=origins, **kw)
+
+        def singles():
+            return [preprocess_frame(depth_t, masks_t[j], k_t, perm[j], prio[j], origin=origins[j],
+                                     **kw) for j in range(len(members))]
+
+        with torch.no_grad():
+            ms = time_ms(batched, iters=3, warmup=1, repeats=3)
+            singles_ms = time_ms(singles, iters=3, warmup=1, repeats=3)
+            fi = batched()
+            grids, txys = bbox_crop_token_grid(vit, rgb_t, masks_t, out_size=out_size, stride=stride)
+            desc = sample_crop_descriptors(grids, fi.pixel_yx, txys, out_size)
+            ti = masked_tuple_choice(torch.stack([draws[i].pose.tuple_u for i in members]), fi.count)
+            m = models[name]
+            pairs = {"shot": (m.shot(fi.pc, fi.shot, fi.normal, ti),
+                              [m.shot(fi.pc[j], fi.shot[j], fi.normal[j], ti[j])
+                               for j in range(len(members))]),
+                     "dino": (m.dino(fi.pc, desc, ti),
+                              [m.dino(fi.pc[j], desc[j], ti[j]) for j in range(len(members))])}
+        dlogit = {b: max(float((g.logits[j] - one.logits).abs().max()) for j, one in enumerate(ones))
+                  for b, (g, ones) in pairs.items()}
+        if not all(math.isfinite(v) for v in dlogit.values()):
+            raise AssertionError(f"group {name}/{tier}: batched MLP logits not finite: {dlogit}")
+        out.append(dict(group=f"{name}/{tier}", instances=len(members), ms=ms, singles_ms=singles_ms,
+                        dlogit=dlogit))
+    return out
+
+
 def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_size=256,
                        backend="nccl"):
     """Phase 11: two REAL275-format frames of eight instances (eight mugs: one
@@ -2656,13 +2739,24 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
         batched()   # warm-up of both routes: they run the same kernels
         routes = {}
         for label, fn in (("batched", batched), ("groups of one", singles)):
+            torch.cuda.reset_peak_memory_stats()
+            base_mb = torch.cuda.memory_allocated() / 2**20
             zero_counts()
-            with counted_align() as aligned:
+            with counted_align() as aligned, counted_group_stages(models) as stages:
                 t0 = time.perf_counter()
                 got = fn()
                 ms = (time.perf_counter() - t0) * 1e3
-            routes[label] = dict(got=got, ms=ms, launches=read_counts(), align=list(aligned))
+            routes[label] = dict(got=got, ms=ms, launches=read_counts(), align=list(aligned),
+                                 stages={k: list(v) for k, v in stages.items()}, base_mb=base_mb,
+                                 peak_mb=torch.cuda.max_memory_allocated() / 2**20)
         b, one = routes["batched"], routes["groups of one"]
+        sizes = sorted((len(v) for v in groups.values()), reverse=True)
+        want_stages = {k: sizes for k in ("frontend", "shot", "dino")}
+        got_stages = {k: sorted(v, reverse=True) for k, v in b["stages"].items()}
+        if got_stages != want_stages or one["stages"] != {k: [1] * len(dets) for k in want_stages}:
+            raise AssertionError(f"{name}: frontend calls and MLP forwards (instances each) batched "
+                                 f"{b['stages']} (expected {want_stages}), groups of one "
+                                 f"{one['stages']}")
         want_b = {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels * len(groups),
                   "sphere_accumulate": 0}
         want_1 = {"mha": vit_cfg.depth * len(dets), "hist16_peak": pipe.vote_levels * len(dets),
@@ -2693,10 +2787,30 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
             f"launches {one['launches']['hist16_peak']}, align_pose calls {len(one['align'])}; same "
             f"picks {[picks_b[i] for i in range(len(dets))]}; device busy {busy_ms:.1f} ms of "
             f"{b['ms']:.1f} ({100 * busy_ms / b['ms']:.1f}%, the batched route profiled)")
+        say(f"[batched frames] {name}: frontend calls {len(b['stages']['frontend'])} (instances "
+            f"{b['stages']['frontend']}) against {len(one['stages']['frontend'])}; MLP forwards shot "
+            f"{len(b['stages']['shot'])}, dino {len(b['stages']['dino'])} (instances "
+            f"{b['stages']['shot']}) against {len(one['stages']['shot'])} and "
+            f"{len(one['stages']['dino'])}; peak device memory batched {b['peak_mb']:.1f} MiB "
+            f"({b['peak_mb'] - b['base_mb']:.1f} over the {b['base_mb']:.1f} held before), groups of "
+            f"one {one['peak_mb']:.1f} MiB")
+        stages = group_stages(dev, pipe, models, vit, rgb, depth, dets, draws, groups, stride,
+                              out_size)
+        for g in stages:
+            say(f"[batched frames] {name} group {g['group']} ({g['instances']} instances): frontend "
+                f"{g['ms']:.2f} ms batched against {g['singles_ms']:.2f} one call an instance; "
+                f"largest |logit| difference, one MLP forward for the group against one an "
+                f"instance: shot {g['dlogit']['shot']:.3g}, dino {g['dlogit']['dino']:.3g}")
         out["frames"].append(dict(name=name, instances=len(dets), rows=rows, ms=b["ms"],
                                   singles_ms=one["ms"], k2=b["launches"]["hist16_peak"],
                                   singles_k2=one["launches"]["hist16_peak"], align=len(b["align"]),
                                   singles_align=len(one["align"]), busy_ms=busy_ms,
+                                  frontend_calls=len(b["stages"]["frontend"]),
+                                  singles_frontend_calls=len(one["stages"]["frontend"]),
+                                  forwards=len(b["stages"]["shot"]),
+                                  singles_forwards=len(one["stages"]["shot"]),
+                                  peak_mb=b["peak_mb"], base_mb=b["base_mb"],
+                                  singles_peak_mb=one["peak_mb"], groups=stages,
                                   draws=draws, dets=dets, depth=depth))
     say(f"[batched frames] batched vs groups of one on the same draws: R {worst['r']:.4f} deg, T "
         f"{worst['t'] * 1e3:.4f} mm, the same picks")
@@ -2911,7 +3025,15 @@ def main() -> int:
     for f in batched["frames"]:
         say(f"[batched frames] {f['name']}: ms_per_frame batched {f['ms']:.1f} / groups of one "
             f"{f['singles_ms']:.1f}; K2 launches {f['k2']} / {f['singles_k2']}; align_pose calls "
-            f"{f['align']} / {f['singles_align']}; busy {100 * f['busy_ms'] / f['ms']:.1f}%")
+            f"{f['align']} / {f['singles_align']}; frontend calls {f['frontend_calls']} / "
+            f"{f['singles_frontend_calls']}; MLP forwards per branch {f['forwards']} / "
+            f"{f['singles_forwards']}; busy {100 * f['busy_ms'] / f['ms']:.1f}%; peak memory "
+            f"{f['peak_mb']:.1f} / {f['singles_peak_mb']:.1f} MiB; frontend ms batched / one an "
+            f"instance " + ", ".join(f"{g['group']} {g['ms']:.2f} / {g['singles_ms']:.2f}"
+                                     for g in f["groups"])
+            + "; largest |logit| difference " + ", ".join(
+                f"{g['group']} shot {g['dlogit']['shot']:.3g} dino {g['dlogit']['dino']:.3g}"
+                for g in f["groups"]))
     say(f"[batched frames] evaluate_real275_parallel ms_per_instance "
         f"{batched['eval_ms_per_instance']:.1f} (blocks of {batched['eval_align']} rows, K2 launches "
         f"{batched['eval_k2']})")

@@ -23,8 +23,12 @@ def backproject_masked(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torc
         points (H*W, 3) float32 with zeros where invalid, pixel_yx (H*W, 2)
         int32 (row, col), valid (H*W,) bool. x and y are negated (the
         reference's OpenGL convention, utils/util.py:2604-2605).
+
+    A leading (B,) axis on depth, intrinsics and mask (each window with its
+    own K) gives B rows, each the single call's result to the bit.
     """
-    h, w = depth.shape
+    h, w = depth.shape[-2:]
+    lead = depth.shape[:-2]
     dev = depth.device
     vv, uu = torch.meshgrid(
         torch.arange(h, device=dev), torch.arange(w, device=dev), indexing="ij")
@@ -34,12 +38,14 @@ def backproject_masked(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torc
     v = vv.to(depth.dtype)
     # uv1 @ k_inv.T, written out per component (no matmul precision question)
     rays = torch.stack(
-        [u * k_inv[r, 0] + v * k_inv[r, 1] + k_inv[r, 2] for r in range(3)], dim=-1)
+        [u * k_inv[..., r, 0, None, None] + v * k_inv[..., r, 1, None, None]
+         + k_inv[..., r, 2, None, None] for r in range(3)], dim=-1)
     pts = rays * (depth / rays[..., 2])[..., None]
     pts = pts * torch.tensor([-1.0, -1.0, 1.0], dtype=depth.dtype, device=dev)
     pts = torch.where(valid[..., None], pts, torch.zeros((), dtype=depth.dtype, device=dev))
-    pixel_yx = torch.stack([vv, uu], dim=-1).to(torch.int32)
-    return pts.reshape(-1, 3), pixel_yx.reshape(-1, 2), valid.reshape(-1)
+    pixel_yx = torch.stack([vv, uu], dim=-1).to(torch.int32).reshape(-1, 2)
+    return (pts.reshape(*lead, h * w, 3), pixel_yx.expand(*lead, h * w, 2),
+            valid.reshape(*lead, h * w))
 
 
 def check_pinhole(k: np.ndarray) -> None:
@@ -51,19 +57,21 @@ def check_pinhole(k: np.ndarray) -> None:
 def pinhole_inverse(k: torch.Tensor) -> torch.Tensor:
     """Inverse of an upper-triangular pinhole K by back substitution with
     reciprocal pivots, the order XLA's LU-based inverse takes, so the rays
-    (and the voxel keys built from them) agree to the bit."""
+    (and the voxel keys built from them) agree to the bit. A leading (B,)
+    axis inverts each K alone."""
     # checked where it costs no read back from the device: the drivers check
     # the host array (`check_pinhole`) before they upload it
     if k.device.type == "cpu":
-        check_pinhole(k.numpy())
-    eye = torch.eye(3, dtype=k.dtype, device=k.device)
+        for m in k.reshape(-1, 3, 3).numpy():
+            check_pinhole(m)
+    eye = torch.eye(3, dtype=k.dtype, device=k.device).expand(*k.shape[:-2], 3, 3)
     rows = [None, None, None]
     for i in (2, 1, 0):
-        acc = eye[i]
+        acc = eye[..., i, :]
         for j in range(i + 1, 3):
-            acc = acc - k[i, j] * rows[j]
-        rows[i] = acc * (1.0 / k[i, i])
-    return torch.stack(rows)
+            acc = acc - k[..., i, j, None] * rows[j]
+        rows[i] = acc * (1.0 / k[..., i, i, None])
+    return torch.stack(rows, dim=-2)
 
 
 def fibonacci_sphere(samples: int) -> np.ndarray:

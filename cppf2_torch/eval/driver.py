@@ -12,8 +12,9 @@ levels, each built on the one before:
     `PoseEstimate` on the device.
   * one frame: `dispatch_frame` groups the detections by (category, crop
     tier), runs one batched ViT forward for all of the frame's crops, then
-    each instance's frontend and branch MLPs, and each group's pose graph as
-    one batched call over its (instance, branch) rows; `fetch_frames` is the
+    each group as one batched pass (`_pose_group`: frontend, descriptor
+    sampling, tuple choice and branch MLPs over the group's instances, the
+    pose graph over its (instance, branch) rows); `fetch_frames` is the
     frame's one host copy.
   * the dataset: `evaluate_real275` walks the detection pkls with frame k + 1
     dispatched before frame k is fetched, writes the result pkls and scores
@@ -58,6 +59,7 @@ from cppf2_torch.eval.nocs_map import compute_degree_cm_map
 from cppf2_torch.eval.png import read_png16, read_png_rgb8, write_png_rgb8
 from cppf2_torch.eval.pose_errors import _assemble_rt, pose_error_degree_cm
 from cppf2_torch.infer.frontend import (
+    FrameInputs,
     auto_crop,
     crop_origin,
     mask_bbox,
@@ -71,6 +73,7 @@ from cppf2_torch.infer.pipeline import (
     PoseEstimate,
     draw_pose,
     estimate_pose_ensembles,
+    stack_draws,
 )
 from cppf2_torch.models.checkpoints import load_params_msgpack
 from cppf2_torch.models.cppf import DinoBranch, ShotBranch
@@ -174,9 +177,9 @@ def load_category_models(ckpt_root: Optional[str], categories: Sequence[str] = N
 
 
 def _cloud_extent(pc: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Per-axis extent (3,) of the valid points of a padded cloud."""
-    mx = torch.amax(torch.where(valid[:, None], pc, -torch.inf), dim=0)
-    mn = torch.amin(torch.where(valid[:, None], pc, torch.inf), dim=0)
+    """Per-axis extent ([B,] 3) of the valid points of a padded cloud."""
+    mx = torch.amax(torch.where(valid[..., None], pc, -torch.inf), dim=-2)
+    mn = torch.amin(torch.where(valid[..., None], pc, torch.inf), dim=-2)
     return mx - mn
 
 
@@ -206,51 +209,45 @@ def _draws_on(d: InstanceDraws, dev) -> InstanceDraws:
     return InstanceDraws(d.voxel_perm.to(dev), d.voxel_prio.to(dev), pose)
 
 
-class GroupItem(NamedTuple):
-    """One instance of a pose group, before its frontend."""
-
-    depth: torch.Tensor             # (H, W) metres
-    mask: torch.Tensor              # (H, W) bool
-    origin: Optional[Tuple[int, int]]  # the crop window's origin, from the host mask
-    desc_fn: Optional[object]       # pixel_yx -> descriptors, or None for zeros
-    draws: InstanceDraws            # on the device
-
-
-def _pose_group(items: Sequence[GroupItem], k_t, crop, models: CategoryModels, cat,
-                pipe: PipelineConfig, run_opt: bool, use_visual: bool, use_geo: bool):
-    """Frontend + ensemble of a group of instances of one category and crop
-    tier on the device, nothing read back: each instance's frontend,
-    descriptors and branch MLPs, then one batched pose graph over the group's
-    (instance, branch) rows. Returns (FrameInputs per instance, PoseEstimate
-    with a leading (instances,) axis)."""
-    fis, inputs = [], []
-    for it in items:
-        d = it.draws
-        fi = preprocess_frame(it.depth, it.mask, k_t, d.voxel_perm, d.voxel_prio, res=cat.res,
-                              n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop,
-                              origin=it.origin)
-        desc = None
-        if use_visual:
-            # no descriptors for an enabled visual branch: zeros, as in the JAX driver
-            desc = (it.desc_fn(fi.pixel_yx) if it.desc_fn is not None else
-                    torch.zeros((pipe.n_points, models.dino.desc_transform.in_features),
-                                device=it.depth.device))
-        fis.append(fi)
-        inputs.append(EnsembleInput(
-            lambda pts, ti, desc=desc: models.dino(pts, desc, ti),
-            lambda pts, ti, fi=fi: models.shot(pts, fi.shot, fi.normal, ti),
-            fi.pc, fi.valid, fi.count, d.pose if isinstance(d.pose, list) else [d.pose]))
-    return fis, estimate_pose_ensembles(inputs, cat, pipe, run_opt, use_visual, use_geo)
+def _pose_group(depth, masks, origins, draws: Sequence[InstanceDraws], k_t, crop,
+                models: CategoryModels, cat, pipe: PipelineConfig, run_opt: bool, use_visual: bool,
+                use_geo: bool, desc_fn=None):
+    """Frontend + ensemble of a group of B instances of one category and crop
+    tier on the device, nothing read back, as the JAX driver's vmapped group
+    program: one batched frontend pass (`preprocess_frame` over the (B, H, W)
+    `masks`, `depth` (H, W) shared or (B, H, W)), one descriptor call
+    (`desc_fn(pixel_yx (B, N, 2)) -> (B, N, D)`; zeros without one), then
+    per restart one forward of each enabled branch MLP and one batched pose
+    graph over the group's (instance, branch) rows. `origins` holds each
+    window's (y0, x0) from the host mask (None without `crop`) and `draws`
+    each instance's draws on the device. Returns (FrameInputs, PoseEstimate),
+    every field with a leading (B,) axis."""
+    fi = preprocess_frame(depth, masks, k_t, torch.stack([d.voxel_perm for d in draws]),
+                          torch.stack([d.voxel_prio for d in draws]), res=cat.res,
+                          n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop, origin=origins)
+    desc = None
+    if use_visual:
+        # no descriptors for an enabled visual branch: zeros, as in the JAX driver
+        desc = (desc_fn(fi.pixel_yx) if desc_fn is not None else
+                torch.zeros((len(draws), pipe.n_points, models.dino.desc_transform.in_features),
+                            device=k_t.device))
+    restarts = [d.pose if isinstance(d.pose, list) else [d.pose] for d in draws]
+    group = EnsembleInput(lambda pts, ti: models.dino(pts, desc, ti),
+                          lambda pts, ti: models.shot(pts, fi.shot, fi.normal, ti),
+                          fi.pc, fi.valid, fi.count, [stack_draws(r) for r in zip(*restarts)])
+    return fi, estimate_pose_ensembles(group, cat, pipe, run_opt, use_visual, use_geo)
 
 
 def _pose_graph(depth_t, mask_t, k_t, origin, crop, desc_fn, models: CategoryModels, cat,
                 pipe: PipelineConfig, draws: InstanceDraws, run_opt: bool, use_visual: bool,
                 use_geo: bool):
-    """`_pose_group` of one instance: its branches are the rows. Returns
-    (FrameInputs, PoseEstimate)."""
-    fis, est = _pose_group([GroupItem(depth_t, mask_t, origin, desc_fn, draws)], k_t, crop, models,
-                           cat, pipe, run_opt, use_visual, use_geo)
-    return fis[0], PoseEstimate(*(f[0] for f in est))
+    """`_pose_group` of one instance: its branches are the rows. `desc_fn`
+    maps its (N, 2) pixels to (N, D) descriptors. Returns (FrameInputs,
+    PoseEstimate)."""
+    group_desc = None if desc_fn is None else (lambda pixel_yx: desc_fn(pixel_yx[0])[None])
+    fi, est = _pose_group(depth_t, mask_t[None], None if crop is None else [origin], [draws], k_t,
+                          crop, models, cat, pipe, run_opt, use_visual, use_geo, group_desc)
+    return FrameInputs(*(f[0] for f in fi)), PoseEstimate(*(f[0] for f in est))
 
 
 def _kp_to_crop(pixel_yx: torch.Tensor, inv_transform: torch.Tensor) -> torch.Tensor:
@@ -377,15 +374,12 @@ class PendingInstance(NamedTuple):
 
 
 def _pack(fi, est: PoseEstimate) -> torch.Tensor:
+    """The 22 values of one instance, or (B, 22) rows for a group's
+    FrameInputs and PoseEstimate with a leading (B,) axis."""
     parts = (fi.count, _cloud_extent(fi.pc, fi.valid), est.rotation, est.translation, est.scale,
              est.scale_norm, est.loss, est.pick)
-    return torch.cat([p.reshape(-1).to(torch.float32) for p in parts])
-
-
-def _pack_group(fis, est: PoseEstimate) -> torch.Tensor:
-    """(instances, 22) rows of `_pack` for a group's FrameInputs and its
-    PoseEstimate with a leading (instances,) axis."""
-    return torch.stack([_pack(fi, PoseEstimate(*(f[i] for f in est))) for i, fi in enumerate(fis)])
+    lead = fi.count.shape
+    return torch.cat([p.reshape(*lead, -1).to(torch.float32) for p in parts], dim=-1)
 
 
 @torch.no_grad()
@@ -493,8 +487,10 @@ def dispatch_frame(
     pieces of at most `max_crops` crops: the cap on how many crops one forward
     holds in memory (8 is the JAX driver's largest bucket, `buckets[-1]`
     there). No group is padded to a bucket size: nothing is compiled per
-    shape. The frontend and the
-    pose graph then run per instance, back to back on one stream.
+    shape. Each group then runs as one batched pass, as the JAX driver's
+    vmapped group program: one frontend call, one descriptor sampling and
+    one forward of each enabled branch MLP for its instances, and one pose
+    graph over its (instance, branch) rows.
 
     With `dino_extractor` (the JAX driver's route) the grouped instances go
     through its backbone at its stride, crop size and sampling form, and the
@@ -548,20 +544,18 @@ def dispatch_frame(
         row = 0
         for (name, tier), members in groups.items():
             cat = get_category(name)
-            items = []
-            for idx in members:
-                desc_fn = None
-                if grids is not None:
-                    def desc_fn(pixel_yx, row=row):
-                        return sample_crop_descriptors(grids[row], pixel_yx, txys[row], out_size,
-                                                       impl=impl)
-                items.append(GroupItem(depth_t, masks_t[row],
-                                       crop_origin(dets[idx][1], depth.shape, tier), desc_fn,
-                                       _draws_on(draws[idx], dev)))
-                row += 1
-            fis, est = _pose_group(items, k_t, tier, models[name], cat, pipe, run_opt, use_visual,
-                                   use_geo)
-            pendings.append(PendingFrameGroup(_pack_group(fis, est), cat.res, tuple(members)))
+            lo, hi = row, row + len(members)
+            desc_fn = None
+            if grids is not None:
+                def desc_fn(pixel_yx, lo=lo, hi=hi):
+                    return sample_crop_descriptors(grids[lo:hi], pixel_yx, txys[lo:hi], out_size,
+                                                   impl=impl)
+            fi, est = _pose_group(depth_t, masks_t[lo:hi],
+                                  [crop_origin(dets[i][1], depth.shape, tier) for i in members],
+                                  [_draws_on(draws[i], dev) for i in members], k_t, tier,
+                                  models[name], cat, pipe, run_opt, use_visual, use_geo, desc_fn)
+            pendings.append(PendingFrameGroup(_pack(fi, est), cat.res, tuple(members)))
+            row = hi
     pendings.extend(singles)
     return pendings
 

@@ -3,8 +3,8 @@
 Counterpart of `cppf2_tpu/eval/parallel_eval.py` (geometry branch). Instances
 are grouped by (category, crop tier) and flushed in chunks of
 n_ranks * `flush_multiple`. Each rank poses its contiguous block of a chunk
-as one pose group, as the JAX counterpart vmaps it: each instance's
-preprocess and geometric branch MLP, then one batched pose graph over the
+as one pose group, as the JAX counterpart vmaps it: one batched preprocess,
+one forward of the geometric branch MLP and one batched pose graph over the
 block's rows (`driver._pose_group`, the visual branch off), and
 `all_gather_object` brings the outputs together. Rank 0 writes the result
 pkls and scores them; the other ranks return None.
@@ -33,11 +33,10 @@ from cppf2_torch.core.geometry import check_pinhole
 from cppf2_torch.eval.driver import (
     REAL275_INTRINSICS,
     CategoryModels,
-    GroupItem,
     InstanceDraws,
     _draws_on,
     _finalize_instance,
-    _pack_group,
+    _pack,
     _pose_group,
     draw_instance,
     load_category_models,
@@ -67,12 +66,6 @@ def _make_rows_fn(models: CategoryModels, cat_name: str, pipe: PipelineConfig, m
     k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
     n_ranks, rank, group = axis_size(mesh, axis), mesh.get_local_rank(axis), mesh.get_group(axis)
 
-    def item(depth, mask, draws: InstanceDraws) -> GroupItem:
-        mask = np.asarray(mask, bool)
-        origin = crop_origin(mask, mask.shape, crop) if crop is not None else None
-        return GroupItem(torch.as_tensor(np.asarray(depth, np.float32), device=dev),
-                         torch.as_tensor(mask, device=dev), origin, None, _draws_on(draws, dev))
-
     @torch.no_grad()
     def fn(depths: Sequence[Lazy], masks: Sequence[Lazy], draws: Sequence[Lazy]) -> np.ndarray:
         n = len(draws)
@@ -80,12 +73,16 @@ def _make_rows_fn(models: CategoryModels, cat_name: str, pipe: PipelineConfig, m
             raise ValueError(f"batch of {len(depths)} depths, {len(masks)} masks, {n} draws")
         per = -(-n // n_ranks)
         lo, hi = min(rank * per, n), min((rank + 1) * per, n)
-        items = [item(_get(depths[i]), _get(masks[i]), _get(draws[i])) for i in range(lo, hi)]
         block = np.zeros((0, 22), np.float32)
-        if items:
-            fis, est = _pose_group(items, k_t, crop, models, cat, pipe, run_opt, use_visual,
-                                   use_geo)
-            block = _pack_group(fis, est).cpu().numpy()   # one host copy for the rank's block
+        if hi > lo:
+            own = [np.asarray(_get(masks[i]), bool) for i in range(lo, hi)]
+            depth = np.stack([np.asarray(_get(depths[i]), np.float32) for i in range(lo, hi)])
+            origins = None if crop is None else [crop_origin(m, m.shape, crop) for m in own]
+            fi, est = _pose_group(torch.as_tensor(depth, device=dev),
+                                  torch.as_tensor(np.stack(own), device=dev), origins,
+                                  [_draws_on(_get(draws[i]), dev) for i in range(lo, hi)], k_t,
+                                  crop, models, cat, pipe, run_opt, use_visual, use_geo)
+            block = _pack(fi, est).cpu().numpy()   # one host copy for the rank's block
         blocks: List = [None] * n_ranks
         dist.all_gather_object(blocks, block, group=group)
         return np.concatenate(blocks)
@@ -111,9 +108,10 @@ def make_batched_instance_fn(
     depths (N, H, W) meters, masks (N, H, W) bool and draws (N InstanceDraws,
     each sized for `window_shape((H, W), crop)`) are the global batch; any
     entry may be a zero-argument callable, called only on the rank that poses
-    it. Each rank's block is one pose group: each instance's preprocess with
+    it. Each rank's block is one pose group: one batched preprocess with
     `crop`, then one batched ensemble for the block (zero descriptors when
-    the visual branch is on, as in the JAX counterpart). Returns on every rank, as numpy arrays:
+    the visual branch is on, as in the JAX counterpart). Returns on every
+    rank, as numpy arrays:
     (rotation (N, 3, 3), translation (N, 3), scale (N, 3), scale_norm (N,),
     loss (N,), count (N,), extent (N,)), the last two from the frontend.
     """

@@ -1,5 +1,6 @@
 """Frame frontend: crop window, backprojection, voxel downsample, SHOT, the
-host bbox-square crop and the host mask dilation.
+host bbox-square crop and the host mask dilation. `preprocess_frame` takes
+one instance, or a (category, crop tier) group of them as one batched pass.
 
 Counterpart of `cppf2_tpu/infer/frontend.py::preprocess_frame` (reference
 eval.py:185-216) and of its host helpers `mask_bbox` / `auto_crop` /
@@ -13,7 +14,7 @@ computed on the device and read back once.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -21,6 +22,7 @@ import torch
 from cppf2_torch.core.downsample import voxel_downsample
 from cppf2_torch.core.geometry import backproject_masked
 from cppf2_torch.ops.shot import compute_shot_features
+from cppf2_torch.ops.voting import take_rows
 from cppf2_torch.utils.imgproc import connected_components, convex_hull, dilate, fill_convex_poly, fma32
 
 
@@ -171,13 +173,13 @@ def crop_origin(mask: np.ndarray, hw: Tuple[int, int], crop: int) -> Tuple[int, 
 
 
 class FrameInputs(NamedTuple):
-    pc: torch.Tensor         # (n_max, 3)
-    valid: torch.Tensor      # (n_max,)
-    count: torch.Tensor      # ()
-    shot: torch.Tensor       # (n_max, 352)
-    normal: torch.Tensor     # (n_max, 3)
-    pixel_yx: torch.Tensor   # (n_max, 2) image pixels per point
-    window_yx: torch.Tensor  # (2,) crop-window origin
+    pc: torch.Tensor         # ([B,] n_max, 3)
+    valid: torch.Tensor      # ([B,] n_max)
+    count: torch.Tensor      # ([B])
+    shot: torch.Tensor       # ([B,] n_max, 352)
+    normal: torch.Tensor     # ([B,] n_max, 3)
+    pixel_yx: torch.Tensor   # ([B,] n_max, 2) image pixels per point
+    window_yx: torch.Tensor  # ([B,] 2) crop-window origin
 
 
 def _crop_origin_on_device(mask: torch.Tensor, c: int) -> Tuple[int, int]:
@@ -210,7 +212,7 @@ def preprocess_frame(
     n_max: int = 8192,
     shot_k: int = 64,
     crop: Optional[int] = None,
-    origin: Optional[Tuple[int, int]] = None,
+    origin: Union[Tuple[int, int], Sequence[Tuple[int, int]], None] = None,
     exact_knn: bool = False,
 ) -> FrameInputs:
     """depth + mask -> padded downsampled cloud + SHOT features.
@@ -223,27 +225,42 @@ def preprocess_frame(
     `intrinsics` that already lie on the device are not validated here (that
     would be a read back): they must have passed `check_pinhole` on the host.
     `exact_knn` takes the kNN's exact route for the normals and SHOT.
+
+    A group: masks (B, H, W) of one crop tier, depth (H, W) shared by the
+    group or (B, H, W), voxel draws (B, pixels) and `origin` a sequence of B
+    (y0, x0). The group's windows stack as (B, c, c), each with K's
+    principal point shifted by its origin, and go through every stage in one
+    pass (the JAX driver's jax.vmap over a group's instances); every field
+    gains a leading (B,) axis and each row equals the instance's own call to
+    the bit.
     """
+    if mask.dim() == 2:
+        one = preprocess_frame(depth[None], mask[None], intrinsics, voxel_perm[None],
+                               voxel_prio[None], res, n_max, shot_k, crop,
+                               None if origin is None else [origin], exact_knn)
+        return FrameInputs(*(f[0] for f in one))
     dev = depth.device
+    b = mask.shape[0]
+    depth = depth.expand(b, *depth.shape[-2:])
     if crop is not None:
-        h, w = depth.shape
-        y0, x0 = origin if origin is not None else _crop_origin_on_device(mask, crop)
-        ch, cw = window_shape((h, w), crop)
-        depth = depth[y0:y0 + ch, x0:x0 + cw]
-        mask = mask[y0:y0 + ch, x0:x0 + cw]
-        intrinsics = intrinsics.clone()
-        intrinsics[0, 2] -= x0
-        intrinsics[1, 2] -= y0
+        origins = ([_crop_origin_on_device(m, crop) for m in mask] if origin is None
+                   else [tuple(o) for o in origin])
+        ch, cw = window_shape(depth.shape[-2:], crop)
+        depth = torch.stack([d[y0:y0 + ch, x0:x0 + cw] for d, (y0, x0) in zip(depth, origins)])
+        mask = torch.stack([m[y0:y0 + ch, x0:x0 + cw] for m, (y0, x0) in zip(mask, origins)])
     else:
-        y0 = x0 = 0
+        origins = [(0, 0)] * b
+    window_yx = torch.tensor(origins, dtype=torch.int32, device=dev)
+    intrinsics = intrinsics.expand(b, 3, 3).clone()
+    intrinsics[:, 0, 2] -= window_yx[:, 1]
+    intrinsics[:, 1, 2] -= window_yx[:, 0]
 
     pts_all, pixel_yx, valid_all = backproject_masked(depth, intrinsics, mask)
     ds = voxel_downsample(pts_all, valid_all, res, n_max, voxel_perm, voxel_prio)
-    pc = torch.where(ds.valid[:, None], pts_all[ds.indices], torch.zeros((), device=dev))
-    pix = torch.where(ds.valid[:, None], pixel_yx[ds.indices], torch.zeros((), dtype=torch.int32, device=dev))
-    if crop is not None:
-        off = torch.tensor([[y0, x0]], dtype=pix.dtype, device=dev)
-        pix = torch.where(ds.valid[:, None], pix + off, torch.zeros_like(pix))
+    keep = ds.valid[..., None]
+    pc = torch.where(keep, take_rows(pts_all, ds.indices), torch.zeros((), device=dev))
+    pix = take_rows(pixel_yx, ds.indices) + window_yx[:, None, :]
+    pix = torch.where(keep, pix, torch.zeros_like(pix))
     shot, normal = compute_shot_features(pc, ds.valid, res * 10, k=shot_k, exact=exact_knn)
     return FrameInputs(pc, ds.valid, torch.clamp(ds.count, max=n_max), shot, normal, pix,
-                       torch.tensor([y0, x0], dtype=torch.int32, device=dev))
+                       window_yx)

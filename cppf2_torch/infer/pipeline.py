@@ -9,9 +9,11 @@ branch axis (`cppf2_tpu/infer/pipeline.py:444`) and over a frame group's
 instances (`cppf2_tpu/eval/driver.py::_frame_group_fn`). So a group's votes,
 sorts and alignment loops are one batched computation: four K2 launches and
 one Adam loop for the whole group. `estimate_pose_group` takes a group's
-per-instance MLP outputs; `estimate_pose_ensembles` runs the MLPs and the
-restarts (one after another, as lax.map does) around it;
-`estimate_pose_ensemble` is a group of one. The random draws (tuple uniforms
+MLP outputs; `estimate_pose_ensembles` runs the tuple choice and one forward
+of each branch MLP for the whole group (`branch_outputs`) and the restarts
+(one after another, as lax.map does) around it; `estimate_pose_ensemble` is
+a group of one. `estimate_pose_branch_restarts` runs its restarts as rows of
+one pass, as the JAX package vmaps them. The random draws (tuple uniforms
 and each branch's Gumbel noise) are injected through `PoseDraws`, one set per
 instance, so batching changes no draw; `draw_pose` makes them from a
 torch.Generator. jax.random.categorical(key, logits) equals
@@ -263,6 +265,22 @@ def _arbitrate(points, poses: BranchPose, scale_norm, up_sym: bool, arbiter: str
     return pick, own.gather(1, pick[:, None])[:, 0]
 
 
+def _branch_rows(branch_fn: BranchFn, points, point_valid, count, tuple_idx, gumbel,
+                 cat: CategoryConfig, pipe: PipelineConfig, run_opt: bool) -> PoseEstimate:
+    """One branch on R tuple samples of one cloud as R rows of one pass: one
+    MLP forward on the stacked (R, P, k) tuples, one `_pose_from_preds` and
+    each row's own reconstruction loss. Every field has a leading (R,) axis."""
+    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(points.device)
+    preds = branch_fn(points, tuple_idx)
+    n = tuple_idx.shape[0]
+    rows = [x.expand(n, *x.shape).contiguous() for x in (points, point_valid, count)]
+    pose = _pose_from_preds(preds.logits, preds.scales, *rows, tuple_idx, gumbel, cat, pipe,
+                            sphere_pts, run_opt)
+    scale_norm = norm(pose.scale)
+    loss = _recon_loss(rows[0], pose, scale_norm, cat.up_sym, cat.up_axis_index)
+    return PoseEstimate(pose.rotation, pose.translation, pose.scale, scale_norm, loss)
+
+
 def estimate_pose_branch(
     branch_fn: BranchFn,
     points: torch.Tensor,
@@ -276,14 +294,9 @@ def estimate_pose_branch(
 ) -> PoseEstimate:
     """One branch's whole vote-and-align pipeline on given tuples, with its
     own reconstruction loss (`pick` stays None: there is nothing to pick)."""
-    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(points.device)
-    preds = branch_fn(points, tuple_idx)
-    rows = [x[None] for x in (preds.logits, preds.scales, points, point_valid, count, tuple_idx,
-                              gumbel)]
-    pose = _pose_from_preds(*rows, cat, pipe, sphere_pts, run_opt)
-    scale_norm = norm(pose.scale)
-    loss = _recon_loss(points[None], pose, scale_norm, cat.up_sym, cat.up_axis_index)
-    return PoseEstimate(pose.rotation[0], pose.translation[0], pose.scale[0], scale_norm[0], loss[0])
+    est = _branch_rows(branch_fn, points, point_valid, count, tuple_idx[None], gumbel[None], cat,
+                       pipe, run_opt)
+    return PoseEstimate(*(f[0] for f in est[:5]))
 
 
 def estimate_pose_branch_restarts(
@@ -302,88 +315,98 @@ def estimate_pose_branch_restarts(
     its own tuple sample and bin samples (`draws`, one BranchDraws per
     restart, or drawn from `generator`), and the lowest clipped
     reconstruction loss wins, the first on ties (eval.py:358-372). The passes
-    run one after another, so memory is that of one pass."""
+    are the rows of one batched pass, as the JAX package vmaps them:
+    `branch_fn(points, tuple_idx)` gets the (restarts, P, k) tuples at once,
+    and memory grows with `restarts`."""
     if draws is None:
         draws = [draw_branch(cat, pipe, points.device, generator) for _ in range(restarts)]
     if len(draws) != restarts:
         raise ValueError(f"expected {restarts} BranchDraws, got {len(draws)}")
-    ests = [estimate_pose_branch(branch_fn, points, point_valid, count,
-                                 masked_tuple_choice(d.tuple_u, count), d.gumbel, cat, pipe, run_opt)
-            for d in draws]
-    i = torch.argmin(torch.stack([e.loss for e in ests]))
-    return PoseEstimate(*(_at(torch.stack([getattr(e, f) for e in ests]), i)
-                          for f in PoseEstimate._fields[:5]))
+    tuple_idx = masked_tuple_choice(torch.stack([d.tuple_u for d in draws]), count)
+    ests = _branch_rows(branch_fn, points, point_valid, count, tuple_idx,
+                        torch.stack([d.gumbel for d in draws]), cat, pipe, run_opt)
+    i = torch.argmin(ests.loss)
+    return PoseEstimate(*(_at(f, i) for f in ests[:5]))
 
 
 class GroupMember(NamedTuple):
-    """One instance of a group after its branch MLPs: the enabled branches'
-    outputs stacked on a leading branch axis, visual first."""
+    """A group's instances after their branch MLPs, on a leading (B,)
+    instance axis (none for one instance): the enabled branches' outputs
+    stacked on a branch axis after it, visual first."""
 
-    points: torch.Tensor       # (N, 3)
-    point_valid: torch.Tensor  # (N,)
-    count: torch.Tensor        # ()
-    tuple_idx: torch.Tensor    # (P, tuple size), shared by the branches
-    logits: torch.Tensor       # (branches, P, 6, bins)
-    scales: torch.Tensor       # (branches, P, 3)
-    gumbel: torch.Tensor       # (branches, P * 6, bins)
+    points: torch.Tensor       # ([B,] N, 3)
+    point_valid: torch.Tensor  # ([B,] N)
+    count: torch.Tensor        # ([B])
+    tuple_idx: torch.Tensor    # ([B,] P, tuple size), shared by the branches
+    logits: torch.Tensor       # ([B,] branches, P, 6, bins)
+    scales: torch.Tensor       # ([B,] branches, P, 3)
+    gumbel: torch.Tensor       # ([B,] branches, P * 6, bins)
 
 
 class EnsembleInput(NamedTuple):
-    """One instance of a group before its branch MLPs."""
+    """A group's instances before their branch MLPs, stacked on a leading
+    (B,) instance axis. `dino_fn(points, tuple_idx)` / `shot_fn` take the
+    group's (B, N, 3) points and (B, P, k) tuples and return (B, P, ...)
+    TuplePredictions: one forward a branch for the whole group."""
 
     dino_fn: Optional[BranchFn]
     shot_fn: Optional[BranchFn]
-    points: torch.Tensor
-    point_valid: torch.Tensor
-    count: torch.Tensor
-    draws: Sequence[PoseDraws]  # one per restart
+    points: torch.Tensor        # (B, N, 3)
+    point_valid: torch.Tensor   # (B, N)
+    count: torch.Tensor         # (B,)
+    draws: Sequence[PoseDraws]  # one per restart, every field (B, ...)
+
+
+def stack_draws(draws: Sequence[PoseDraws]) -> PoseDraws:
+    """Per-instance PoseDraws of one restart as a group's (B, ...) draws."""
+    return PoseDraws(*(torch.stack(f) for f in zip(*draws)))
 
 
 def branch_outputs(dino_fn, shot_fn, points, point_valid, count, draws: PoseDraws,
                    use_visual: bool = True, use_geo: bool = True) -> GroupMember:
-    """Tuple choice and the enabled branch MLPs of one instance (one shared
-    tuple sample, like the reference's single `point_idxs_all`)."""
+    """Tuple choice and the enabled branch MLPs (one shared tuple sample a
+    cloud, like the reference's single `point_idxs_all`): one instance, or a
+    group on a leading (B,) axis with draws of (B, ...), one forward a
+    branch."""
     tuple_idx = masked_tuple_choice(draws.tuple_u, count)
     outs = []
     if use_visual:
         outs.append((dino_fn(points, tuple_idx), draws.gumbel_dino))
     if use_geo:
         outs.append((shot_fn(points, tuple_idx), draws.gumbel_shot))
+    axis = points.dim() - 2
     return GroupMember(points, point_valid, count, tuple_idx,
-                       torch.stack([pr.logits for pr, _ in outs]),
-                       torch.stack([pr.scales for pr, _ in outs]),
-                       torch.stack([g for _, g in outs]))
+                       torch.stack([pr.logits for pr, _ in outs], dim=axis),
+                       torch.stack([pr.scales for pr, _ in outs], dim=axis),
+                       torch.stack([g for _, g in outs], dim=axis))
 
 
-def estimate_pose_group(members: Sequence[GroupMember], cat: CategoryConfig, pipe: PipelineConfig,
-                        run_opt: bool = True, use_visual: bool = True) -> PoseEstimate:
+def estimate_pose_group(members: Union[GroupMember, Sequence[GroupMember]], cat: CategoryConfig,
+                        pipe: PipelineConfig, run_opt: bool = True,
+                        use_visual: bool = True) -> PoseEstimate:
     """The pose graph after the MLPs for a group of instances that share a
     category and a PipelineConfig: every (instance, branch) row through one
     batched vote, noisy-pair filter, cone vote and alignment, then each
     instance's branch arbitration. The counterpart of the vmapped `one` in
-    the JAX driver's `_frame_group_fn`. Returns a PoseEstimate whose every
-    field has a leading (instances,) axis; `use_visual` says whether the
-    first branch of each member is the visual one (for `pick`)."""
-    n_inst, n_br = len(members), members[0].logits.shape[0]
-    dev = members[0].points.device
+    the JAX driver's `_frame_group_fn`. `members` is a group's GroupMember
+    (a leading (B,) axis) or a sequence of single instances' ones. Returns a
+    PoseEstimate whose every field has a leading (instances,) axis;
+    `use_visual` says whether the first branch is the visual one (for
+    `pick`)."""
+    if not isinstance(members, GroupMember):
+        members = GroupMember(*(torch.stack(f) for f in zip(*members)))
+    n_inst, n_br = members.logits.shape[:2]
+    dev = members.points.device
     sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(dev)
-
-    def per_instance(name):
-        return torch.stack([getattr(m, name) for m in members])
-
-    def per_row(name):    # instance-major: instance 0's branches, then instance 1's
-        return torch.cat([getattr(m, name) for m in members])
-
-    inst = [per_instance(f) for f in ("points", "point_valid", "count", "tuple_idx")]
-    points = inst[0]
-    rows = [x.repeat_interleave(n_br, dim=0) for x in inst]
-    poses = _pose_from_preds(per_row("logits"), per_row("scales"), *rows, per_row("gumbel"),
-                             cat, pipe, sphere_pts, run_opt)
+    # rows are instance-major: instance 0's branches, then instance 1's
+    rows = [x.repeat_interleave(n_br, dim=0) for x in members[:4]]
+    poses = _pose_from_preds(*(x.flatten(0, 1) for x in members[4:6]), *rows,
+                             members.gumbel.flatten(0, 1), cat, pipe, sphere_pts, run_opt)
     poses = BranchPose(*(f.reshape(n_inst, n_br, *f.shape[1:]) for f in poses))
 
     scale = poses.scale[:, 0]
     scale_norm = norm(scale)
-    pick, loss = _arbitrate(points, poses, scale_norm, cat.up_sym, pipe.arbiter,
+    pick, loss = _arbitrate(members.points, poses, scale_norm, cat.up_sym, pipe.arbiter,
                             pipe.arbiter_margin, cat.up_axis_index)
     branch_id = pick if use_visual else pick + 1
     which = torch.arange(n_inst, device=dev)
@@ -391,31 +414,38 @@ def estimate_pose_group(members: Sequence[GroupMember], cat: CategoryConfig, pip
                         scale_norm, loss, branch_id.to(torch.int32))
 
 
-def estimate_pose_ensembles(instances: Sequence[EnsembleInput], cat: CategoryConfig,
-                            pipe: PipelineConfig, run_opt: bool = True, use_visual: bool = True,
+def estimate_pose_ensembles(group: EnsembleInput, cat: CategoryConfig, pipe: PipelineConfig,
+                            run_opt: bool = True, use_visual: bool = True,
                             use_geo: bool = True) -> PoseEstimate:
     """`estimate_pose_ensemble` for a group of instances at once: each
-    restart runs every instance's MLPs, then one `estimate_pose_group` call
-    for the group; restarts run one after another (lax.map in the JAX
-    package) and each instance keeps its lowest reported loss, the first on
-    ties. Every field has a leading (instances,) axis."""
+    restart runs the tuple choice and one forward of each enabled branch MLP
+    for the whole group (`branch_outputs`), then one `estimate_pose_group`
+    call; restarts run one after another (lax.map in the JAX package) and
+    each instance keeps its lowest reported loss, the first on ties. Every
+    field has a leading (instances,) axis."""
     if not (use_visual or use_geo):
         raise ValueError("at least one branch must be enabled")
     n_runs = pipe.restarts
-    for x in instances:
-        if len(x.draws) != n_runs:
-            raise ValueError(f"expected {n_runs} PoseDraws (pipe.restarts), got {len(x.draws)}")
+    if len(group.draws) != n_runs:
+        raise ValueError(f"expected {n_runs} PoseDraws (pipe.restarts), got {len(group.draws)}")
     single = dataclasses.replace(pipe, restarts=1)
     ests = [estimate_pose_group(
-        [branch_outputs(x.dino_fn, x.shot_fn, x.points, x.point_valid, x.count, x.draws[r],
-                        use_visual, use_geo) for x in instances],
-        cat, single, run_opt, use_visual) for r in range(n_runs)]
+        branch_outputs(group.dino_fn, group.shot_fn, group.points, group.point_valid, group.count,
+                       d, use_visual, use_geo),
+        cat, single, run_opt, use_visual) for d in group.draws]
     if n_runs == 1:
         return ests[0]
     i = torch.argmin(torch.stack([e.loss for e in ests]), dim=0)
-    which = torch.arange(len(instances), device=i.device)
+    which = torch.arange(group.points.shape[0], device=i.device)
     return PoseEstimate(*(torch.stack([getattr(e, f) for e in ests])[i, which]
                           for f in PoseEstimate._fields))
+
+
+def _group_of_one(fn: Optional[BranchFn]) -> Optional[BranchFn]:
+    """A single instance's branch function as a group's of one instance."""
+    if fn is None:
+        return None
+    return lambda pts, ti: TuplePredictions(*(x[None] for x in fn(pts[0], ti[0])))
 
 
 def estimate_pose_ensemble(
@@ -438,8 +468,9 @@ def estimate_pose_ensemble(
     branch's TuplePredictions. `draws` holds one PoseDraws per restart (a
     bare PoseDraws when `pipe.restarts` is 1); when None they are drawn from
     `generator`. With restarts > 1 the ensemble reruns on each draw and the
-    lowest reported loss wins (first on ties). Both branches run as the two
-    rows of one `estimate_pose_group` call.
+    lowest reported loss wins (first on ties). A group of one instance for
+    `estimate_pose_ensembles`: both branches are the two rows of one
+    `estimate_pose_group` call.
     """
     if not (use_visual or use_geo):
         raise ValueError("at least one branch must be enabled")
@@ -448,6 +479,7 @@ def estimate_pose_ensemble(
     elif isinstance(draws, PoseDraws):
         draws = [draws]
     est = estimate_pose_ensembles(
-        [EnsembleInput(dino_fn, shot_fn, points, point_valid, count, list(draws))], cat, pipe,
-        run_opt, use_visual, use_geo)
+        EnsembleInput(_group_of_one(dino_fn), _group_of_one(shot_fn), points[None],
+                      point_valid[None], count[None], [stack_draws([d]) for d in draws]),
+        cat, pipe, run_opt, use_visual, use_geo)
     return PoseEstimate(*(f[0] for f in est))

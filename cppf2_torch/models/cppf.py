@@ -14,11 +14,12 @@ from torch import nn
 
 from cppf2_torch.core.pairs import _comb_indices
 from cppf2_torch.models.layers import Dense, ResMLP
+from cppf2_torch.ops.voting import take_rows
 
 
 class TuplePredictions(NamedTuple):
-    logits: torch.Tensor  # (T, 6, num_bins) float32
-    scales: torch.Tensor  # (T, 3) float32
+    logits: torch.Tensor  # (..., T, 6, num_bins) float32
+    scales: torch.Tensor  # (..., T, 3) float32
 
 
 class Heads(nn.Module):
@@ -32,16 +33,27 @@ class Heads(nn.Module):
         logits = self.logit_encoder(feat)
         scales = self.scale_encoder(feat)
         return TuplePredictions(
-            logits.reshape(feat.shape[0], 6, self.num_bins).float(), scales.float())
+            logits.reshape(*feat.shape[:-1], 6, self.num_bins).float(), scales.float())
+
+
+def _gather(x: torch.Tensor, ti: torch.Tensor) -> torch.Tensor:
+    """Per-point features at the tuples' points: x (N, C) with indices of any
+    shape, or a group's x (B, N, C) with indices (B, ...), each row's own."""
+    return x[ti] if x.dim() == 2 else take_rows(x, ti)
 
 
 def _pair_coords(g_pts: torch.Tensor, k: int) -> torch.Tensor:
     ii, jj = _comb_indices(k)
-    return (g_pts[:, ii, :] - g_pts[:, jj, :]).reshape(g_pts.shape[0], -1)
+    return (g_pts[..., ii, :] - g_pts[..., jj, :]).flatten(-2)
 
 
 class ShotBranch(nn.Module):
-    """Geometric branch over SHOT descriptors and normals."""
+    """Geometric branch over SHOT descriptors and normals.
+
+    `forward(points, shot, normals, tuple_idx)`: one cloud (N, ...) with
+    tuples (T, k) or (R, T, k), or a group (B, N, ...) with (B, T, k); the
+    per-point encoder runs once a cloud and the tuple encoder once over
+    every tuple, so a group or a restart axis is one forward."""
 
     def __init__(self, tuple_size: int = 5, num_bins: int = 32, shot_dim: int = 352,
                  compute_dtype=torch.float32):
@@ -56,17 +68,16 @@ class ShotBranch(nn.Module):
     def forward(self, points, shot, normals, tuple_idx) -> TuplePredictions:
         k = self.tuple_size
         ii, jj = _comb_indices(k)
-        enc = self.shot_encoder(shot)                       # (N, 64)
+        enc = self.shot_encoder(shot)                       # (..., N, 64)
         ti = tuple_idx.long()
-        g_pts, g_enc, g_nrm = points[ti], enc[ti], normals[ti]
-        ncos = torch.abs(torch.sum(g_nrm[:, ii, :] * g_nrm[:, jj, :], dim=-1))
-        feats = torch.cat(
-            [_pair_coords(g_pts, k), ncos, g_enc.reshape(g_enc.shape[0], -1).float()], dim=-1)
+        g_pts, g_enc, g_nrm = _gather(points, ti), _gather(enc, ti), _gather(normals, ti)
+        ncos = torch.abs(torch.sum(g_nrm[..., ii, :] * g_nrm[..., jj, :], dim=-1))
+        feats = torch.cat([_pair_coords(g_pts, k), ncos, g_enc.flatten(-2).float()], dim=-1)
         return self.heads(self.tuple_encoder(feats))
 
 
 class DinoBranch(nn.Module):
-    """Visual branch over DINOv2 patch descriptors."""
+    """Visual branch over DINOv2 patch descriptors; shapes as `ShotBranch`."""
 
     def __init__(self, tuple_size: int = 5, num_bins: int = 32, desc_dim: int = 1024,
                  proj_dim: int = 256, compute_dtype=torch.float32):
@@ -80,8 +91,8 @@ class DinoBranch(nn.Module):
 
     def forward(self, points, desc, tuple_idx) -> TuplePredictions:
         ti = tuple_idx.long()
-        pdesc = self.desc_transform(desc)                   # (N, 256)
-        g_desc = pdesc[ti].reshape(ti.shape[0], -1)
-        pair_desc = self.desc_pair_transform(g_desc)
-        feats = torch.cat([_pair_coords(points[ti], self.tuple_size), pair_desc.float()], dim=-1)
+        pdesc = self.desc_transform(desc)                   # (..., N, 256)
+        pair_desc = self.desc_pair_transform(_gather(pdesc, ti).flatten(-2))
+        feats = torch.cat([_pair_coords(_gather(points, ti), self.tuple_size), pair_desc.float()],
+                          dim=-1)
         return self.heads(self.tuple_encoder(feats))

@@ -49,6 +49,7 @@ from torch import nn
 from cppf2_torch.core.geometry import norm
 from cppf2_torch.models.layers import Dense, QDense, lecun_normal_, quantize_kernel
 from cppf2_torch.ops import attention
+from cppf2_torch.ops.voting import take_rows
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -338,7 +339,8 @@ def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
                          impl: str = "gather") -> torch.Tensor:
     """Sample the (gh, gw, D) token grid at (K, 2) image-pixel coordinates
     with F.grid_sample(bilinear, align_corners=False) semantics, zero
-    outside; optionally L2-normalize.
+    outside; optionally L2-normalize. A leading (B,) axis on both samples
+    each grid at its own points, each row as the single call does.
 
     impl="gather" takes the four taps as row gathers; impl="onehot" folds
     them into one (K, gh*gw) combination matrix and one product with the
@@ -346,10 +348,12 @@ def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
     float32, as the JAX package's "onehot" form does."""
     if impl not in ("gather", "onehot"):
         raise ValueError(f"unknown impl {impl!r} (expected 'gather' or 'onehot')")
-    gh, gw, d = feat_grid.shape
+    if feat_grid.dim() == 3:
+        return interpolate_features(feat_grid[None], pts_xy[None], image_hw, normalize, impl)[0]
+    b, gh, gw, d = feat_grid.shape
     h, w = image_hw
-    nx = ((pts_xy[:, 0] + 0.5) / w) * 2 - 1
-    ny = ((pts_xy[:, 1] + 0.5) / h) * 2 - 1
+    nx = ((pts_xy[..., 0] + 0.5) / w) * 2 - 1
+    ny = ((pts_xy[..., 1] + 0.5) / h) * 2 - 1
     fx = ((nx + 1) * gw - 1) / 2
     fy = ((ny + 1) * gh - 1) / 2
     x0f, y0f = torch.floor(fx), torch.floor(fy)
@@ -357,23 +361,27 @@ def interpolate_features(feat_grid: torch.Tensor, pts_xy: torch.Tensor,
     wx, wy = fx - x0f, fy - y0f
     taps = ((y0, x0, (1 - wx) * (1 - wy)), (y0, x0 + 1, wx * (1 - wy)),
             (y0 + 1, x0, (1 - wx) * wy), (y0 + 1, x0 + 1, wx * wy))
+    flat = feat_grid.reshape(b, gh * gw, d)
+
+    def cell(yy, xx):
+        # an out-of-range tap adds nothing (the reference's all-zero one-hot row)
+        inb = (yy >= 0) & (yy < gh) & (xx >= 0) & (xx < gw)
+        return inb, torch.clamp(yy, 0, gh - 1) * gw + torch.clamp(xx, 0, gw - 1)
 
     if impl == "onehot":
-        comb = torch.zeros((pts_xy.shape[0], gh * gw), device=feat_grid.device)
+        comb = torch.zeros((b, pts_xy.shape[-2], gh * gw), device=feat_grid.device)
         for yy, xx, wt in taps:
-            inb = (yy >= 0) & (yy < gh) & (xx >= 0) & (xx < gw)
-            # an out-of-range tap adds nothing (the reference's all-zero one-hot row)
-            idx = torch.clamp(yy, 0, gh - 1) * gw + torch.clamp(xx, 0, gw - 1)
-            comb.scatter_add_(1, idx[:, None], torch.where(inb, wt, torch.zeros_like(wt))[:, None])
+            inb, idx = cell(yy, xx)
+            comb.scatter_add_(2, idx[..., None], torch.where(inb, wt, torch.zeros_like(wt))[..., None])
         bf = torch.bfloat16
-        out = torch.matmul(comb.to(bf).float(), feat_grid.reshape(gh * gw, d).to(bf).float())
+        out = torch.matmul(comb.to(bf).float(), flat.to(bf).float())
     else:
         def tap(yy, xx):
-            inb = (yy >= 0) & (yy < gh) & (xx >= 0) & (xx < gw)
-            val = feat_grid[torch.clamp(yy, 0, gh - 1), torch.clamp(xx, 0, gw - 1)]
-            return torch.where(inb[:, None], val, torch.zeros((), dtype=val.dtype, device=val.device))
+            inb, idx = cell(yy, xx)
+            val = take_rows(flat, idx)
+            return torch.where(inb[..., None], val, torch.zeros((), dtype=val.dtype, device=val.device))
 
-        out = sum(tap(yy, xx) * wt[:, None] for yy, xx, wt in taps)
+        out = sum(tap(yy, xx) * wt[..., None] for yy, xx, wt in taps)
     if normalize:
         out = out / torch.clamp(norm(out, keepdim=True), min=1e-12)
     return out
@@ -449,16 +457,17 @@ def bbox_crop_token_grid(model: DinoViT, rgb: torch.Tensor, mask: torch.Tensor,
 
 
 def crop_keypoints(pixel_yx: torch.Tensor, txys: torch.Tensor) -> torch.Tensor:
-    """(n, 2) image pixels (y, x) as float (x, y) positions in the crop of
-    transform `txys`."""
+    """([B,] n, 2) image pixels (y, x) as float (x, y) positions in the crop
+    of transform `txys` ([B,] 3)."""
     kp = pixel_yx.flip(-1).to(torch.float32)
-    return (kp - txys[None, :2]) / txys[2]
+    return (kp - txys[..., None, :2]) / txys[..., None, 2:3]
 
 
 def sample_crop_descriptors(grid: torch.Tensor, pixel_yx: torch.Tensor, txys: torch.Tensor,
                             out_size: int = 256, impl: str = "gather") -> torch.Tensor:
     """Bilinear token sampling of a crop grid at the cloud's image pixels
-    (`impl` as in `interpolate_features`)."""
+    (`impl` as in `interpolate_features`). A group's (B, gh, gw, D) grids,
+    (B, n, 2) pixels and (B, 3) transforms give (B, n, D) in one call."""
     return interpolate_features(grid, crop_keypoints(pixel_yx, txys), (out_size, out_size), impl=impl)
 
 

@@ -20,16 +20,20 @@ from typing import NamedTuple
 import torch
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.ops.voting import take_rows
 
 
 _QUERY_CHUNK = 8192  # queries per (chunk, N) distance block
+# elements of one (instances, queries, N) distance block: 2^27 f32 is 512 MB
+# a live intermediate, two instances of 8192 points at once
+_BLOCK_ELEMS = 1 << 27
 
 
 class Neighbors(NamedTuple):
-    idx: torch.Tensor    # (N, K) int64 neighbor indices, nearest first (self included)
-    dist: torch.Tensor   # (N, K) float32 distances
-    valid: torch.Tensor  # (N, K) bool: within radius and query valid
-    rel: torch.Tensor    # (N, K, 3) neighbor - query offsets
+    idx: torch.Tensor    # ([B,] N, K) int64 neighbor indices, nearest first (self included)
+    dist: torch.Tensor   # ([B,] N, K) float32 distances
+    valid: torch.Tensor  # ([B,] N, K) bool: within radius and query valid
+    rel: torch.Tensor    # ([B,] N, K, 3) neighbor - query offsets
 
 
 def _sum_sq_fma(x: torch.Tensor) -> torch.Tensor:
@@ -37,11 +41,25 @@ def _sum_sq_fma(x: torch.Tensor) -> torch.Tensor:
     float64 (the product is exact there; the sum rounds once more, which
     differs from a true fma only at an exact float32 midpoint). The packed
     keys round d2, so one ulp of a norm can move a key."""
-    s = x[:, 0] * x[:, 0]
+    s = x[..., 0] * x[..., 0]
     for i in (1, 2):
-        xi = x[:, i].double()
+        xi = x[..., i].double()
         s = (xi * xi + s.double()).float()
     return s
+
+
+def as_one_cloud(points: torch.Tensor, neighbors: Neighbors):
+    """A (B, N) group's clouds and neighborhoods as one (B * N) batch of
+    points, each neighbor index moved into its instance's block, so the
+    per-point stages (normals, LRF, SHOT) run once over the group. A single
+    (N, 3) cloud passes through."""
+    if points.dim() == 2:
+        return points, neighbors
+    b, n = points.shape[:2]
+    off = torch.arange(b, device=points.device)[:, None, None] * n
+    return points.reshape(b * n, 3), Neighbors(
+        (neighbors.idx + off).flatten(0, 1), neighbors.dist.flatten(0, 1),
+        neighbors.valid.flatten(0, 1), neighbors.rel.flatten(0, 1))
 
 
 def knn_radius_neighbors(
@@ -54,13 +72,22 @@ def knn_radius_neighbors(
     """K nearest neighbors within `radius` of every point, fixed shape.
 
     Invalid points are parked at 1e6 so they fail every radius test. The
-    (chunk, N) distance block is the only quadratic buffer. `exact` selects
-    on the unquantized squared distances (module docstring)."""
-    n = points.shape[0]
+    (instances, chunk, N) distance block is the only quadratic buffer.
+    `exact` selects on the unquantized squared distances (module docstring).
+
+    A leading (B,) axis gives each instance's neighbors inside its own
+    cloud (the packed key depends on N, so clouds are never merged); a row
+    equals the single call's result to the bit. Instances go through in
+    blocks of at most `_BLOCK_ELEMS` distances."""
+    if points.dim() == 2:
+        return Neighbors(*(f[0] for f in knn_radius_neighbors(points[None], valid[None], radius,
+                                                              k, exact)))
+    b, n = points.shape[:2]
     k = min(k, n)
     query_chunk = min(_QUERY_CHUNK, max(-(-n // 256) * 256, 256))
+    per_block = max(_BLOCK_ELEMS // (query_chunk * max(n, 1)), 1)
     park = torch.tensor(1e6, dtype=points.dtype, device=points.device)
-    pts = torch.where(valid[:, None], points, park)
+    pts = torch.where(valid[..., None], points, park)
     # column norms as a plain sum, query norms as an fma chain: the two
     # roundings XLA's CPU fusions give them, so the packed keys agree
     sq = torch.sum(pts * pts, dim=-1)
@@ -69,28 +96,30 @@ def knn_radius_neighbors(
     levels = max((1 << 24) // max(n, 1) - 1, 1)
     col = torch.arange(n, dtype=torch.float32, device=points.device)
 
-    dists, idxs, rels = [], [], []
-    for start in range(0, n, query_chunk):
-        q = pts[start:start + query_chunk]
-        qsq = q_sq[start:start + query_chunk]
-        cross = q @ pts.t()
-        d2 = qsq[:, None] + sq[None, :] - 2.0 * cross
-        if exact:
-            d2_k, idx = torch.sort(d2, dim=-1, stable=True)
-            d2_k, idx = d2_k[:, :k], idx[:, :k]
-            diff = pts[idx] - q[:, None, :]
-            dists.append(torch.sqrt(torch.clamp(d2_k, min=0.0)))
+    blocks = []
+    for lo in range(0, b, per_block):
+        p = pts[lo:lo + per_block]
+        dists, idxs, rels = [], [], []
+        for start in range(0, n, query_chunk):
+            q = p[:, start:start + query_chunk]
+            qsq = q_sq[lo:lo + per_block, start:start + query_chunk]
+            cross = torch.matmul(q, p.transpose(1, 2))
+            d2 = qsq[..., None] + sq[lo:lo + per_block, None, :] - 2.0 * cross
+            if exact:
+                d2_k, idx = torch.sort(d2, dim=-1, stable=True)
+                d2_k, idx = d2_k[..., :k], idx[..., :k]
+                dists.append(torch.sqrt(torch.clamp(d2_k, min=0.0)))
+            else:
+                qd2 = torch.round(torch.clamp(d2, 0.0, r2) * (levels / r2))
+                enc = qd2 * n + col
+                enc_k = torch.topk(enc, k, dim=-1, largest=False, sorted=True).values
+                idx = torch.remainder(enc_k, float(n)).to(torch.int64)
+            diff = take_rows(p, idx) - q[:, :, None, :]
+            if not exact:
+                dists.append(norm(diff))
             idxs.append(idx)
             rels.append(diff)
-            continue
-        qd2 = torch.round(torch.clamp(d2, 0.0, r2) * (levels / r2))
-        enc = qd2 * n + col[None, :]
-        enc_k = torch.topk(enc, k, dim=-1, largest=False, sorted=True).values
-        idx = torch.remainder(enc_k, float(n)).to(torch.int64)
-        diff = pts[idx] - q[:, None, :]
-        dists.append(norm(diff))
-        idxs.append(idx)
-        rels.append(diff)
-    dist = torch.cat(dists)
-    nb_valid = (dist <= radius) & valid[:, None]
-    return Neighbors(torch.cat(idxs), dist, nb_valid, torch.cat(rels))
+        blocks.append([torch.cat(x, dim=1) for x in (idxs, dists, rels)])
+    idx, dist, rel = (torch.cat(x) for x in zip(*blocks))
+    nb_valid = (dist <= radius) & valid[..., None]
+    return Neighbors(idx, dist, nb_valid, rel)

@@ -42,10 +42,12 @@ def farthest_point_sample(points: torch.Tensor, valid: torch.Tensor, m: int,
 def masked_tuple_choice(u: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
     """(m, k) uniform indices over the valid prefix [0, count) of a padded
     cloud, from injected uniforms `u` (m, k) in [0, 1): floor(u * count).
+    A group's (B, m, k) uniforms with (B,) counts pick in each instance's
+    own prefix.
 
     The one tuple-sampling convention of training (train_shot.py:88) and
     inference (eval.py:207); `voxel_downsample` packs valid points first."""
-    return torch.floor(u * count).to(torch.int64)
+    return torch.floor(u * count[..., None, None]).to(torch.int64)
 
 
 def masked_choice(u: Union[torch.Tensor, torch.Generator], count: torch.Tensor,

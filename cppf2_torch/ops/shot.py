@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 from cppf2_torch.core.geometry import norm
 from cppf2_torch.ops.eig3 import sym_eig3x3
-from cppf2_torch.ops.neighbors import Neighbors, knn_radius_neighbors
+from cppf2_torch.ops.neighbors import Neighbors, as_one_cloud, knn_radius_neighbors
 from cppf2_torch.ops.normals import estimate_normals
 
 _EPS = 1e-12
@@ -120,10 +120,13 @@ def compute_shot_features(points: torch.Tensor, valid: torch.Tensor, radius: flo
                           exact: bool = False):
     """Normals and SHOT in one call (the reference's shot.compute with
     normal_r == shot_r). Returns (shot (N, 352), normals (N, 3)). `exact`
-    is the kNN's exact route."""
-    nbrs = knn_radius_neighbors(points, valid, radius, k, exact=exact)
-    normals = estimate_normals(points, nbrs)
-    return compute_shot(points, normals, nbrs, radius), normals
+    is the kNN's exact route. A leading (B,) axis takes each instance's
+    neighbors in its own cloud, then runs the per-point stages once over
+    the group's B * N points (`as_one_cloud`)."""
+    pts, nbrs = as_one_cloud(points, knn_radius_neighbors(points, valid, radius, k, exact=exact))
+    normals = estimate_normals(pts, nbrs)
+    shot = compute_shot(pts, normals, nbrs, radius)
+    return shot.reshape(*points.shape[:-1], SHOT_DIM), normals.reshape(points.shape)
 
 
 # --- CSHOT (colour SHOT-1344) ------------------------------------------------
@@ -159,14 +162,18 @@ def compute_cshot(points: torch.Tensor, colors: torch.Tensor, normals: torch.Ten
     100, 120, 120) between each neighbour and the point, on the shape half's
     spatial weights; every in-radius neighbour feeds the colour half, with
     no normal test. The 1344 values are L2-normalized jointly (zero rows
-    when empty). `colors`: (N, 3) RGB in [0, 1]."""
+    when empty). `colors`: (N, 3) RGB in [0, 1], or a group's (B, N / B, 3)
+    when `points` are the group's clouds as one batch (`as_one_cloud`): each
+    cloud's colours convert alone, since the conversion's powers and product
+    round an element otherwise when the number of points around it changes."""
     lrf_spatial = _lrf_spatial_weights(points, neighbors, radius)
     shape_desc = compute_shot(points, normals, neighbors, radius, _lrf_spatial=lrf_spatial)
     _, w_spatial = lrf_spatial
     contrib = neighbors.valid & (neighbors.dist > _EPS)
     cw = contrib.to(points.dtype)
-    lab_n = _rgb_to_cielab(colors) / torch.tensor([100.0, 120.0, 120.0], dtype=points.dtype,
-                                                  device=points.device)
+    lab = (torch.cat([_rgb_to_cielab(c) for c in colors]) if colors.dim() == 3
+           else _rgb_to_cielab(colors))
+    lab_n = lab / torch.tensor([100.0, 120.0, 120.0], dtype=points.dtype, device=points.device)
     cdist = torch.sum(torch.abs(lab_n[neighbors.idx] - lab_n[:, None, :]), dim=-1) / 3.0
     c_cont = torch.clamp(cdist, 0.0, 1.0) * (N_COLOR_BINS - 1)
     C = _soft_bins_centers_int(c_cont, N_COLOR_BINS)
@@ -180,7 +187,9 @@ def compute_cshot_features(points: torch.Tensor, colors: torch.Tensor, valid: to
                            radius: float, k: int = 96):
     """Normals and colour SHOT in one call, the analog of the reference's
     `shot.compute_color(pc, pc_color, normal_r, shot_r)`. Returns (cshot
-    (N, 1344), normals (N, 3))."""
-    nbrs = knn_radius_neighbors(points, valid, radius, k)
-    normals = estimate_normals(points, nbrs)
-    return compute_cshot(points, colors, normals, nbrs, radius), normals
+    (N, 1344), normals (N, 3)); a leading (B,) axis as in
+    `compute_shot_features`."""
+    pts, nbrs = as_one_cloud(points, knn_radius_neighbors(points, valid, radius, k))
+    normals = estimate_normals(pts, nbrs)
+    cshot = compute_cshot(pts, colors, normals, nbrs, radius)
+    return cshot.reshape(*points.shape[:-1], CSHOT_DIM), normals.reshape(points.shape)

@@ -11,6 +11,8 @@ come from different seeds and include a row with no valid vote (count 0)
 and a repeated row.
 """
 
+from typing import NamedTuple
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -375,11 +377,38 @@ def group_reference():
     for (fi, desc), key in zip(clouds, keys):
         pc, valid, shot, normal = (t(x) for x in (fi.pc, fi.valid, fi.shot, fi.normal))
         desc_t = t(desc)
-        inputs.append(tpipeline.EnsembleInput(
+        inputs.append(Instance(
             lambda pts, ti, desc_t=desc_t: tdino_m(pts, desc_t, ti),
             lambda pts, ti, shot=shot, normal=normal: tshot_m(pts, shot, normal, ti),
-            pc, valid, torch.tensor(int(fi.count)), [jax_pose_draws(key, jpipe, 5)]))
+            pc, valid, torch.tensor(int(fi.count)), [jax_pose_draws(key, jpipe, 5)],
+            desc_t, shot, normal))
     return inputs, {False: run(False), True: run(True)}
+
+
+class Instance(NamedTuple):
+    """One instance of `group_reference`: its single-instance branch
+    functions, cloud and draws, and the features they close over."""
+
+    dino_fn: object
+    shot_fn: object
+    points: torch.Tensor
+    point_valid: torch.Tensor
+    count: torch.Tensor
+    draws: list
+    desc: torch.Tensor
+    shot: torch.Tensor
+    normal: torch.Tensor
+
+
+def group_of(instances):
+    """Instances stacked as one group's EnsembleInput: one forward a branch."""
+    tshot_m, tdino_m = _models()[4:]
+    desc, shot, normal = (torch.stack([getattr(x, f) for x in instances])
+                          for f in ("desc", "shot", "normal"))
+    return tpipeline.EnsembleInput(
+        lambda pts, ti: tdino_m(pts, desc, ti), lambda pts, ti: tshot_m(pts, shot, normal, ti),
+        *(torch.stack([getattr(x, f) for x in instances]) for f in ("points", "point_valid", "count")),
+        [tpipeline.stack_draws(r) for r in zip(*(x.draws for x in instances))])
 
 
 @pytest.mark.parametrize("run_opt", [False, True], ids=["voted", "adam100"])
@@ -411,7 +440,8 @@ def test_ensemble_group_matches_vmapped_jax(group_reference, run_opt):
     tpipeline.align_pose, hist16.hist16_level_peak = count_align, count_level
     try:
         with torch.no_grad():
-            got = tpipeline.estimate_pose_ensembles(inputs + inputs[:1], cat, tpipe, run_opt=run_opt)
+            got = tpipeline.estimate_pose_ensembles(group_of(inputs + inputs[:1]), cat, tpipe,
+                                                    run_opt=run_opt)
     finally:
         tpipeline.align_pose, hist16.hist16_level_peak = align, level
     assert seen == {"align": [6] if run_opt else [], "level": [6] * 4}
