@@ -3,7 +3,11 @@
 
     python3 chip_smoke.py
 
-Phases, each printing its own lines; any failure exits non-zero:
+Phases, each printing its own lines; any failure exits non-zero. Phases 3
+to 10 run the driver's programs eagerly (`programs.disable_capture()`), as
+they ran before the programs were captured: their plain swaps, stage timers
+and recorded kernel inputs need the eager route. Phases 11 and 12 run the
+captured programs:
   1. the card (nvidia-smi name and power limit) and the kernel build: every
      `cppf2_torch/csrc/*.cu` compiled with nvcc for sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the same inputs on the
@@ -150,7 +154,24 @@ Phases, each printing its own lines; any failure exits non-zero:
      forward for the group and one an instance. Then `evaluate_real275_parallel` at world 1 on the two
      frames, a rank block of four instances one pose group (4 rows), against
      each instance alone on the same draws (R 1 degree, T 3 mm) and its
-     launches (4 K2 a block).
+     launches (4 K2 a block). Both routes run once before they are counted:
+     their programs are captured then, and the counted runs replay them;
+     the counts of `align_pose` calls, frontend calls and MLP forwards are
+     those the programs credit at each replay.
+ 12. the captured programs (`cppf2_torch/eval/programs.py`): phase 11's two
+     layouts and eleven mugs (r 4 cm at 0.85 m: chunks of 8 and 3, the 3
+     padded to 4) through `dispatch_frame`, each captured on one frame and
+     replayed three times on a second frame of the same keys with fresh
+     draws, then that frame twice through the eager route: the replayed
+     rows equal the eager ones to the bit (or, where two eager runs differ,
+     R 1 degree, T 3 mm, the same picks), the launches of a replay equal
+     what its programs credit (24 K1 a ViT pack, 4 K2 a chunk), the padded
+     row is dropped at fetch; per frame the first dispatch's ms, the
+     replay's e2e and host ms per `dispatch_frame` call, the eager ms, the
+     busy share, the programs captured and replayed, the eager peak memory
+     beside the shared graph pool's reserved MiB. Then `estimate_instance`
+     captured on phase 3's frame and replayed on another, against eager on
+     the same inputs (equal to the bit), e2e ms and busy share of both.
 
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 4 launches of the slice, all through the fused entry at two rows,
@@ -158,8 +179,9 @@ with a fine level's times, and the demo's launches; the candidate-array
 entry's times stand inside it, and the fine level at 16 rows as `batched`,
 with phase 11's launches; K1's row holds the batched shape and the stride-4 shape
 nested, the latter with the demo's launches; K1 and K2 carry the launches of
-phase 10's int8 paths as `int8_launches`), then the card's name and power
-limit. The last line:
+phase 10's int8 paths as `int8_launches`; both carry `replay_launches`,
+what one replay of phase 12's eight-mug frame launches), then the card's
+name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -177,6 +199,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 import warnings
 
 import numpy as np
@@ -912,6 +935,22 @@ def check_sphere(dev, votes, sph, tol):
 FRAME_CATS = ["bottle", "bowl", "can", "mug"]
 
 
+def cap_frame(rng, h, w, centers, radii):
+    """Sphere caps of `radii` at `centers` on an empty (h, w) depth map in
+    metres (REAL275 K), with depth noise from `rng`: (depth, masks)."""
+    fx, fy = REAL275_K[0, 0], REAL275_K[1, 1]
+    ys, xs = np.mgrid[0:h, 0:w]
+    depth = np.zeros((h, w), np.float32)
+    masks = []
+    for (cx, cy, cz), r in zip(centers, radii):
+        d2 = (xs - (REAL275_K[0, 2] + fx * cx / cz)) ** 2 + (ys - (REAL275_K[1, 2] + fy * cy / cz)) ** 2
+        m = d2 < (r * fx / cz) ** 2
+        bump = np.sqrt(np.maximum(r ** 2 - d2 * (cz / fx) ** 2, 0.0))
+        depth = np.where(m, cz - bump + rng.normal(0, 3e-4, (h, w)), depth).astype(np.float32)
+        masks.append(m)
+    return depth, masks
+
+
 def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0.0, color=False,
                         cats=None, centers=None, radii=None):
     """One REAL275-format frame: sphere caps (by default four, of four
@@ -928,16 +967,9 @@ def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0
     radii = radii or [0.045, 0.07, 0.05, 0.06]
     n = len(cats)
     rng = np.random.default_rng(seed)
-    fx, fy = REAL275_K[0, 0], REAL275_K[1, 1]
-    ys, xs = np.mgrid[0:h, 0:w]
-    depth = np.zeros((h, w), np.float32)
-    masks, rts, scales = [], [], []
+    depth, masks = cap_frame(rng, h, w, centers, radii)
+    rts, scales = [], []
     for (cx, cy, cz), r in zip(centers, radii):
-        d2 = (xs - (REAL275_K[0, 2] + fx * cx / cz)) ** 2 + (ys - (REAL275_K[1, 2] + fy * cy / cz)) ** 2
-        m = d2 < (r * fx / cz) ** 2
-        bump = np.sqrt(np.maximum(r ** 2 - d2 * (cz / fx) ** 2, 0.0))
-        depth = np.where(m, cz - bump + rng.normal(0, 3e-4, (h, w)), depth).astype(np.float32)
-        masks.append(m)
         rt = np.eye(4)
         rt[:3, 3] = (cx, cy, cz)
         rts.append(rt)
@@ -961,16 +993,19 @@ def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0
 
 
 def zero_counts():
+    """The launch counters, on the wrappers themselves (`_MHA`, `_PEAK`,
+    `_LEVEL`), where they stay while a module's name is swapped and where
+    the programs credit their replays."""
     from cppf2_torch.ops import attention, hist16, sphere
 
-    attention.mha.launches = sphere.sphere_accumulate.launches = 0
-    hist16.hist16_peak.launches = hist16.hist16_level_peak.launches = 0
+    attention._MHA.launches = sphere.sphere_accumulate.launches = 0
+    hist16._PEAK.launches = hist16._LEVEL.launches = 0
 
 
 def read_counts():
     from cppf2_torch.ops import attention, hist16, sphere
 
-    return {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
+    return {"mha": attention._MHA.launches, "hist16_peak": hist16._PEAK.launches,
             "sphere_accumulate": sphere.sphere_accumulate.launches}
 
 
@@ -2576,48 +2611,57 @@ BATCH_LAYOUTS = [["mug"] * 8, ["mug"] * 4 + ["bowl"] * 2 + ["can"] * 2]
 BATCH_CENTERS = [(x, y, 0.85) for y in (-0.09, 0.09) for x in (-0.21, -0.07, 0.07, 0.21)]
 
 
-@contextlib.contextmanager
-def counted_align():
-    """Count the calls of the pose graph's `align_pose` and the rows each took."""
+# What the driver's stages did, one item a call: the rows of each `align_pose`
+# call of the pose graph, the instances of each frontend call
+# (`driver.preprocess_frame`) and of each branch MLP's forward. The counting
+# wrappers stay from `install_tallies` on, and every capture of a program
+# records what they counted, which its replays credit (`programs.count_replays`).
+TALLY = types.SimpleNamespace(align=[], frontend=[], shot=[], dino=[])
+
+
+def install_tallies():
+    """Wrap `align_pose` and the driver's frontend for the rest of the run."""
+    from cppf2_torch.eval import driver, programs
     from cppf2_torch.infer import pipeline
 
-    rows, align = [], pipeline.align_pose
+    align, front = pipeline.align_pose, driver.preprocess_frame
 
-    def counting(points, *args, **kwargs):
-        rows.append(points.shape[0])
+    def counting_align(points, *args, **kwargs):
+        TALLY.align.append(points.shape[0])
         return align(points, *args, **kwargs)
 
-    pipeline.align_pose = counting
-    try:
-        yield rows
-    finally:
-        pipeline.align_pose = align
+    def counting_front(depth, mask, *args, **kwargs):
+        TALLY.frontend.append(mask.shape[0])
+        return front(depth, mask, *args, **kwargs)
+
+    pipeline.align_pose, driver.preprocess_frame = counting_align, counting_front
+    for name in vars(TALLY):
+        programs.count_replays(TALLY, name)
+
+
+def tally_mlps(models):
+    """Count each branch MLP forward of `models`, with the instances it took,
+    from now on (before the first capture with them)."""
+    for m in models.values():
+        for branch in ("shot", "dino"):
+            getattr(m, branch).register_forward_pre_hook(
+                lambda mod, args, branch=branch: getattr(TALLY, branch).append(args[-1].shape[0]))
 
 
 @contextlib.contextmanager
-def counted_group_stages(models):
-    """Count the stages that run once a group before its pose graph: the
-    frontend calls (`driver.preprocess_frame`) and each branch MLP's
-    forwards, each with the instances it took."""
-    from cppf2_torch.eval import driver
+def counted_align():
+    """The rows of each `align_pose` call made inside."""
+    TALLY.align.clear()
+    yield TALLY.align
 
-    seen = {"frontend": [], "shot": [], "dino": []}
-    front = driver.preprocess_frame
 
-    def counting(depth, mask, *args, **kwargs):
-        seen["frontend"].append(mask.shape[0])
-        return front(depth, mask, *args, **kwargs)
-
-    hooks = [getattr(m, branch).register_forward_pre_hook(
-        lambda mod, args, branch=branch: seen[branch].append(args[-1].shape[0]))
-        for m in models.values() for branch in ("shot", "dino")]
-    driver.preprocess_frame = counting
-    try:
-        yield seen
-    finally:
-        driver.preprocess_frame = front
-        for h in hooks:
-            h.remove()
+@contextlib.contextmanager
+def counted_group_stages():
+    """The frontend calls and each branch MLP's forwards made inside, each
+    with the instances it took."""
+    for name in ("frontend", "shot", "dino"):
+        getattr(TALLY, name).clear()
+    yield {"frontend": TALLY.frontend, "shot": TALLY.shot, "dino": TALLY.dino}
 
 
 def group_stages(dev, pipe, models, vit, rgb, depth, dets, draws, groups, stride, out_size):
@@ -2688,8 +2732,6 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
     a dict of the phase's numbers."""
     import torch
     import torch.distributed as dist
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from cppf2_torch.eval import driver, parallel_eval
     from cppf2_torch.models.dinov2 import DinoViT
@@ -2703,6 +2745,7 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
     ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
     cat_names = sorted({c for cats in BATCH_LAYOUTS for c in cats})
     models = driver.load_category_models(ckpts, cat_names, torch.bfloat16, dev)
+    tally_mlps(models)
     gen = torch.Generator(device=dev).manual_seed(5)
     with torch.device(dev):
         vit = DinoViT(vit_cfg).eval()
@@ -2736,13 +2779,16 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
             torch.cuda.synchronize()
             return got
 
-        batched()   # warm-up of both routes: they run the same kernels
+        # both routes once before they are counted: their programs are captured
+        # now, and the counted runs replay them (the counts are those of a replay)
+        batched()
+        singles()
         routes = {}
         for label, fn in (("batched", batched), ("groups of one", singles)):
             torch.cuda.reset_peak_memory_stats()
             base_mb = torch.cuda.memory_allocated() / 2**20
             zero_counts()
-            with counted_align() as aligned, counted_group_stages(models) as stages:
+            with counted_align() as aligned, counted_group_stages() as stages:
                 t0 = time.perf_counter()
                 got = fn()
                 ms = (time.perf_counter() - t0) * 1e3
@@ -2777,10 +2823,7 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
             if ang > 1.0 or dt > 3e-3 or picks_b[i] != picks_1[i]:
                 raise AssertionError(f"{name} instance {i}: batched vs groups of one R {ang:.3f} deg, "
                                      f"T {dt * 1e3:.3f} mm, picks {picks_b[i]} vs {picks_1[i]}")
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            batched()
-        busy_ms = sum(e.self_device_time_total for e in prof.key_averages()
-                      if e.device_type == DeviceType.CUDA) / 1e3
+        busy_ms = device_ms(batched, iters=1)
         say(f"[batched frames] {name}: {len(dets)} instances in groups of {rows} rows; batched route "
             f"{b['ms']:.1f} ms per frame, K2 launches {b['launches']['hist16_peak']}, align_pose "
             f"calls {len(b['align'])} (rows {b['align']}); groups of one {one['ms']:.1f} ms, K2 "
@@ -2870,6 +2913,203 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the captured programs
+# ---------------------------------------------------------------------------
+
+# phase 11's two layouts, and eleven mugs: a group cut into chunks of 8 and 3, the 3 padded to 4
+CAPTURE_LAYOUTS = BATCH_LAYOUTS + [["mug"] * 11]
+ELEVEN_CENTERS = [(x, y, 0.85) for y in (-0.12, 0.0, 0.12) for x in (-0.24, -0.12, 0.0, 0.12)][:11]
+
+
+def pool_mib(handle):
+    """MiB reserved in the graph memory pool `handle`, from the allocator's
+    snapshot; None where the snapshot names no segment's pool."""
+    import torch
+
+    segs = torch.cuda.memory_snapshot()
+    if not any("segment_pool_id" in s for s in segs):
+        return None
+    return sum(s["total_size"] for s in segs
+               if tuple(s.get("segment_pool_id", ())) == tuple(handle)) / 2**20
+
+
+def rows_diff(a, b) -> float:
+    """Largest |difference| of the packed rows of two dispatches of a frame."""
+    import torch
+
+    return max(float(torch.max(torch.abs(x.dev - y.dev))) for x, y in zip(a, b))
+
+
+def poses_apart(a, b):
+    """(largest R angle in degrees, largest |T| difference in m, picks equal)
+    of two `fetch_frames(..., return_picks=True)` results."""
+    (ra, pa), (rb, pb) = a, b
+    ang = max(rt_angle_deg(ra[i][0], rb[i][0]) for i in ra)
+    dt = max(float(np.max(np.abs(ra[i][0][:3, 3] - rb[i][0][:3, 3]))) for i in ra)
+    return ang, dt, pa == pb
+
+
+def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=256):
+    """Phase 12: `dispatch_frame` and `estimate_instance` through their
+    captured programs, each captured on one frame and replayed on another
+    frame of the same keys with fresh draws, against the eager route
+    (`programs.disable_capture()`) on those inputs. Returns a dict of the
+    phase's numbers."""
+    import torch
+
+    from cppf2_torch.eval import driver, programs
+    from cppf2_torch.models.dinov2 import DinoViT
+    from cppf2_torch.ops import attention, hist16
+
+    ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
+    models = driver.load_category_models(ckpts, sorted({c for cats in CAPTURE_LAYOUTS for c in cats}),
+                                         torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(12)
+    with torch.device(dev):
+        vit = DinoViT(vit_cfg).eval()
+    vit.init_random(gen).cast_for_inference()
+    kw = dict(vit=vit, device=dev, stride=stride, out_size=out_size)
+    pool = programs.pool_handle(dev)
+
+    def census():
+        progs = dict(driver._FRONTENDS)
+        progs.update(driver._VIT_STAGES.get(vit, {}))
+        for m in models.values():
+            progs.update(m._programs)
+        return progs
+
+    def make(cats, seed, shift):
+        centers = ELEVEN_CENTERS if len(cats) == 11 else BATCH_CENTERS
+        rng = np.random.default_rng(seed)
+        depth, masks = cap_frame(rng, *hw, [(x + shift, y, z) for x, y, z in centers],
+                                 [0.04] * len(cats))
+        rgb = rng.integers(0, 256, size=(*hw, 3)).astype(np.uint8)
+        dets = list(zip(cats, masks))
+        return rgb, depth, dets, [driver.draw_instance(hw, m, c, pipe, dev, gen) for c, m in dets]
+
+    def run(f):
+        """(pendings, fetched results and picks, host ms of the dispatch call, e2e ms)"""
+        rgb, depth, dets, draws = f
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pends = driver.dispatch_frame(rgb, depth, dets, REAL275_K, models, pipe, draws=draws, **kw)
+        host_ms = (time.perf_counter() - t0) * 1e3
+        got = driver.fetch_frames(pends, return_picks=True)
+        torch.cuda.synchronize()
+        return pends, got, host_ms, (time.perf_counter() - t0) * 1e3
+
+    out = dict(frames=[])
+    for i, cats in enumerate(CAPTURE_LAYOUTS):
+        name = f"{len(cats)} instances ({', '.join(sorted(set(cats)))})"
+        first, again = make(cats, 60 + i, 0.0), make(cats, 70 + i, 0.01)
+        before = census()
+        _, _, _, capture_ms = run(first)
+        new = {k: p for k, p in census().items() if k not in before}
+        if not new or any(p.graph is None for p in new.values()):
+            raise AssertionError(f"{name}: the first dispatch captured no program")
+        replays = []
+        for _ in range(3):
+            seen = {k: p.replays for k, p in census().items()}
+            zero_counts()
+            replays.append(run(again))
+        counts = read_counts()
+        pends, got, host_ms, _ = replays[-1]
+        replay_ms = statistics.median(r[3] for r in replays)
+        if census().keys() != before.keys() | new.keys():
+            raise AssertionError(f"{name}: the replay frame made programs of its own")
+        used = [p for k, p in census().items() if p.replays > seen[k]]
+        credited = {"mha": sum(p.credited(attention._MHA) for p in used),
+                    "hist16_peak": sum(p.credited(hist16._PEAK) for p in used)}
+        chunks = [(len(p.idxs), p.dev.shape[0]) for p in pends]
+        if counts["mha"] != credited["mha"] or counts["hist16_peak"] != credited["hist16_peak"] \
+                or counts["hist16_peak"] != pipe.vote_levels * len(chunks):
+            raise AssertionError(f"{name}: launches of a replay {counts}, credited by the programs "
+                                 f"{credited}, chunks {chunks}")
+        if len(cats) == 11 and chunks != [(8, 8), (3, 4)]:
+            raise AssertionError(f"eleven mugs ran as chunks {chunks}, not 8 and 3 padded to 4")
+        if sorted(got[0]) != list(range(len(cats))) or any(v is None for v in got[0].values()):
+            raise AssertionError(f"{name}: not every instance came back posed: {sorted(got[0])}")
+
+        with programs.disable_capture():
+            base_mb = torch.cuda.memory_allocated() / 2**20
+            torch.cuda.reset_peak_memory_stats()
+            eager = run(again)
+            eager_peak = torch.cuda.max_memory_allocated() / 2**20 - base_mb
+            eager2 = run(again)
+        same = rows_diff(pends, eager[0])
+        noise = rows_diff(eager[0], eager2[0])
+        ang, dt, picks = poses_apart(got, eager[1])
+        if same != 0.0 and (noise == 0.0 or ang > 1.0 or dt > 3e-3 or not picks):
+            raise AssertionError(f"{name}: replay vs eager rows differ by {same:.3g} (two eager runs "
+                                 f"by {noise:.3g}): R {ang:.4f} deg, T {dt * 1e3:.4f} mm, picks "
+                                 f"equal {picks}")
+        busy = device_ms(lambda: run(again), iters=1)
+        frame = dict(name=name, chunks=chunks, capture_ms=capture_ms, replay_ms=replay_ms,
+                     host_ms=host_ms, eager_ms=statistics.median([eager[3], eager2[3]]),
+                     busy_ms=busy, programs=len(new), used=len(used), k1=counts["mha"],
+                     k2=counts["hist16_peak"],
+                     rows_diff=same, eager_noise=noise, r_deg=ang, t_mm=dt * 1e3,
+                     eager_peak_mb=eager_peak, pool_mb=pool_mib(pool),
+                     capture_each_ms={p.key[0][0]: round(p.capture_ms, 1) for p in new.values()})
+        out["frames"].append(frame)
+        say(f"[captured] {name}: chunks (real, padded) {chunks}; {len(new)} programs captured, "
+            f"{len(used)} replayed a frame "
+            f"({frame['capture_each_ms']} ms warm-up + capture, by kind); first dispatch "
+            f"{capture_ms:.1f} ms; replay on a second frame {replay_ms:.1f} ms e2e (median of 3), "
+            f"{host_ms:.1f} ms host per dispatch_frame call; eager {frame['eager_ms']:.1f} ms; "
+            f"busy {busy:.1f} ms of {replay_ms:.1f} ({100 * busy / replay_ms:.1f}%); launches "
+            f"credited per replay K1 {counts['mha']}, K2 {counts['hist16_peak']}; replay vs eager "
+            f"rows max |diff| {same:.3g} (two eager runs {noise:.3g}; R {ang:.4f} deg, T "
+            f"{dt * 1e3:.4f} mm, same picks {picks}); eager peak {eager_peak:.1f} MiB over the "
+            f"base, graph pool reserved {frame['pool_mb']} MiB")
+
+    # the slice's instance: captured on phase 3's frame, replayed on another one
+    mug = models["mug"]
+    frames = [make_frame(np.random.default_rng(0), *hw),
+              make_frame(np.random.default_rng(1), *hw, center=(-0.02, 0.03, 0.85))]
+    draws = [driver.draw_instance(hw, m, "mug", pipe, dev, gen) for _, _, m in frames]
+
+    def instance(j):
+        rgb, depth, mask = frames[j]
+        est = driver.estimate_instance(rgb, depth, mask, REAL275_K, mug, "mug", pipe, draws=draws[j],
+                                       **kw)
+        torch.cuda.synchronize()
+        return est
+
+    def e2e(j, n=3):
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            est = instance(j)
+            times.append((time.perf_counter() - t0) * 1e3)
+        return est, statistics.median(times)
+
+    t0 = time.perf_counter()
+    instance(0)
+    inst_capture_ms = (time.perf_counter() - t0) * 1e3
+    est, inst_ms = e2e(1)
+    inst_busy = device_ms(lambda: instance(1), iters=1)
+    with programs.disable_capture():
+        est_eager, inst_eager_ms = e2e(1)
+        inst_eager_busy = device_ms(lambda: instance(1), iters=1)
+    inst_diff = max(float(torch.max(torch.abs(a.float() - b.float()))) for a, b in zip(est, est_eager))
+    if inst_diff != 0.0:
+        raise AssertionError(f"estimate_instance replayed vs eager: max |diff| {inst_diff:.3g}")
+    out["instance"] = dict(capture_ms=inst_capture_ms, ms=inst_ms, eager_ms=inst_eager_ms,
+                           busy_ms=inst_busy, eager_busy_ms=inst_eager_busy, diff=inst_diff)
+    say(f"[captured] estimate_instance, captured on one frame and replayed on another: first call "
+        f"{inst_capture_ms:.1f} ms; replay {inst_ms:.1f} ms e2e (median of 3), busy {inst_busy:.1f} "
+        f"ms ({100 * inst_busy / inst_ms:.1f}%); eager {inst_eager_ms:.1f} ms, busy "
+        f"{inst_eager_busy:.1f} ms ({100 * inst_eager_busy / inst_eager_ms:.1f}%); replay vs eager "
+        f"max |diff| {inst_diff:.3g}")
+    out.update(programs=len(census()), pool_mb=pool_mib(pool),
+               eager_peak_mb=max(f["eager_peak_mb"] for f in out["frames"]))
+    say(f"[captured] {out['programs']} programs cached; graph pool reserved {out['pool_mb']} MiB "
+        f"for all of them against the largest eager peak of a frame, {out['eager_peak_mb']:.1f} MiB")
+    return out
+
+
 def _groups(dets):
     from cppf2_torch.infer.frontend import auto_crop
 
@@ -2900,38 +3140,47 @@ def main() -> int:
     paths = _build.build(verbose=True).values()   # one nvcc per source, all started at once
     say(f"[build] {sorted(p.name for p in paths)} in {time.perf_counter() - t0:.1f} s")
 
-    k2 = check_hist16(dev)
-    k1 = check_mha(dev)
     from cppf2_torch.config import PipelineConfig
+    from cppf2_torch.eval import programs
     from cppf2_torch.models.dinov2 import VIT_L14
 
     pipe = PipelineConfig()
     if (pipe.n_points, pipe.num_pairs, pipe.angle_tol_deg, pipe.opt_steps) != (8192, 50000, 1.0, 100):
         raise AssertionError(f"not the production configuration: {pipe}")
-    launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
-    t_phase = time.perf_counter()
-    k2_rows = check_hist16_batched(dev)
-    say(f"[K2 rows] the check took {time.perf_counter() - t_phase:.1f} s")
+    install_tallies()
+    k2 = check_hist16(dev)
+    k1 = check_mha(dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        k3, k3_launches, eval_launches, eval_ms, pose_ms = run_multi_device(dev, pipe, tmp)
-        k1_batched = check_mha_batched(dev, k1[0])
-        frame_launches, frame_ms, single_ms, vis_batched, vis_singles = run_frame_driver(
-            dev, pipe, VIT_L14, tmp)
-        train_ms = run_trainer(dev, pipe, VIT_L14, tmp)
-        t_phase = time.perf_counter()
-        dino_launches, renders, extractor, render_train_ms = run_render_trainer(dev, pipe, tmp)
-        say(f"[render train] the phase took {time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        demo_k1, demo_k2, demo_ms, demo_stages, demo_busy = run_demo(dev, tmp)
-        say(f"[demo] the phase took {time.perf_counter() - t_phase:.1f} s")
-        t_phase = time.perf_counter()
-        int8_launches, int8 = run_int8_variants(dev, pipe, os.path.join(tmp, "shot.rec"))
-        say(f"[int8] the phase took {time.perf_counter() - t_phase:.1f} s")
+        # phases 3 to 10 run the eager route, as they did before the programs
+        # (their plain swaps, stage timers and recorded inputs need it); phases
+        # 11 and 12 run the captured programs
+        with programs.disable_capture():
+            launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
+            t_phase = time.perf_counter()
+            k2_rows = check_hist16_batched(dev)
+            say(f"[K2 rows] the check took {time.perf_counter() - t_phase:.1f} s")
+            k3, k3_launches, eval_launches, eval_ms, pose_ms = run_multi_device(dev, pipe, tmp)
+            k1_batched = check_mha_batched(dev, k1[0])
+            frame_launches, frame_ms, single_ms, vis_batched, vis_singles = run_frame_driver(
+                dev, pipe, VIT_L14, tmp)
+            train_ms = run_trainer(dev, pipe, VIT_L14, tmp)
+            t_phase = time.perf_counter()
+            dino_launches, renders, extractor, render_train_ms = run_render_trainer(dev, pipe, tmp)
+            say(f"[render train] the phase took {time.perf_counter() - t_phase:.1f} s")
+            t_phase = time.perf_counter()
+            demo_k1, demo_k2, demo_ms, demo_stages, demo_busy = run_demo(dev, tmp)
+            say(f"[demo] the phase took {time.perf_counter() - t_phase:.1f} s")
+            t_phase = time.perf_counter()
+            int8_launches, int8 = run_int8_variants(dev, pipe, os.path.join(tmp, "shot.rec"))
+            say(f"[int8] the phase took {time.perf_counter() - t_phase:.1f} s")
         t_phase = time.perf_counter()
         batched = run_batched_frames(dev, pipe, VIT_L14, tmp)
         say(f"[batched frames] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        captured = run_captured_programs(dev, pipe, VIT_L14)
+        say(f"[captured] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2945,6 +3194,7 @@ def main() -> int:
     kernels = [
         dict(name="mha", route="cuda", source=attention.SOURCE, replaces=attention.REPLACES,
              launches=launches["mha"], int8_launches=int8_launches["mha"],
+             replay_launches=captured["frames"][0]["k1"],
              max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by="operations", library_ms=k1_main["library_ms"],
@@ -2976,6 +3226,7 @@ def main() -> int:
         dict(name="hist16_peak", route="cuda", source=hist16.SOURCE, replaces=hist16.REPLACES,
              entry="hist16_level_peak", launches=launches["hist16_peak"], demo_launches=demo_k2,
              int8_launches=int8_launches["hist16_peak"],
+             replay_launches=captured["frames"][0]["k2"],
              max_abs_err=max(r["err"] for r in k2 + k2_levels + k2_rows),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
@@ -3037,6 +3288,17 @@ def main() -> int:
     say(f"[batched frames] evaluate_real275_parallel ms_per_instance "
         f"{batched['eval_ms_per_instance']:.1f} (blocks of {batched['eval_align']} rows, K2 launches "
         f"{batched['eval_k2']})")
+    for f in captured["frames"]:
+        say(f"[captured] {f['name']}: ms_per_frame replay {f['replay_ms']:.1f} / eager "
+            f"{f['eager_ms']:.1f} / first dispatch {f['capture_ms']:.1f}; host ms per dispatch_frame "
+            f"{f['host_ms']:.1f}; busy {100 * f['busy_ms'] / f['replay_ms']:.1f}%; chunks "
+            f"{f['chunks']}; launches per replay K1 {f['k1']}, K2 {f['k2']}; rows replay vs eager "
+            f"{f['rows_diff']:.3g}")
+    ci = captured["instance"]
+    say(f"[captured] estimate_instance ms replay {ci['ms']:.1f} / eager {ci['eager_ms']:.1f}; busy "
+        f"{100 * ci['busy_ms'] / ci['ms']:.1f}% / {100 * ci['eager_busy_ms'] / ci['eager_ms']:.1f}%; "
+        f"{captured['programs']} programs, graph pool {captured['pool_mb']} MiB against an eager "
+        f"peak of {captured['eager_peak_mb']:.1f} MiB")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -63,7 +63,7 @@ def voxel_downsample(
         return Downsampled(*(f[0] for f in one))
     b, n = points.shape[:2]
     dev = points.device
-    inf = torch.tensor(float("inf"), dtype=points.dtype, device=dev)
+    inf = torch.full((), float("inf"), dtype=points.dtype, device=dev)
     origin = torch.amin(torch.where(valid[..., None], points, inf), dim=1, keepdim=True)
     origin = torch.where(torch.isfinite(origin), origin, torch.zeros_like(origin))
     cell = torch.clamp(torch.floor((points - origin) / res), 0, _GRID - 1).to(torch.int64)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from cppf2_torch.device import device_constant
+
 
 def backproject_masked(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torch.Tensor):
     """Dense pinhole backprojection of a masked depth map, fixed shape.
@@ -41,7 +43,9 @@ def backproject_masked(depth: torch.Tensor, intrinsics: torch.Tensor, mask: torc
         [u * k_inv[..., r, 0, None, None] + v * k_inv[..., r, 1, None, None]
          + k_inv[..., r, 2, None, None] for r in range(3)], dim=-1)
     pts = rays * (depth / rays[..., 2])[..., None]
-    pts = pts * torch.tensor([-1.0, -1.0, 1.0], dtype=depth.dtype, device=dev)
+    flip = device_constant(("flip_xy", depth.dtype),
+                           lambda: torch.tensor([-1.0, -1.0, 1.0], dtype=depth.dtype), dev)
+    pts = pts * flip
     pts = torch.where(valid[..., None], pts, torch.zeros((), dtype=depth.dtype, device=dev))
     pixel_yx = torch.stack([vv, uu], dim=-1).to(torch.int32).reshape(-1, 2)
     return (pts.reshape(*lead, h * w, 3), pixel_yx.expand(*lead, h * w, 2),

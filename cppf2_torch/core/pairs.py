@@ -12,6 +12,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.device import device_constant
 
 _EPS = 1e-7
 
@@ -67,3 +68,10 @@ def _comb_indices(k: int):
             ii.append(i)
             jj.append(j)
     return tuple(ii), tuple(jj)
+
+
+def comb_index_tensors(k: int, device):
+    """`_comb_indices(k)` as two int64 tensors on `device`, built once: a
+    tuple of ints as an index is a host-to-device copy at every use."""
+    return tuple(device_constant(("comb", k, w), lambda w=w: torch.tensor(_comb_indices(k)[w]), device)
+                 for w in (0, 1))

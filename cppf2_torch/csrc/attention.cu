@@ -363,16 +363,6 @@ CUresult make_map(CUtensorMap* map, const void* x, int b, int h, int T, const lo
 template <typename OutT>
 int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, void* o, int b,
            int h, int T, int t_real, cudaStream_t st) {
-  // more than 48 KB of dynamic shared memory: allowed once per kernel and device
-  static bool allowed[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64 || !allowed[dev]) {
-    const cudaError_t attr = cudaFuncSetAttribute(
-        mha_fwd_kernel<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-    if (attr != cudaSuccess) return static_cast<int>(attr);
-    if (dev >= 0 && dev < 64) allowed[dev] = true;
-  }
   const dim3 grid((T + kBq - 1) / kBq, h, b);
   mha_fwd_kernel<OutT><<<grid, kThreads, kSmemBytes, st>>>(qm, km, vm, static_cast<OutT*>(o), T,
                                                           t_real);
@@ -380,6 +370,19 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km, const CUtensorMap& vm, 
 }
 
 }  // namespace
+
+// Allows both instantiations more than 48 KB of dynamic shared memory on the
+// current device. Called once per device before its first launch, outside any
+// CUDA graph capture. Returns the cudaError of the first call that failed, or 0.
+extern "C" int cppf2_mha_setup() {
+  cudaError_t err = cudaFuncSetAttribute(mha_fwd_kernel<float>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(mha_fwd_kernel<__nv_bfloat16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  }
+  return static_cast<int>(err);
+}
 
 // q, k, v: (b, h, T, 64) bf16 with a contiguous last axis, 16-byte aligned,
 // b at most 65535; `strides` holds the image, head and row strides of q, then

@@ -5,17 +5,20 @@ levels, each built on the one before:
 
   * one instance: `dispatch_instance` queues `preprocess_frame` -> the
     visual descriptors (ViT, kernel K1) -> `estimate_pose_ensemble` (center
-    votes through kernel K2) and reads nothing back;
+    votes through kernel K2) and reads nothing back; the frontend and the
+    ensemble (`CategoryModels.pose_fn`) are programs, the descriptors eager;
     `fetch_instances` brings a list of them to the host in one copy, applies
     the degenerate-input guards and assembles (RT, scales, loss) in the NOCS
     convention. `estimate_instance` is the same graph returning the raw
     `PoseEstimate` on the device.
   * one frame: `dispatch_frame` groups the detections by (category, crop
-    tier), runs one batched ViT forward for all of the frame's crops, then
-    each group as one batched pass (`_pose_group`: frontend, descriptor
+    tier), cuts each group into chunks of at most the largest bucket and
+    pads each chunk up to a bucket, packs the chunks' crops into as few ViT
+    forwards as the largest bucket holds (`_pack_vit_chunks`), then runs
+    each chunk as one batched pass (`_pose_group`: frontend, descriptor
     sampling, tuple choice and branch MLPs over the group's instances, the
     pose graph over its (instance, branch) rows); `fetch_frames` is the
-    frame's one host copy.
+    frame's one host copy and drops the padded rows.
   * the dataset: `evaluate_real275` walks the detection pkls with frame k + 1
     dispatched before frame k is fetched, writes the result pkls and scores
     them; `main` is its command line (`python -m cppf2_torch.eval.driver`).
@@ -34,18 +37,28 @@ Branch weights come from `{root}/{shot,dino}/<cat>`: a packed
 `params.msgpack`, a training run's newest checkpoint, or the reference
 release's Lightning `last.ckpt` tree (`models/porting.py`).
 
+Each of these units is a program (`eval/programs.py`), as the JAX driver
+jits them: on the card it is captured once as a CUDA graph per key (the JAX
+key with the inputs' shapes and the weights' addresses) and replayed; on the
+CPU, and inside `programs.disable_capture()`, it runs eagerly. The caches:
+a category's ensembles and groups on its `CategoryModels`, the instance
+frontend's in `_FRONTENDS`, a backbone's ViT stages in `_VIT_STAGES`.
+
 Randomness is injected: one `InstanceDraws` per instance, given or drawn
 from a torch.Generator in detection order, so a result does not depend on how
-the instances were grouped.
+the instances were grouped. A padded row repeats its chunk's last instance:
+its mask, crop origin and draws.
 """
 
 from __future__ import annotations
 
 import glob
+import itertools
 import os
 import pickle
 import re
-from dataclasses import dataclass
+import weakref
+from dataclasses import dataclass, field
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -55,6 +68,7 @@ from cppf2_torch.config import CATEGORIES, SYNSET_NAMES, PipelineConfig, get_cat
 from cppf2_torch.core.downsample import draw_downsample
 from cppf2_torch.core.geometry import check_pinhole
 from cppf2_torch.device import resolve_device
+from cppf2_torch.eval import programs
 from cppf2_torch.eval.nocs_map import compute_degree_cm_map
 from cppf2_torch.eval.png import read_png16, read_png_rgb8, write_png_rgb8
 from cppf2_torch.eval.pose_errors import _assemble_rt, pose_error_degree_cm
@@ -99,6 +113,35 @@ REAL275_INTRINSICS = np.array(
 class CategoryModels:
     shot: ShotBranch
     dino: DinoBranch
+    # this category's ensemble and group programs, keyed as `programs.program` keys them
+    _programs: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def pose_fn(self, cat, pipe: PipelineConfig, run_opt: bool, use_visual: bool = True,
+                use_geo: bool = True):
+        """One instance's ensemble as a program, one per configuration and
+        input shapes, reused for every instance of the category: returns
+        fn(pc, valid, count, desc, shot, normal, pose) -> PoseEstimate, with
+        the frontend's single-instance outputs, `desc` (N, D) descriptors (or
+        None: zeros) and `pose` one PoseDraws per restart; the JAX package's
+        `CategoryModels.pose_fn`."""
+        key = ("pose", cat.name, pipe, run_opt, use_visual, use_geo, _weights(self.shot, self.dino))
+
+        def fn(pc, valid, count, desc, shot, normal, pose):
+            est = _ensemble(self, cat, pipe, run_opt, use_visual, use_geo, pc[None], valid[None],
+                            count[None], None if desc is None else desc[None], shot[None],
+                            normal[None], [stack_draws([p]) for p in pose])
+            return PoseEstimate(*(f[0] for f in est))
+
+        def run(*args):
+            return programs.program(self._programs, key, fn, args)(*args)
+
+        return run
+
+
+def _weights(*modules) -> tuple:
+    """Where the modules' parameters and buffers lie: a captured graph reads
+    them at these addresses, so a program is keyed on them."""
+    return tuple(t.data_ptr() for m in modules for t in itertools.chain(m.parameters(), m.buffers()))
 
 
 def _reference_ckpt_path(root: str, branch: str, name: str) -> Optional[str]:
@@ -209,45 +252,65 @@ def _draws_on(d: InstanceDraws, dev) -> InstanceDraws:
     return InstanceDraws(d.voxel_perm.to(dev), d.voxel_prio.to(dev), pose)
 
 
-def _pose_group(depth, masks, origins, draws: Sequence[InstanceDraws], k_t, crop,
-                models: CategoryModels, cat, pipe: PipelineConfig, run_opt: bool, use_visual: bool,
-                use_geo: bool, desc_fn=None):
+def _stacked(draws: Sequence[InstanceDraws]):
+    """A group's draws as (voxel_perm (B, pixels), voxel_prio (B, pixels),
+    one stacked PoseDraws per restart)."""
+    restarts = [d.pose if isinstance(d.pose, list) else [d.pose] for d in draws]
+    return (torch.stack([d.voxel_perm for d in draws]), torch.stack([d.voxel_prio for d in draws]),
+            [stack_draws(r) for r in zip(*restarts)])
+
+
+def _ensemble(models: CategoryModels, cat, pipe: PipelineConfig, run_opt: bool, use_visual: bool,
+              use_geo: bool, pc, valid, count, desc, shot, normal, pose) -> PoseEstimate:
+    """The ensemble of a group from its frontend's (B, ...) outputs and
+    (B, N, D) descriptors (None: zeros, as in the JAX driver), `pose` one
+    stacked PoseDraws per restart: per restart one forward of each enabled
+    branch MLP and one batched pose graph over the (instance, branch) rows."""
+    if use_visual and desc is None:
+        desc = torch.zeros((pc.shape[0], pipe.n_points, models.dino.desc_transform.in_features),
+                           device=pc.device)
+    group = EnsembleInput(lambda pts, ti: models.dino(pts, desc, ti),
+                          lambda pts, ti: models.shot(pts, shot, normal, ti), pc, valid, count, pose)
+    return estimate_pose_ensembles(group, cat, pipe, run_opt, use_visual, use_geo)
+
+
+def _pose_group(depth, masks, origins, perm, prio, pose, k_t, crop, models: CategoryModels, cat,
+                pipe: PipelineConfig, run_opt: bool, use_visual: bool, use_geo: bool, desc_fn=None):
     """Frontend + ensemble of a group of B instances of one category and crop
     tier on the device, nothing read back, as the JAX driver's vmapped group
     program: one batched frontend pass (`preprocess_frame` over the (B, H, W)
     `masks`, `depth` (H, W) shared or (B, H, W)), one descriptor call
     (`desc_fn(pixel_yx (B, N, 2)) -> (B, N, D)`; zeros without one), then
-    per restart one forward of each enabled branch MLP and one batched pose
-    graph over the group's (instance, branch) rows. `origins` holds each
-    window's (y0, x0) from the host mask (None without `crop`) and `draws`
-    each instance's draws on the device. Returns (FrameInputs, PoseEstimate),
-    every field with a leading (B,) axis."""
-    fi = preprocess_frame(depth, masks, k_t, torch.stack([d.voxel_perm for d in draws]),
-                          torch.stack([d.voxel_prio for d in draws]), res=cat.res,
-                          n_max=pipe.n_points, shot_k=pipe.neighbor_k, crop=crop, origin=origins)
-    desc = None
-    if use_visual:
-        # no descriptors for an enabled visual branch: zeros, as in the JAX driver
-        desc = (desc_fn(fi.pixel_yx) if desc_fn is not None else
-                torch.zeros((len(draws), pipe.n_points, models.dino.desc_transform.in_features),
-                            device=k_t.device))
-    restarts = [d.pose if isinstance(d.pose, list) else [d.pose] for d in draws]
-    group = EnsembleInput(lambda pts, ti: models.dino(pts, desc, ti),
-                          lambda pts, ti: models.shot(pts, fi.shot, fi.normal, ti),
-                          fi.pc, fi.valid, fi.count, [stack_draws(r) for r in zip(*restarts)])
-    return fi, estimate_pose_ensembles(group, cat, pipe, run_opt, use_visual, use_geo)
+    `_ensemble`. `origins` holds each window's (y0, x0) from the host mask
+    ((B, 2) on the device or numbers; None without `crop`), `perm`, `prio`
+    and `pose` the group's stacked draws on the device (`_stacked`). Returns
+    (FrameInputs, PoseEstimate), every field with a leading (B,) axis."""
+    fi = preprocess_frame(depth, masks, k_t, perm, prio, res=cat.res, n_max=pipe.n_points,
+                          shot_k=pipe.neighbor_k, crop=crop, origin=origins)
+    desc = desc_fn(fi.pixel_yx) if use_visual and desc_fn is not None else None
+    return fi, _ensemble(models, cat, pipe, run_opt, use_visual, use_geo, fi.pc, fi.valid, fi.count,
+                         desc, fi.shot, fi.normal, pose)
 
 
-def _pose_graph(depth_t, mask_t, k_t, origin, crop, desc_fn, models: CategoryModels, cat,
-                pipe: PipelineConfig, draws: InstanceDraws, run_opt: bool, use_visual: bool,
-                use_geo: bool):
-    """`_pose_group` of one instance: its branches are the rows. `desc_fn`
-    maps its (N, 2) pixels to (N, D) descriptors. Returns (FrameInputs,
-    PoseEstimate)."""
-    group_desc = None if desc_fn is None else (lambda pixel_yx: desc_fn(pixel_yx[0])[None])
-    fi, est = _pose_group(depth_t, mask_t[None], None if crop is None else [origin], [draws], k_t,
-                          crop, models, cat, pipe, run_opt, use_visual, use_geo, group_desc)
-    return FrameInputs(*(f[0] for f in fi)), PoseEstimate(*(f[0] for f in est))
+# the instance frontend's programs, keyed on preprocess_frame's static arguments (every category's)
+_FRONTENDS: dict = {}
+
+
+def _frontend(depth, mask, k_t, perm, prio, origin, res: float, n_max: int, shot_k: int, crop,
+              exact_knn: bool = False) -> FrameInputs:
+    """One instance's `preprocess_frame` as a program, keyed as the JAX
+    package jits it: on (res, n_max, shot_k, crop, exact_knn) and the input
+    shapes. `origin` is the window's (2,) int32 origin on the device (None
+    without `crop`). It runs as a group of one."""
+    def fn(depth, mask, k_t, perm, prio, origin):
+        fi = preprocess_frame(depth, mask[None], k_t, perm[None], prio[None], res=res, n_max=n_max,
+                              shot_k=shot_k, crop=crop, origin=None if origin is None else origin[None],
+                              exact_knn=exact_knn)
+        return FrameInputs(*(f[0] for f in fi))
+
+    args = (depth, mask, k_t, perm, prio, origin)
+    return programs.program(_FRONTENDS, ("frontend", res, n_max, shot_k, crop, exact_knn), fn,
+                            args)(*args)
 
 
 def _kp_to_crop(pixel_yx: torch.Tensor, inv_transform: torch.Tensor) -> torch.Tensor:
@@ -275,15 +338,21 @@ def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, genera
         crop = auto_crop(mask)
     if draws is None:
         draws = draw_instance(depth.shape, mask, cat_name, pipe, dev, generator, crop=crop)
+    draws = _draws_on(draws, dev)
     depth_t = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
     mask_t = torch.as_tensor(mask, device=dev)
     check_pinhole(np.asarray(intrinsics))
     k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
-    origin = crop_origin(mask, mask.shape, crop) if crop is not None else None
+    origin = None
+    if crop is not None:
+        origin = torch.as_tensor(np.asarray(crop_origin(mask, mask.shape, crop), np.int32), device=dev)
+    fi = _frontend(depth_t, mask_t, k_t, draws.voxel_perm, draws.voxel_prio, origin, cat.res,
+                   pipe.n_points, pipe.neighbor_k, crop)
 
-    desc_fn = None
-    # an all-empty detection mask has no bbox to crop: the pose graph still
-    # runs on zero descriptors and the count guard rejects the instance
+    # the visual stage runs eagerly; an all-empty detection mask has no bbox
+    # to crop: the pose graph still runs on zero descriptors and the count
+    # guard rejects the instance
+    desc = None
     if use_visual and dino_extractor is not None and mask.any():
         # the JAX driver's route: the masked RGB cropped on the host, the
         # extractor at its own stride, the cloud's pixels mapped into the crop
@@ -291,18 +360,15 @@ def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, genera
         crop_img, transform = resize_crop(masked, bbox=mask_bbox(mask), out_size=256)
         crop_t = torch.as_tensor(crop_img, device=dev) / 255.0
         inv_t = torch.as_tensor(np.linalg.inv(transform).astype(np.float32), device=dev)
-
-        def desc_fn(pixel_yx):
-            return dino_extractor(crop_t, _kp_to_crop(pixel_yx, inv_t))
+        desc = dino_extractor(crop_t, _kp_to_crop(fi.pixel_yx, inv_t))
     elif use_visual and vit is not None and mask.any():
         rgb_t = torch.as_tensor(np.asarray(rgb), device=dev).to(torch.float32) / 255.0
-
-        def desc_fn(pixel_yx):
-            return bbox_crop_descriptors(vit, rgb_t, mask_t, pixel_yx, out_size=out_size,
-                                         stride=stride)
-
-    return cat, _pose_graph(depth_t, mask_t, k_t, origin, crop, desc_fn, models, cat, pipe,
-                            _draws_on(draws, dev), run_opt, use_visual, use_geo)
+        desc = bbox_crop_descriptors(vit, rgb_t, mask_t, fi.pixel_yx, out_size=out_size,
+                                     stride=stride)
+    pose = draws.pose if isinstance(draws.pose, list) else [draws.pose]
+    est = models.pose_fn(cat, pipe, run_opt, use_visual, use_geo)(
+        fi.pc, fi.valid, fi.count, desc, fi.shot, fi.normal, pose)
+    return cat, (fi, est)
 
 
 @torch.no_grad()
@@ -448,12 +514,107 @@ def fetch_instances(pendings: Sequence[PendingInstance], return_picks: bool = Fa
 # ---------------------------------------------------------------------------
 
 class PendingFrameGroup(NamedTuple):
-    """The dispatched instances of one (category, crop tier) group of a frame:
-    (n, 22) rows as in `PendingInstance`, and each row's detection index."""
+    """The dispatched instances of one chunk of a (category, crop tier) group
+    of a frame: (batch, 22) rows as in `PendingInstance`, and the detection
+    index of each real row; the rows past them are padding."""
 
     dev: torch.Tensor
     res: float
     idxs: Tuple[int, ...]
+
+
+# a backbone's ViT-stage programs, on the backbone (they read its weights where they lie)
+_VIT_STAGES: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+# novel multi-chunk pack signatures a backbone captures; past them each chunk runs alone
+_VIT_STAGE_MULTI_CAP = 8
+
+
+def _pack_vit_chunks(batches, cap):
+    """First-fit-decreasing packing of the chunks' ViT batch sizes into packs
+    of at most `cap` crops: [(chunk ids, sizes)], typically one pack (one ViT
+    forward) for a whole frame. The JAX driver's `_pack_vit_chunks`."""
+    order = sorted(range(len(batches)), key=lambda c: -batches[c])
+    packs = []   # [ids, sizes, total]
+    for ci in order:
+        b = batches[ci]
+        for p in packs:
+            if p[2] + b <= cap:
+                p[0].append(ci)
+                p[1].append(b)
+                p[2] += b
+                break
+        else:
+            packs.append([[ci], [b], b])
+    return [(ids, tuple(sizes)) for ids, sizes, _ in packs]
+
+
+def _vit_stage(backbone: DinoViT, stride: int, out_size: int, batches: tuple, rgb_u8, masks):
+    """The frame-wide ViT stage as a program: every crop of a pack of chunks
+    (`masks` (sum(batches), H, W) of the frame `rgb_u8` (H, W, 3) uint8) in
+    one `bbox_crop_token_grid` forward, split into each chunk's (grids,
+    txys). One program per backbone, stride, crop size and pack signature, as
+    the JAX driver's `_vit_stage_fn`."""
+    own = weakref.ref(backbone)   # the cache lives as long as the backbone, not longer
+
+    def fn(rgb_u8, masks):
+        grids, txys = bbox_crop_token_grid(own(), rgb_u8.to(torch.float32) / 255.0, masks,
+                                           out_size=out_size, stride=stride)
+        parts, off = [], 0
+        for b in batches:
+            parts.append((grids[off:off + b], txys[off:off + b]))
+            off += b
+        return tuple(parts)
+
+    cache = _VIT_STAGES.setdefault(backbone, {})
+    key = ("vit", backbone.cfg, stride, out_size, batches, _weights(backbone))
+    return programs.program(cache, key, fn, (rgb_u8, masks))(rgb_u8, masks)
+
+
+def _vit_packs(backbone: DinoViT, stride: int, out_size: int, batches, cap: int):
+    """`_pack_vit_chunks` at `cap`, with the JAX driver's budget: a pack of
+    several chunks whose signature has no program yet runs as one forward only
+    while the backbone holds fewer than `_VIT_STAGE_MULTI_CAP` such programs;
+    past that each of its chunks runs alone, a (b,) signature of a bounded
+    set."""
+    cache = _VIT_STAGES.get(backbone, {})
+    known = {k[0][4] for k in cache if k[0][1:4] == (backbone.cfg, stride, out_size)}
+    n_multi = sum(len(sizes) > 1 for sizes in known)
+    out = []
+    for ids, sizes in _pack_vit_chunks(batches, cap):
+        novel = len(sizes) > 1 and sizes not in known
+        if novel and n_multi >= _VIT_STAGE_MULTI_CAP:
+            out.extend(([ci], (b,)) for ci, b in zip(ids, sizes))
+            continue
+        if novel:
+            known.add(sizes)
+            n_multi += 1
+        out.append((ids, sizes))
+    return out
+
+
+def _group_program(models: CategoryModels, cat, pipe: PipelineConfig, run_opt: bool,
+                   use_visual: bool, use_geo: bool, crop: int, stride: int, ext_key, batch: int,
+                   args) -> programs.Program:
+    """The program of one chunk of a (category, crop tier) group, padded to
+    `batch` rows: `_pose_group` with descriptors sampled from the ViT stage's
+    (grids, txys), and the packed rows out. Keyed as the JAX driver's
+    `_frame_group_fn`, on the extractor's behaviour (`ext_key`: config,
+    stride, crop size and sampling form), which is all the program reads of
+    it, and not on its identity."""
+    out_size, impl = (ext_key[2], ext_key[3]) if ext_key is not None else (0, None)
+
+    def fn(depth, masks, origins, k_t, perm, prio, pose, grids, txys):
+        desc_fn = None
+        if grids is not None:
+            def desc_fn(pixel_yx):
+                return sample_crop_descriptors(grids, pixel_yx, txys, out_size, impl=impl)
+        fi, est = _pose_group(depth, masks, origins, perm, prio, pose, k_t, crop, models, cat, pipe,
+                              run_opt, use_visual, use_geo, desc_fn)
+        return _pack(fi, est)
+
+    key = ("frame", cat.name, pipe, run_opt, use_visual, use_geo, crop, stride, ext_key, batch,
+           _weights(models.shot, models.dino))
+    return programs.program(models._programs, key, fn, args)
 
 
 @torch.no_grad()
@@ -473,7 +634,7 @@ def dispatch_frame(
     run_opt: bool = True,
     use_visual: Optional[bool] = None,
     use_geo: bool = True,
-    max_crops: int = 8,
+    buckets: Sequence[int] = (1, 2, 4, 8),
     dino_extractor: Optional[DinoFeatureExtractor] = None,
 ):
     """Queue all of a frame's instances; nothing is read back from the
@@ -482,15 +643,15 @@ def dispatch_frame(
     `detections` is an iterable of (category name, (H, W) bool mask). The
     instances are grouped by (category, `auto_crop` tier) as in the JAX
     driver; a mask that fits no tier goes through `dispatch_instance` with
-    `crop=None` (the whole frame). The visual stage is one ViT forward over
-    the crops of every grouped instance of the frame, across groups, in
-    pieces of at most `max_crops` crops: the cap on how many crops one forward
-    holds in memory (8 is the JAX driver's largest bucket, `buckets[-1]`
-    there). No group is padded to a bucket size: nothing is compiled per
-    shape. Each group then runs as one batched pass, as the JAX driver's
-    vmapped group program: one frontend call, one descriptor sampling and
-    one forward of each enabled branch MLP for its instances, and one pose
-    graph over its (instance, branch) rows.
+    `crop=None` (the whole frame), eagerly. A group is cut into chunks of at
+    most `buckets[-1]` instances, and each chunk padded up to the smallest
+    bucket that holds it, its padded rows repeating its last instance, so the
+    programs number O(categories x tiers x len(buckets)) whatever a frame
+    holds. The visual stage packs the chunks' crops into ViT forwards of at
+    most `buckets[-1]` crops (`_vit_packs`), across groups. Each chunk then
+    runs as one program: one frontend call, one descriptor sampling and one
+    forward of each enabled branch MLP for its rows, and one pose graph over
+    its (instance, branch) rows.
 
     With `dino_extractor` (the JAX driver's route) the grouped instances go
     through its backbone at its stride, crop size and sampling form, and the
@@ -511,51 +672,61 @@ def dispatch_frame(
         draws = [draw_instance(depth.shape, m, name, pipe, dev, generator) for name, m in dets]
     if len(draws) != len(dets):
         raise ValueError(f"{len(draws)} draws for {len(dets)} detections")
-    if max_crops < 1:
-        raise ValueError(f"max_crops must be at least 1, got {max_crops}")
-    cap = max_crops
+    buckets = tuple(sorted(int(b) for b in buckets))
+    if not buckets or buckets[0] < 1:
+        raise ValueError(f"buckets must be positive batch sizes, got {buckets}")
+    cap = buckets[-1]
 
     groups: Dict[tuple, list] = {}
     singles = []
     for idx, (name, mask) in enumerate(dets):
         tier = auto_crop(mask)
         if tier is None:
-            singles.append((idx, dispatch_instance(
-                rgb, depth, mask, intrinsics, models[name], name, pipe, vit=vit, device=dev,
-                draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
-                use_visual=use_visual, use_geo=use_geo, crop=None, dino_extractor=dino_extractor)))
+            with programs.disable_capture():   # the whole-frame route stays eager
+                singles.append((idx, dispatch_instance(
+                    rgb, depth, mask, intrinsics, models[name], name, pipe, vit=vit, device=dev,
+                    draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
+                    use_visual=use_visual, use_geo=use_geo, crop=None,
+                    dino_extractor=dino_extractor)))
         else:
             groups.setdefault((name, tier), []).append(idx)
 
+    # chunks of at most `cap` instances, each padded to its bucket by repeating its last one
+    chunks = []   # (name, tier, real detection indices, the batch's detection indices)
+    for (name, tier), members in groups.items():
+        for lo in range(0, len(members), cap):
+            idxs = tuple(members[lo:lo + cap])
+            batch = next(b for b in buckets if b >= len(idxs))
+            chunks.append((name, tier, idxs, idxs + (idxs[-1],) * (batch - len(idxs))))
+
     pendings: list = []
-    if groups:
-        order = [i for members in groups.values() for i in members]
+    if chunks:
         check_pinhole(np.asarray(intrinsics))
         depth_t = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
         k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
-        masks_t = torch.as_tensor(np.stack([dets[i][1] for i in order]), device=dev)
-        grids = txys = None
-        if use_visual and backbone is not None:
-            rgb_t = torch.as_tensor(np.asarray(rgb), device=dev).to(torch.float32) / 255.0
-            parts = [bbox_crop_token_grid(backbone, rgb_t, masks_t[lo:lo + cap], out_size=out_size,
-                                          stride=stride) for lo in range(0, len(order), cap)]
-            grids = torch.cat([g for g, _ in parts])
-            txys = torch.cat([t for _, t in parts])
-        row = 0
-        for (name, tier), members in groups.items():
+        rows = [i for c in chunks for i in c[3]]
+        masks_t = torch.as_tensor(np.stack([dets[i][1] for i in rows]), device=dev)
+        origins_t = torch.as_tensor(np.asarray(
+            [crop_origin(dets[i][1], depth.shape, tier) for _, tier, _, batch in chunks for i in batch],
+            np.int32), device=dev)
+        starts = np.cumsum([0] + [len(c[3]) for c in chunks]).tolist()
+        visual_on = use_visual and backbone is not None
+        ext_key = (backbone.cfg, stride, out_size, impl) if visual_on else None
+        parts: Dict[int, tuple] = {}
+        if visual_on:
+            rgb_t = torch.as_tensor(np.asarray(rgb, np.uint8), device=dev)
+            for ids, sizes in _vit_packs(backbone, stride, out_size, [len(c[3]) for c in chunks], cap):
+                pack = torch.cat([masks_t[starts[c]:starts[c + 1]] for c in ids])
+                parts.update(zip(ids, _vit_stage(backbone, stride, out_size, sizes, rgb_t, pack)))
+        for c, (name, tier, idxs, batch) in enumerate(chunks):
             cat = get_category(name)
-            lo, hi = row, row + len(members)
-            desc_fn = None
-            if grids is not None:
-                def desc_fn(pixel_yx, lo=lo, hi=hi):
-                    return sample_crop_descriptors(grids[lo:hi], pixel_yx, txys[lo:hi], out_size,
-                                                   impl=impl)
-            fi, est = _pose_group(depth_t, masks_t[lo:hi],
-                                  [crop_origin(dets[i][1], depth.shape, tier) for i in members],
-                                  [_draws_on(draws[i], dev) for i in members], k_t, tier,
-                                  models[name], cat, pipe, run_opt, use_visual, use_geo, desc_fn)
-            pendings.append(PendingFrameGroup(_pack(fi, est), cat.res, tuple(members)))
-            row = hi
+            lo, hi = starts[c], starts[c + 1]
+            grids, txys = parts.get(c, (None, None))
+            args = (depth_t, masks_t[lo:hi], origins_t[lo:hi], k_t,
+                    *_stacked([_draws_on(draws[i], dev) for i in batch]), grids, txys)
+            prog = _group_program(models[name], cat, pipe, run_opt, use_visual, use_geo, tier,
+                                  stride if visual_on else 0, ext_key, len(batch), args)
+            pendings.append(PendingFrameGroup(prog(*args), cat.res, idxs))
     pendings.extend(singles)
     return pendings
 
@@ -573,7 +744,9 @@ def fetch_frames(pendings, return_picks: bool = False):
             keyed.extend((idx, p.res) for idx in p.idxs)
         else:
             keyed.append((p[0], p[1].res))
-    rows = _fetch([p.dev if isinstance(p, PendingFrameGroup) else p[1].dev for p in pendings])
+    # a chunk's padded rows come back with it and are dropped here
+    rows = _fetch([p.dev[:len(p.idxs)] if isinstance(p, PendingFrameGroup) else p[1].dev
+                   for p in pendings])
     out = {idx: _finalize_instance(res, row) for (idx, res), row in zip(keyed, rows)}
     if return_picks:
         return out, {idx: int(row[21]) for (idx, _), row in zip(keyed, rows)}
@@ -646,6 +819,7 @@ def evaluate_real275(
     out_size: int = 256,
     models: Optional[Dict[str, CategoryModels]] = None,
     dino_extractor: Optional[DinoFeatureExtractor] = None,
+    buckets: Sequence[int] = (1, 2, 4, 8),
 ):
     """Full REAL275 evaluation: detection pkls + frames -> result pkls under
     `out_dir` and the (iou_aps, pose_aps) tables of `compute_degree_cm_map`.
@@ -660,7 +834,8 @@ def evaluate_real275(
     given, holds for each frame one InstanceDraws per detection of a known
     category, in detection order; otherwise they come from one generator
     seeded by `seed`. `debug` prints each posed instance's errors and writes
-    each frame's overlay to `{out_dir}/debug/`.
+    each frame's overlay to `{out_dir}/debug/`. `buckets` are
+    `dispatch_frame`'s.
     """
     dev = resolve_device(device)
     pipe = pipe or PipelineConfig()
@@ -726,7 +901,7 @@ def evaluate_real275(
         pends = dispatch_frame(rgb, depth, dets, REAL275_INTRINSICS, models, pipe, generator=gen,
                                vit=vit, device=dev, draws=None if draws is None else draws[k],
                                stride=stride, out_size=out_size, run_opt=run_opt,
-                               dino_extractor=dino_extractor)
+                               buckets=buckets, dino_extractor=dino_extractor)
         if pending_frame is not None:
             finish(pending_frame)
         pending_frame = (res, det_idx, pends, os.path.basename(pkl_path), rgb)

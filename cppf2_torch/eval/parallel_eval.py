@@ -38,6 +38,7 @@ from cppf2_torch.eval.driver import (
     _finalize_instance,
     _pack,
     _pose_group,
+    _stacked,
     draw_instance,
     load_category_models,
 )
@@ -80,8 +81,8 @@ def _make_rows_fn(models: CategoryModels, cat_name: str, pipe: PipelineConfig, m
             origins = None if crop is None else [crop_origin(m, m.shape, crop) for m in own]
             fi, est = _pose_group(torch.as_tensor(depth, device=dev),
                                   torch.as_tensor(np.stack(own), device=dev), origins,
-                                  [_draws_on(_get(draws[i]), dev) for i in range(lo, hi)], k_t,
-                                  crop, models, cat, pipe, run_opt, use_visual, use_geo)
+                                  *_stacked([_draws_on(_get(draws[i]), dev) for i in range(lo, hi)]),
+                                  k_t, crop, models, cat, pipe, run_opt, use_visual, use_geo)
             block = _pack(fi, est).cpu().numpy()   # one host copy for the rank's block
         blocks: List = [None] * n_ranks
         dist.all_gather_object(blocks, block, group=group)

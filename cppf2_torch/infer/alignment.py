@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from cppf2_torch.core.geometry import norm, quat_to_matrix
+from cppf2_torch.device import device_constant
 from cppf2_torch.ops.voting import _one_row, take_rows
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -77,8 +78,9 @@ def align_pose(
             return torch.sum(diff[..., up_axis] * w_pairs[..., 0], dim=(1, 2)) / (denom * 2.0)
         return torch.sum(diff * w_pairs, dim=(1, 2, 3)) / (denom * 6.0)
 
-    quat0 = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=dt, device=points.device)
-    params = [translation.detach().clone(), quat0.expand(n_rows, 4).clone()]
+    quat0 = torch.zeros((n_rows, 4), dtype=dt, device=points.device)
+    quat0[:, 3].fill_(1.0)
+    params = [translation.detach().clone(), quat0]
     mu = [torch.zeros_like(p) for p in params]
     nu = [torch.zeros_like(p) for p in params]
     grad_scale = (1.0, math.pi / 180.0)
@@ -160,7 +162,8 @@ def yaw_sweep(
                 / torch.clamp(torch.sum(w_feat, dim=-1, keepdim=True) * 6.0, min=1e-6))
 
     def const(x):
-        return torch.as_tensor(np.asarray(x, np.float32), device=dev)
+        x = np.asarray(x, np.float32)
+        return device_constant(("yaw_sweep", x.tobytes()), lambda: torch.from_numpy(x), dev)
 
     tiebreak = 3e-5 * 180.0 / np.pi
     micro = const(np.linspace(-span_deg, span_deg, num) * (np.pi / 180.0))

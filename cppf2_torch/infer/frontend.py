@@ -6,10 +6,12 @@ Counterpart of `cppf2_tpu/infer/frontend.py::preprocess_frame` (reference
 eval.py:185-216) and of its host helpers `mask_bbox` / `auto_crop` /
 `resize_crop` (reference dataset.py:322-337) / `dilate_mask` (reference
 utils/util.py:83-101). The
-crop window is a slice, so its origin must be known on the host: a caller that
-holds the mask as a numpy array computes it there (`crop_origin`) and passes
-it in, and nothing is read back from the device; without it the origin is
-computed on the device and read back once.
+crop window is cut by a gather from its origin, a device tensor, so a
+captured program (`eval/programs.py`) cuts each new frame's windows where
+that frame puts them. A caller that holds the mask as a numpy array computes
+the origin there (`crop_origin`) and passes it in, and nothing is read back
+from the device; without it the origin is computed on the device and read
+back once.
 """
 
 from __future__ import annotations
@@ -202,6 +204,17 @@ def _crop_origin_on_device(mask: torch.Tensor, c: int) -> Tuple[int, int]:
     return y0, x0
 
 
+def cut_windows(x: torch.Tensor, origins: torch.Tensor, hw: Tuple[int, int]) -> torch.Tensor:
+    """The (B, h, w) windows of `x` (B, H, W) at `origins` (B, 2) int (y0, x0)
+    on the device, by one gather: equal to the slices
+    x[b, y0:y0 + h, x0:x0 + w], which a window inside the frame must be."""
+    h, w = hw
+    rows = origins[:, 0, None].long() + torch.arange(h, device=x.device)
+    cols = origins[:, 1, None].long() + torch.arange(w, device=x.device)
+    which = torch.arange(x.shape[0], device=x.device)
+    return x[which[:, None, None], rows[:, :, None], cols[:, None, :]]
+
+
 def preprocess_frame(
     depth: torch.Tensor,
     mask: torch.Tensor,
@@ -212,7 +225,7 @@ def preprocess_frame(
     n_max: int = 8192,
     shot_k: int = 64,
     crop: Optional[int] = None,
-    origin: Union[Tuple[int, int], Sequence[Tuple[int, int]], None] = None,
+    origin: Union[Tuple[int, int], Sequence[Tuple[int, int]], torch.Tensor, None] = None,
     exact_knn: bool = False,
 ) -> FrameInputs:
     """depth + mask -> padded downsampled cloud + SHOT features.
@@ -221,36 +234,39 @@ def preprocess_frame(
     before backprojection (the caller picks `crop` with `auto_crop`). The
     voxel draws are sized for the window: `window_shape(depth.shape, crop)`
     pixels. `origin` is the window's (y0, x0) from `crop_origin` on the host
-    mask; given it, this function reads nothing back from the device.
+    mask, as numbers or as a (2,) int tensor on the device; given it, this
+    function reads nothing back from the device.
     `intrinsics` that already lie on the device are not validated here (that
     would be a read back): they must have passed `check_pinhole` on the host.
     `exact_knn` takes the kNN's exact route for the normals and SHOT.
 
     A group: masks (B, H, W) of one crop tier, depth (H, W) shared by the
-    group or (B, H, W), voxel draws (B, pixels) and `origin` a sequence of B
-    (y0, x0). The group's windows stack as (B, c, c), each with K's
+    group or (B, H, W), voxel draws (B, pixels) and `origin` B (y0, x0), a
+    sequence or a (B, 2) int tensor. The group's windows stack as (B, c, c), each with K's
     principal point shifted by its origin, and go through every stage in one
     pass (the JAX driver's jax.vmap over a group's instances); every field
     gains a leading (B,) axis and each row equals the instance's own call to
     the bit.
     """
     if mask.dim() == 2:
+        if origin is not None:
+            origin = origin[None] if torch.is_tensor(origin) else [origin]
         one = preprocess_frame(depth[None], mask[None], intrinsics, voxel_perm[None],
-                               voxel_prio[None], res, n_max, shot_k, crop,
-                               None if origin is None else [origin], exact_knn)
+                               voxel_prio[None], res, n_max, shot_k, crop, origin, exact_knn)
         return FrameInputs(*(f[0] for f in one))
     dev = depth.device
     b = mask.shape[0]
     depth = depth.expand(b, *depth.shape[-2:])
-    if crop is not None:
-        origins = ([_crop_origin_on_device(m, crop) for m in mask] if origin is None
-                   else [tuple(o) for o in origin])
-        ch, cw = window_shape(depth.shape[-2:], crop)
-        depth = torch.stack([d[y0:y0 + ch, x0:x0 + cw] for d, (y0, x0) in zip(depth, origins)])
-        mask = torch.stack([m[y0:y0 + ch, x0:x0 + cw] for m, (y0, x0) in zip(mask, origins)])
+    if crop is None:
+        window_yx = torch.zeros((b, 2), dtype=torch.int32, device=dev)
     else:
-        origins = [(0, 0)] * b
-    window_yx = torch.tensor(origins, dtype=torch.int32, device=dev)
+        if origin is None:
+            origin = [_crop_origin_on_device(m, crop) for m in mask]
+        if not torch.is_tensor(origin):
+            origin = torch.as_tensor(np.asarray(origin, np.int32).reshape(b, 2), device=dev)
+        window_yx = origin.to(torch.int32)
+        hw = window_shape(depth.shape[-2:], crop)
+        depth, mask = cut_windows(depth, window_yx, hw), cut_windows(mask, window_yx, hw)
     intrinsics = intrinsics.expand(b, 3, 3).clone()
     intrinsics[:, 0, 2] -= window_yx[:, 1]
     intrinsics[:, 1, 2] -= window_yx[:, 0]

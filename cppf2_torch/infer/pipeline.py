@@ -31,6 +31,7 @@ import torch
 from cppf2_torch.config import CategoryConfig, PipelineConfig
 from cppf2_torch.core.geometry import fibonacci_sphere, norm
 from cppf2_torch.core.pairs import pair_targets
+from cppf2_torch.device import device_constant
 from cppf2_torch.infer.alignment import align_pose, yaw_sweep
 from cppf2_torch.models.cppf import TuplePredictions
 from cppf2_torch.ops.sampling import masked_tuple_choice
@@ -95,7 +96,12 @@ class BranchPose(NamedTuple):
 
 
 def _axis(v, device) -> torch.Tensor:
-    return torch.tensor(v, dtype=torch.float32, device=device)
+    return device_constant(("axis", tuple(v)), lambda: torch.tensor(v, dtype=torch.float32), device)
+
+
+def _sphere(n: int, device) -> torch.Tensor:
+    """The (n, 3) Fibonacci sphere of the cone vote, on `device`."""
+    return device_constant(("fibonacci_sphere", n), lambda: torch.from_numpy(fibonacci_sphere(n)), device)
 
 
 def _at(x: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -270,7 +276,7 @@ def _branch_rows(branch_fn: BranchFn, points, point_valid, count, tuple_idx, gum
     """One branch on R tuple samples of one cloud as R rows of one pass: one
     MLP forward on the stacked (R, P, k) tuples, one `_pose_from_preds` and
     each row's own reconstruction loss. Every field has a leading (R,) axis."""
-    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(points.device)
+    sphere_pts = _sphere(pipe.sphere_samples, points.device)
     preds = branch_fn(points, tuple_idx)
     n = tuple_idx.shape[0]
     rows = [x.expand(n, *x.shape).contiguous() for x in (points, point_valid, count)]
@@ -397,7 +403,7 @@ def estimate_pose_group(members: Union[GroupMember, Sequence[GroupMember]], cat:
         members = GroupMember(*(torch.stack(f) for f in zip(*members)))
     n_inst, n_br = members.logits.shape[:2]
     dev = members.points.device
-    sphere_pts = torch.from_numpy(fibonacci_sphere(pipe.sphere_samples)).to(dev)
+    sphere_pts = _sphere(pipe.sphere_samples, dev)
     # rows are instance-major: instance 0's branches, then instance 1's
     rows = [x.repeat_interleave(n_br, dim=0) for x in members[:4]]
     poses = _pose_from_preds(*(x.flatten(0, 1) for x in members[4:6]), *rows,

@@ -12,7 +12,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from cppf2_torch.core.pairs import _comb_indices
+from cppf2_torch.core.pairs import comb_index_tensors
 from cppf2_torch.models.layers import Dense, ResMLP
 from cppf2_torch.ops.voting import take_rows
 
@@ -43,7 +43,7 @@ def _gather(x: torch.Tensor, ti: torch.Tensor) -> torch.Tensor:
 
 
 def _pair_coords(g_pts: torch.Tensor, k: int) -> torch.Tensor:
-    ii, jj = _comb_indices(k)
+    ii, jj = comb_index_tensors(k, g_pts.device)
     return (g_pts[..., ii, :] - g_pts[..., jj, :]).flatten(-2)
 
 
@@ -67,7 +67,7 @@ class ShotBranch(nn.Module):
 
     def forward(self, points, shot, normals, tuple_idx) -> TuplePredictions:
         k = self.tuple_size
-        ii, jj = _comb_indices(k)
+        ii, jj = comb_index_tensors(k, points.device)
         enc = self.shot_encoder(shot)                       # (..., N, 64)
         ti = tuple_idx.long()
         g_pts, g_enc, g_nrm = _gather(points, ti), _gather(enc, ti), _gather(normals, ti)

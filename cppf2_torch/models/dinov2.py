@@ -47,6 +47,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.device import device_constant
 from cppf2_torch.models.layers import Dense, QDense, lecun_normal_, quantize_kernel
 from cppf2_torch.ops import attention
 from cppf2_torch.ops.voting import take_rows
@@ -282,8 +283,8 @@ class DinoViT(nn.Module):
         if (gh, gw) == (g, g):
             return pos.reshape(gh * gw, d)
         dev = pos.device
-        rh = torch.from_numpy(cubic_resize_matrix(g, gh)).to(dev)
-        rw = torch.from_numpy(cubic_resize_matrix(g, gw)).to(dev)
+        rh, rw = (device_constant(("cubic_resize", g, n), lambda n=n: torch.from_numpy(
+            cubic_resize_matrix(g, n)), dev) for n in (gh, gw))
         out = torch.einsum("oh,hwc->owc", rh, pos.float())
         out = torch.einsum("pw,owc->opc", rw, out)
         return out.to(pos.dtype).reshape(gh * gw, d)
@@ -293,8 +294,8 @@ class DinoViT(nn.Module):
         p = c.patch_size
         lead = img.shape[:-3]
         gh, gw = img.shape[-3] // p, img.shape[-2] // p
-        mean = torch.as_tensor(IMAGENET_MEAN, device=img.device)
-        std = torch.as_tensor(IMAGENET_STD, device=img.device)
+        mean, std = (device_constant(("imagenet", name), lambda v=v: torch.as_tensor(v), img.device)
+                     for name, v in (("mean", IMAGENET_MEAN), ("std", IMAGENET_STD)))
         x = (img - mean) / std
         patches = x.reshape(*lead, gh, p, gw, p, 3).transpose(-4, -3).reshape(
             *lead, gh * gw, p * p * 3)
@@ -328,8 +329,9 @@ def resize_bilinear_matmul(img: torch.Tensor, oh: int, ow: int) -> torch.Tensor:
     h, w = img.shape[-3:-1]
     if oh < h or ow < w:
         raise ValueError(f"resize_bilinear_matmul is upscale-only ({h}x{w} -> {oh}x{ow})")
-    rh = torch.from_numpy(_linear_resize_matrix(h, oh)).to(img.device)
-    rw = torch.from_numpy(_linear_resize_matrix(w, ow)).to(img.device)
+    rh, rw = (device_constant(("linear_resize", n_in, n_out), lambda n_in=n_in, n_out=n_out:
+                              torch.from_numpy(_linear_resize_matrix(n_in, n_out)), img.device)
+              for n_in, n_out in ((h, oh), (w, ow)))
     t1 = torch.einsum("oh,...hwc->...owc", rh, img)
     return torch.einsum("pw,...owc->...opc", rw, t1)
 

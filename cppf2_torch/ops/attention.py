@@ -43,6 +43,7 @@ SOURCE = "cppf2_torch/csrc/attention.cu"
 REPLACES = "cppf2_tpu/ops/pallas_attention.py:89"  # the TPU kernel's pallas_call
 _HD = 64
 _MAX_IMAGES = 65535
+_ready = set()   # device indices whose kernel may use its shared memory (cppf2_mha_setup)
 
 
 def mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_real: Optional[int] = None,
@@ -108,6 +109,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, t_real: Optional[int]
 
     fn = _build.function("attention", "cppf2_mha_fwd",
                          [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 2)
+    idx = torch.cuda.current_device() if q.device.index is None else q.device.index
+    if idx not in _ready:
+        # the kernel's shared memory is allowed once per device, before its first launch
+        with torch.cuda.device(idx):
+            _build.check(_build.function("attention", "cppf2_mha_setup", [])(), "mha setup")
+        _ready.add(idx)
     q, k, v = (x if _tma_readable(x) else x.contiguous() for x in (q, k, v))
     strides = (ctypes.c_longlong * 9)(*(x.stride(i) for x in (q, k, v) for i in (0, 1, 2)))
     out = torch.empty(shape, dtype=out_dtype, device=q.device)

@@ -72,9 +72,9 @@ def sym_eig3x3(A: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     v1, n1 = eigvec_for(e1)
     v3, n3 = eigvec_for(e3)
     ex = torch.zeros_like(v1)
-    ex[..., 0] = 1.0
+    ex[..., 0].fill_(1.0)   # a fill, not an assignment, which makes a tensor of the number first
     ez = torch.zeros_like(v3)
-    ez[..., 2] = 1.0
+    ez[..., 2].fill_(1.0)
     v1 = torch.where((n1 < 1e-10)[..., None], ex, v1)
     v3 = torch.where((n3 < 1e-10)[..., None], ez, v3)
     v3 = v3 - torch.sum(v3 * v1, dim=-1, keepdim=True) * v1

@@ -28,7 +28,10 @@ bytes. The design answers both: a per-block shared histogram whose adds are
 aggregated per warp first, a global-atomic merge, and the last block to
 finish takes the argmax and clears the counts, so the wrapper keeps one
 zeroed scratch buffer per device instead of a memset and a second kernel per
-call.
+call. A captured program (`eval/programs.py`) owns a scratch of its own
+instead (`owned_scratch`): the device's is replaced when a launch needs more
+rows, and a launch on another stream than the last synchronizes the device,
+neither of which a CUDA graph may do.
 
 Both entries launch the kernel for CUDA tensors and use their plain version
 only for CPU tensors; there is no fallback between the two. Every launch,
@@ -38,6 +41,7 @@ launches); `hist16_level_peak.launches` counts the fused ones alone.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 from typing import Dict, List, Optional, Tuple
 
@@ -50,6 +54,25 @@ _BINS = _G * _G * _G
 _MAX_ROWS = 65535  # the grid's y extent
 # device index -> [zeroed (rows, 4096 counts and a ticket), the stream last used]
 _scratch: Dict[int, List] = {}
+# [the zeroed scratch of a program, or None], while `owned_scratch` is open
+_owned: Optional[List] = None
+
+
+@contextlib.contextmanager
+def owned_scratch(holder: List):
+    """Launches inside use `holder[0]`, a zeroed int32 (rows, 4097) scratch
+    that the caller owns and keeps, in place of the device's. Where it is None
+    or holds fewer rows than a launch, that launch first puts a larger zeroed
+    one there; inside a CUDA graph capture it raises instead, so a program
+    runs once before its capture (its warm-up) to size its scratch. The
+    kernel leaves the scratch zeroed, so the owner replays its graph without
+    a memset."""
+    global _owned
+    outer, _owned = _owned, holder
+    try:
+        yield holder
+    finally:
+        _owned = outer
 
 
 def _quantize(cand, ok, lo, cell):
@@ -74,7 +97,7 @@ def hist16_peak_plain(cand, ok, lo, cell) -> Tuple[torch.Tensor, torch.Tensor]:
     best = torch.argmax(counts)          # the first maximum
     ids = torch.stack([best // (_G * _G), (best % (_G * _G)) // _G, best % _G])
     center = lo + ids.to(cand.dtype) * cell
-    return center, counts[best].to(torch.float32)
+    return center, counts.gather(0, best.reshape(1))[0].to(torch.float32)
 
 
 def _check(cand, ok, lo, cell):
@@ -99,24 +122,37 @@ def _launch(symbol: str, argtypes, dev: torch.device, rows: int, *args) -> torch
     returns the output, each row's center and count. Launches on one stream
     reuse the scratch in stream order, and a launch with more rows than it
     holds replaces it by a larger zeroed one; a launch on another stream than
-    the last one first waits for the device. A launch that fails drops the
-    scratch, so that the next one starts from zeros."""
+    the last one first waits for the device. Inside `owned_scratch` the
+    holder's scratch is used instead. A launch that fails drops the scratch,
+    so that the next one starts from zeros."""
     from cppf2_torch.ops import _build
 
     fn = _build.function("hist16", symbol, list(argtypes) + [ctypes.c_void_p] * 3)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
-    stream = _build.raw_stream(idx)
-    entry = _scratch.get(idx)
-    if entry is not None and entry[1] != stream:
-        torch.cuda.synchronize(idx)
-        entry[1] = stream
-    if entry is None or entry[0].shape[0] < rows:
-        entry = _scratch[idx] = [torch.zeros((rows, _BINS + 1), dtype=torch.int32, device=dev),
-                                 stream]
+    if _owned is not None:
+        scratch = _owned[0]
+        if scratch is None or scratch.shape[0] < rows or scratch.device.index != idx:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{symbol}: a program's K2 scratch holds no {rows} rows at its "
+                                   f"capture; it must run once before it is captured")
+            scratch = _owned[0] = torch.zeros((rows, _BINS + 1), dtype=torch.int32, device=dev)
+    else:
+        stream = _build.raw_stream(idx)
+        entry = _scratch.get(idx)
+        if entry is not None and entry[1] != stream:
+            torch.cuda.synchronize(idx)
+            entry[1] = stream
+        if entry is None or entry[0].shape[0] < rows:
+            entry = _scratch[idx] = [torch.zeros((rows, _BINS + 1), dtype=torch.int32, device=dev),
+                                     stream]
+        scratch = entry[0]
     out = torch.empty((rows, 4), dtype=torch.float32, device=dev)
-    err = _build.launch(fn, dev, *args, entry[0].data_ptr(), out.data_ptr())
+    err = _build.launch(fn, dev, *args, scratch.data_ptr(), out.data_ptr())
     if err != 0:
-        del _scratch[idx]
+        if _owned is not None:
+            _owned[0] = None
+        else:
+            del _scratch[idx]
     _build.check(err, symbol)
     _PEAK.launches += 1
     return out

@@ -86,7 +86,7 @@ def knn_radius_neighbors(
     k = min(k, n)
     query_chunk = min(_QUERY_CHUNK, max(-(-n // 256) * 256, 256))
     per_block = max(_BLOCK_ELEMS // (query_chunk * max(n, 1)), 1)
-    park = torch.tensor(1e6, dtype=points.dtype, device=points.device)
+    park = torch.full((), 1e6, dtype=points.dtype, device=points.device)
     pts = torch.where(valid[..., None], points, park)
     # column norms as a plain sum, query norms as an fma chain: the two
     # roundings XLA's CPU fusions give them, so the packed keys agree

@@ -13,9 +13,9 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.device import device_constant
 from cppf2_torch.ops.eig3 import sym_eig3x3
 from cppf2_torch.ops.neighbors import Neighbors, as_one_cloud, knn_radius_neighbors
 from cppf2_torch.ops.normals import estimate_normals
@@ -50,7 +50,8 @@ def shot_lrf(points: torch.Tensor, neighbors: Neighbors, radius: float) -> torch
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype) -> torch.Tensor:
-    return F.one_hot(idx, n).to(dtype)
+    # F.one_hot's values, without the range checks it reads back from a CPU tensor
+    return (idx[..., None] == torch.arange(n, device=idx.device)).to(dtype)
 
 
 def _soft_bins_centers_half(u: torch.Tensor, n_bins: int, circular: bool) -> torch.Tensor:
@@ -139,13 +140,18 @@ _RGB_TO_XYZ = ((0.412453, 0.357580, 0.180423),
                (0.019334, 0.119193, 0.950227))
 
 
+def _constant(values, like: torch.Tensor) -> torch.Tensor:
+    return device_constant(("shot", values, like.dtype),
+                           lambda: torch.tensor(values, dtype=like.dtype), like.device)
+
+
 def _rgb_to_cielab(rgb: torch.Tensor) -> torch.Tensor:
     """sRGB in [0, 1] -> CIELAB (D65), PCL's RGB2CIELAB. The cube root is
     pow(x, 1/3) on the branch where x > 0.008856."""
     c = torch.where(rgb > 0.04045, ((rgb + 0.055) / 1.055) ** 2.4, rgb / 12.92)
-    m = torch.tensor(_RGB_TO_XYZ, dtype=rgb.dtype, device=rgb.device)
+    m = _constant(_RGB_TO_XYZ, rgb)
     xyz = c @ m.t()
-    xyz = xyz / torch.tensor([0.95047, 1.0, 1.08883], dtype=rgb.dtype, device=rgb.device)
+    xyz = xyz / _constant((0.95047, 1.0, 1.08883), rgb)
     f = torch.where(xyz > 0.008856, torch.pow(torch.clamp(xyz, min=0.008856), 1.0 / 3.0),
                     7.787 * xyz + 16.0 / 116.0)
     lab_l = 116.0 * f[..., 1] - 16.0
@@ -173,7 +179,7 @@ def compute_cshot(points: torch.Tensor, colors: torch.Tensor, normals: torch.Ten
     cw = contrib.to(points.dtype)
     lab = (torch.cat([_rgb_to_cielab(c) for c in colors]) if colors.dim() == 3
            else _rgb_to_cielab(colors))
-    lab_n = lab / torch.tensor([100.0, 120.0, 120.0], dtype=points.dtype, device=points.device)
+    lab_n = lab / _constant((100.0, 120.0, 120.0), points)
     cdist = torch.sum(torch.abs(lab_n[neighbors.idx] - lab_n[:, None, :]), dim=-1) / 3.0
     c_cont = torch.clamp(cdist, 0.0, 1.0) * (N_COLOR_BINS - 1)
     C = _soft_bins_centers_int(c_cont, N_COLOR_BINS)

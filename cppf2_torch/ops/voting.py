@@ -17,6 +17,7 @@ the single-row order.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -24,6 +25,7 @@ import numpy as np
 import torch
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.device import device_constant
 from cppf2_torch.ops import hist16, sphere
 
 _EPS = 1e-7
@@ -47,12 +49,20 @@ def _pair_frames(a: torch.Tensor, b: torch.Tensor):
     return abu, ab_norm[..., 0], x0, y0
 
 
+@functools.lru_cache(maxsize=None)
+def _cone_threshold(angle_tol_deg: float) -> float:
+    """cos(2 tol) of the float32 angle, in float32, as a host number, which
+    a tensor filled with it carries to the device without a copy."""
+    return float(torch.cos(torch.tensor(2 * angle_tol_deg / 180.0 * math.pi, dtype=torch.float32)))
+
+
 def _linspace(n: int, device) -> torch.Tensor:
     """jnp.linspace(-1, 1, n) by its float32 lerp, start*(1-t) + stop*t (XLA
     fuses parts of it into multiply-adds, so entries may differ by one ulp)."""
     step = np.arange(n - 1, dtype=np.float32) / np.float32(n - 1)
     out = np.float32(-1.0) * (np.float32(1.0) - step) + np.float32(1.0) * step
-    return torch.from_numpy(np.append(out, np.float32(1.0)).astype(np.float32)).to(device)
+    table = np.append(out, np.float32(1.0)).astype(np.float32)
+    return device_constant(("linspace", n), lambda: torch.from_numpy(table), device)
 
 
 def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -121,7 +131,7 @@ def vote_center(
     ok = pair_valid & (ab_len > _EPS) & (odist > res)
     c = a - abu * proj_len[..., None]
 
-    big = torch.tensor(1e9, dtype=dt, device=dev)
+    big = torch.full((), 1e9, dtype=dt, device=dev)
     pts_lo = torch.amin(torch.where(point_valid[..., None], points, big), dim=1)
     pts_hi = torch.amax(torch.where(point_valid[..., None], points, -big), dim=1)
 
@@ -310,7 +320,9 @@ def sphere_vote_cone(
         return (v.reshape(-1, 3) @ sph_t).reshape(n_rows, n_pairs, -1)
 
     xs, ys, as_ = dots(x0), dots(y0), dots(abu)
-    thresh = torch.cos(torch.tensor(2 * angle_tol_deg / 180.0 * math.pi, dtype=torch.float32))
+    # a tensor operand: `number / tensor` would multiply by the tensor's reciprocal instead
+    thresh = torch.full((), _cone_threshold(angle_tol_deg), dtype=torch.float32,
+                        device=points.device)
     r_amp = abs_tan[..., None] * torch.sqrt(xs * xs + ys * ys)[:, None]
     rhs = thresh / torch.clamp(inv_norm, min=_EPS)[..., None] - sign[..., None] * as_[:, None]
     ratio = rhs / torch.clamp(r_amp, min=_EPS)

@@ -180,8 +180,9 @@ def test_frame_results_do_not_depend_on_the_grouping(frame_reference):
 
 def test_oversize_mask_takes_the_singles_route(frame_reference):
     """A mask wider than every crop tier goes through `dispatch_instance`
-    with `crop=None` (the whole frame), geometry only here; the ViT cap
-    splits five crops into pieces of two."""
+    with `crop=None` (the whole frame), geometry only here; at buckets
+    (1, 2) five crops of three groups (2, 2 and 1 instances) pack into
+    three ViT forwards of at most two crops."""
     rgb, depth, dets, _, tvit, tmodels, _ = frame_reference
     rng = np.random.default_rng(1)
     big = np.zeros((H, W), bool)
@@ -198,7 +199,7 @@ def test_oversize_mask_takes_the_singles_route(frame_reference):
     want = tdriver.fetch_instances([tdriver.dispatch_instance(
         rgb, depth2, big, K, tmodels["bowl"], "bowl", pipe, device="cpu", draws=d, crop=None)])[0]
     np.testing.assert_array_equal(got[0], want[0])
-    # the cap on one ViT forward: 5 crops at max_crops 2 are 3 forwards
+    # the cap on one ViT forward is the largest bucket: 5 crops at buckets (1, 2) are 3 forwards
     calls = []
     orig = tdriver.bbox_crop_token_grid
     tdriver.bbox_crop_token_grid = lambda vit, rgb_t, masks, **kw: (calls.append(len(masks)),
@@ -207,7 +208,7 @@ def test_oversize_mask_takes_the_singles_route(frame_reference):
         five = [dets[0], dets[1], dets[2], dets[0], dets[1]]
         out = tdriver.fetch_frames(tdriver.dispatch_frame(
             rgb, depth, five, K, tmodels, pipe, generator=torch.Generator().manual_seed(2), vit=tvit,
-            device="cpu", stride=STRIDE, out_size=OUT, max_crops=2, run_opt=False))
+            device="cpu", stride=STRIDE, out_size=OUT, buckets=(1, 2), run_opt=False))
     finally:
         tdriver.bbox_crop_token_grid = orig
     assert calls == [2, 2, 1] and sorted(out) == [0, 1, 2, 3, 4]
