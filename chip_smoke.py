@@ -6,7 +6,7 @@
 Phases, each printing its own lines; any failure exits non-zero. Phases 3
 to 10 run the driver's programs eagerly (`programs.disable_capture()`), as
 they ran before the programs were captured: their plain swaps, stage timers
-and recorded kernel inputs need the eager route. Phases 11 and 12 run the
+and recorded kernel inputs need the eager route. Phases 11 to 13 run the
 captured programs:
   1. the card (nvidia-smi name and power limit) and the kernel build: every
      `cppf2_torch/csrc/*.cu` compiled with nvcc for sm_90a, in parallel;
@@ -157,7 +157,8 @@ captured programs:
      launches (4 K2 a block). Both routes run once before they are counted:
      their programs are captured then, and the counted runs replay them;
      the counts of `align_pose` calls, frontend calls and MLP forwards are
-     those the programs credit at each replay.
+     those the programs credit at each replay. The evaluator runs eagerly
+     here, its counts those of one pass; phase 13 replays its blocks.
  12. the captured programs (`cppf2_torch/eval/programs.py`): phase 11's two
      layouts and eleven mugs (r 4 cm at 0.85 m: chunks of 8 and 3, the 3
      padded to 4) through `dispatch_frame`, each captured on one frame and
@@ -172,6 +173,23 @@ captured programs:
      beside the shared graph pool's reserved MiB. Then `estimate_instance`
      captured on phase 3's frame and replayed on another, against eager on
      the same inputs (equal to the bit), e2e ms and busy share of both.
+ 13. the serving programs that ran eagerly before, each captured on one
+     input and replayed on another with fresh draws, against the eager route
+     on the same inputs (equal to the bit, or within the spread of two eager
+     runs, printed where there is one): `estimate_instance` on the `vit=`
+     route (stride 8) and the `dino_extractor=` route (stride 4, the host
+     crop): three programs replayed a call (frontend, visual stage,
+     ensemble), nothing eager, 24 K1 and 4 K2 credited a replay, no
+     device-to-host copy while dispatching, replay and eager ms and busy
+     shares, the replay's stages (frontend, host crop, visual, the rest);
+     a frame of three mugs and a bowl whose mask fits no crop tier
+     through `dispatch_frame` + `fetch_frames`: the bowl's three programs
+     replayed, no program and no frontend eager in a replayed frame, replay
+     and eager ms; `evaluate_real275_parallel` at world 1 on phase 11's
+     frames with its models handed in: a first run (captures), a replayed
+     run and two eager runs, ms per instance, the block programs and their
+     sizes, 4 K2 a block; the extractor alone at 256 x 256, stride 4, bf16
+     and int8: replay and eager ms, 24 K1 (and 96 int8 linears) a replay.
 
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 4 launches of the slice, all through the fused entry at two rows,
@@ -180,8 +198,9 @@ entry's times stand inside it, and the fine level at 16 rows as `batched`,
 with phase 11's launches; K1's row holds the batched shape and the stride-4 shape
 nested, the latter with the demo's launches; K1 and K2 carry the launches of
 phase 10's int8 paths as `int8_launches`; both carry `replay_launches`,
-what one replay of phase 12's eight-mug frame launches), then the card's
-name and power limit. The last line:
+what one replay of phase 12's eight-mug frame launches, and
+`serving_replay_launches`, what one replay of each of phase 13's programs
+credits), then the card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -2029,7 +2048,7 @@ def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
     from cppf2_torch.config import PipelineConfig
     from cppf2_torch.eval import driver
     from cppf2_torch.eval.png import read_png_rgb8, write_png16, write_png_rgb8
-    from cppf2_torch.models.dinov2 import VIT_L14, DinoFeatureExtractor, DinoViT
+    from cppf2_torch.models.dinov2 import VIT_L14, DinoViT
     from cppf2_torch.ops import attention, hist16
 
     vit_cfg = vit_cfg or VIT_L14
@@ -2153,7 +2172,7 @@ def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
 
     # the frame's stages, each bracketed by device synchronizations
     targets = [(demo, "read_png_rgb8"), (demo, "_read_depth"), (demo, "auto_instance_mask"),
-               (driver, "resize_crop"), (DinoFeatureExtractor, "__call__"), (demo, "run_frame"),
+               (driver, "_instance_visual"), (demo, "run_frame"),
                (demo, "draw_pose_overlay"), (demo, "write_png_rgb8"), (demo, "load_category_models"),
                (demo, "load_dino_extractor")]
     _, spent, total_s = run(os.path.join(root, "out_timed"), targets)
@@ -2162,8 +2181,8 @@ def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
     frame_ms = (total_s * 1e3 - setup_ms) / n_frames
     stages = {"image read": per["read_png_rgb8"] + per["_read_depth"],
               "proposer": per["auto_instance_mask"],
-              "descriptors (host crop + extractor)": per["resize_crop"] + per["__call__"],
-              "pose": per["run_frame"] - per["resize_crop"] - per["__call__"] - per["draw_pose_overlay"],
+              "descriptors (host crop + extractor)": per["_instance_visual"],
+              "pose": per["run_frame"] - per["_instance_visual"] - per["draw_pose_overlay"],
               "overlay + PNG write": per["draw_pose_overlay"] + per["write_png_rgb8"]}
     stages["rest"] = frame_ms - sum(stages.values())
     say(f"[demo] ms per frame {frame_ms:.1f} (mean of {n_frames}; set-up {setup_ms / 1e3:.1f} s apart: "
@@ -2617,6 +2636,8 @@ BATCH_CENTERS = [(x, y, 0.85) for y in (-0.09, 0.09) for x in (-0.21, -0.07, 0.0
 # wrappers stay from `install_tallies` on, and every capture of a program
 # records what they counted, which its replays credit (`programs.count_replays`).
 TALLY = types.SimpleNamespace(align=[], frontend=[], shot=[], dino=[])
+# Python runs of the driver's frontend, which no program credits: a replay adds none
+RAN = types.SimpleNamespace(frontend=0)
 
 
 def install_tallies():
@@ -2632,6 +2653,7 @@ def install_tallies():
 
     def counting_front(depth, mask, *args, **kwargs):
         TALLY.frontend.append(mask.shape[0])
+        RAN.frontend += 1
         return front(depth, mask, *args, **kwargs)
 
     pipeline.align_pose, driver.preprocess_frame = counting_align, counting_front
@@ -2733,7 +2755,7 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
     import torch
     import torch.distributed as dist
 
-    from cppf2_torch.eval import driver, parallel_eval
+    from cppf2_torch.eval import driver, parallel_eval, programs
     from cppf2_torch.models.dinov2 import DinoViT
 
     root = os.path.join(tmp, "batched")
@@ -2859,13 +2881,16 @@ def run_batched_frames(dev, pipe, vit_cfg, tmp, hw=(480, 640), stride=8, out_siz
         f"{worst['t'] * 1e3:.4f} mm, the same picks")
     out.update(r_deg=worst["r"], t_mm=worst["t"] * 1e3)
 
-    # evaluate_real275_parallel on the two frames: a rank block of four instances is one group
+    # evaluate_real275_parallel on the two frames: a rank block of four instances is one
+    # group; eagerly, so that its counts are those of one pass (phase 13 runs its
+    # block programs captured, against this route)
     serial = [d for f in out["frames"] for d in f["draws"]]
+    out["eval_inputs"] = (det_dir, img_dir, serial)
     dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store11"), 1),
                             rank=0, world_size=1)
     try:
         zero_counts()
-        with counted_align() as aligned:
+        with counted_align() as aligned, programs.disable_capture():
             t0 = time.perf_counter()
             parallel_eval.evaluate_real275_parallel(det_dir, img_dir, os.path.join(tmp, "eval11"),
                                                     ckpt_root=ckpts, pipe=pipe, draws=serial,
@@ -2922,6 +2947,21 @@ CAPTURE_LAYOUTS = BATCH_LAYOUTS + [["mug"] * 11]
 ELEVEN_CENTERS = [(x, y, 0.85) for y in (-0.12, 0.0, 0.12) for x in (-0.24, -0.12, 0.0, 0.12)][:11]
 
 
+def programs_census(models, backbones):
+    """Every program the driver, the evaluator and the extractor keep for
+    these models and backbones, by key."""
+    from cppf2_torch.eval import driver
+    from cppf2_torch.models import dinov2
+
+    progs = dict(driver._FRONTENDS)
+    for b in backbones:
+        for cache in (driver._VIT_STAGES, driver._VISUALS, dinov2._EXTRACTOR_PROGRAMS):
+            progs.update(cache.get(b, {}))
+    for m in models.values():
+        progs.update(m._programs)
+    return progs
+
+
 def pool_mib(handle):
     """MiB reserved in the graph memory pool `handle`, from the allocator's
     snapshot; None where the snapshot names no segment's pool."""
@@ -2973,11 +3013,7 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
     pool = programs.pool_handle(dev)
 
     def census():
-        progs = dict(driver._FRONTENDS)
-        progs.update(driver._VIT_STAGES.get(vit, {}))
-        for m in models.values():
-            progs.update(m._programs)
-        return progs
+        return programs_census(models, [vit])
 
     def make(cats, seed, shift):
         centers = ELEVEN_CENTERS if len(cats) == 11 else BATCH_CENTERS
@@ -3110,6 +3146,316 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the serving programs that ran eagerly before
+# ---------------------------------------------------------------------------
+
+# a frame of three 4 cm mugs in their crop tier and one bowl, a 26 cm cap at
+# 0.95 m, whose mask (about 323 px wide) fits no tier: the singles route
+SINGLES_CATS = ["mug", "bowl", "mug", "mug"]
+SINGLES_CENTERS = [(0.16, -0.1, 0.85), (-0.2, 0.0, 0.95), (0.16, 0.1, 0.85), (0.27, 0.0, 0.85)]
+SINGLES_RADII = [0.04, 0.26, 0.04, 0.04]
+
+
+def replayed(census, before):
+    """(programs replayed, replays, eager runs) since `before`, a
+    {key: (replays, eager_runs)} of an earlier census."""
+    used = [p for k, p in census.items() if p.replays > before.get(k, (0, 0))[0]]
+    replays = sum(p.replays - before.get(k, (0, 0))[0] for k, p in census.items())
+    eager = sum(p.eager_runs - before.get(k, (0, 0))[1] for k, p in census.items())
+    return used, replays, eager
+
+
+def held_to_eager(name, replay, eager, eager2):
+    """Replayed outputs against eager ones on the same inputs: equal to the
+    bit, or, where two eager runs on the card differ, within that spread.
+    Returns (replay vs eager, eager vs eager) max |diff|."""
+    import torch
+
+    def diff(a, b):
+        return max(float(torch.max(torch.abs(x.double() - y.double()))) for x, y in zip(a, b))
+
+    same, noise = diff(replay, eager), diff(eager, eager2)
+    if same > noise:
+        raise AssertionError(f"{name}: replay vs eager max |diff| {same:.3g}, above two eager runs' "
+                             f"{noise:.3g}")
+    if noise:
+        say(f"[serving] {name}: two eager runs differ by {noise:.3g} (the spread the replay is held to)")
+    return same, noise
+
+
+def run_serving_programs(dev, pipe, vit_cfg, eval_inputs, tmp, hw=(480, 640), backend="nccl"):
+    """Phase 13: the serving units that ran eagerly before, each captured on
+    one input and replayed on another with fresh draws, against the eager
+    route (`programs.disable_capture()`) on the same inputs: the instance on
+    both visual routes, a frame with a mask that fits no crop tier, the
+    parallel evaluator's blocks, the extractor alone in bf16 and int8.
+    Returns a dict of the phase's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from cppf2_torch.eval import driver, parallel_eval, programs
+    from cppf2_torch.models.dinov2 import DinoFeatureExtractor
+    from cppf2_torch.models.layers import QDense
+    from cppf2_torch.ops import attention, hist16
+
+    ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
+    models = driver.load_category_models(ckpts, ["bowl", "can", "mug"], torch.bfloat16, dev)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ext = DinoFeatureExtractor(cfg=vit_cfg, device=dev.type).init_random(gen)   # stride 4
+    vit = ext.model                   # the same backbone on the bbox-crop route at stride 8
+    backbones = [vit]
+    pool = programs.pool_handle(dev)
+    out = {}
+
+    def census():
+        return programs_census(models, backbones)
+
+    def mark():
+        return {k: (p.replays, p.eager_runs) for k, p in census().items()}
+
+    # 1. the instance on both visual routes: three programs a call
+    frames = [make_frame(np.random.default_rng(0), *hw),
+              make_frame(np.random.default_rng(1), *hw, center=(-0.02, 0.03, 0.85))]
+    draws = [driver.draw_instance(hw, m, "mug", pipe, dev, gen) for _, _, m in frames]
+    routes = {"vit (stride 8)": dict(vit=vit, stride=8), "dino_extractor (stride 4)": dict(dino_extractor=ext)}
+    out["instance"] = {}
+    for label, route in routes.items():
+        def instance(j, route=route):
+            rgb, depth, mask = frames[j]
+            est = driver.estimate_instance(rgb, depth, mask, REAL275_K, models["mug"], "mug", pipe,
+                                           draws=draws[j], device=dev, **route)
+            torch.cuda.synchronize()
+            return est
+
+        def e2e(n=3):
+            times, est = [], None
+            for _ in range(n):
+                t0 = time.perf_counter()
+                est = instance(1)
+                times.append((time.perf_counter() - t0) * 1e3)
+            return est, statistics.median(times)
+
+        t0 = time.perf_counter()
+        instance(0)
+        capture_ms = (time.perf_counter() - t0) * 1e3
+        seen = mark()
+        zero_counts()
+        before_ran = RAN.frontend
+        est = instance(1)
+        counts = read_counts()
+        used, n_replays, n_eager = replayed(census(), seen)
+        if len(used) != 3 or n_replays != 3 or n_eager or RAN.frontend != before_ran:
+            raise AssertionError(f"instance {label}: {len(used)} programs, {n_replays} replays, "
+                                 f"{n_eager} eager runs, {RAN.frontend - before_ran} frontend runs "
+                                 f"in a call (expected 3 programs replayed once each, nothing eager)")
+        if counts["mha"] != vit_cfg.depth or counts["hist16_peak"] != pipe.vote_levels:
+            raise AssertionError(f"instance {label}: launches credited per replay {counts}")
+        _, ms = e2e()
+        busy = device_ms(lambda: instance(1), iters=1)
+        # where the replayed call's time goes: each stage bracketed by synchronizations
+        parts = []
+        for _ in range(3):
+            with timed_calls([(driver, "_frontend"), (driver, "resize_crop"),
+                              (driver, "_instance_visual")]) as spent:
+                t0 = time.perf_counter()
+                instance(1)
+                total = (time.perf_counter() - t0) * 1e3
+            parts.append({"frontend": spent["_frontend"], "host crop": spent["resize_crop"],
+                          "visual": spent["_instance_visual"] - spent["resize_crop"],
+                          "ensemble and the rest": total - spent["_frontend"]
+                          - spent["_instance_visual"]})
+        stages = {k: statistics.median(p[k] for p in parts) for k in parts[0]}
+        pend, syncs, reads, kinds, _ = dispatch_without_reads(lambda: driver.dispatch_instance(
+            frames[1][0], frames[1][1], frames[1][2], REAL275_K, models["mug"], "mug", pipe,
+            draws=draws[1], device=dev, **route))
+        if reads:
+            raise AssertionError(f"instance {label}: device-to-host copies while dispatching {reads}")
+        with programs.disable_capture():
+            est_eager, eager_ms = e2e()
+            est_eager2 = instance(1)
+            eager_busy = device_ms(lambda: instance(1), iters=1)
+        same, noise = held_to_eager(f"instance {label}", est, est_eager, est_eager2)
+        out["instance"][label] = dict(capture_ms=capture_ms, ms=ms, eager_ms=eager_ms, busy_ms=busy,
+                                      eager_busy_ms=eager_busy, stages=stages,
+                                      programs=len(used), k1=counts["mha"],
+                                      k2=counts["hist16_peak"], reads=len(reads), diff=same,
+                                      eager_noise=noise)
+        say(f"[serving] estimate_instance via {label}: first call {capture_ms:.1f} ms; replay "
+            f"{ms:.1f} ms e2e (median of 3), busy {busy:.1f} ms ({100 * busy / ms:.1f}%), by stage "
+            f"(synchronized, median of 3) " + ", ".join(f"{k} {v:.1f}" for k, v in stages.items())
+            + f"; eager {eager_ms:.1f} ms, busy {eager_busy:.1f} ms "
+            f"({100 * eager_busy / eager_ms:.1f}%); programs replayed per call {len(used)} ({sorted(p.key[0][0] for p in used)}); launches "
+            f"credited per replay K1 {counts['mha']}, K2 {counts['hist16_peak']}; device-to-host "
+            f"copies while dispatching {len(reads)} (copies {kinds}); replay vs eager max |diff| "
+            f"{same:.3g} (two eager runs {noise:.3g})")
+
+    # 2. a frame with a mask that fits no crop tier beside tiered ones
+    def singles_frame(seed, shift):
+        rng = np.random.default_rng(seed)
+        depth, masks = cap_frame(rng, *hw, [(x + shift, y, z) for x, y, z in SINGLES_CENTERS],
+                                 SINGLES_RADII)
+        rgb = rng.integers(0, 256, size=(*hw, 3)).astype(np.uint8)
+        dets = list(zip(SINGLES_CATS, masks))
+        return rgb, depth, dets, [driver.draw_instance(hw, m, c, pipe, dev, gen) for c, m in dets]
+
+    first, again = singles_frame(80, 0.0), singles_frame(81, 0.01)
+    groups = _groups(first[2])
+    if groups != _groups(again[2]) or ("bowl", None) not in groups:
+        raise AssertionError(f"singles frame: groups {groups} and {_groups(again[2])}, the bowl "
+                             f"must fit no tier in both")
+    kw = dict(vit=vit, device=dev, stride=8, out_size=256)
+
+    def frame_run(f):
+        rgb, depth, dets, d = f
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pends = driver.dispatch_frame(rgb, depth, dets, REAL275_K, models, pipe, draws=d, **kw)
+        got = driver.fetch_frames(pends, return_picks=True)
+        torch.cuda.synchronize()
+        return pends, got, (time.perf_counter() - t0) * 1e3
+
+    t0 = time.perf_counter()
+    frame_run(first)
+    frame_capture_ms = (time.perf_counter() - t0) * 1e3
+    runs = []
+    for _ in range(3):
+        seen = mark()
+        zero_counts()
+        before_ran = RAN.frontend
+        runs.append(frame_run(again))
+        used, n_replays, n_eager = replayed(census(), seen)
+        counts = read_counts()
+        if n_eager or RAN.frontend != before_ran:
+            raise AssertionError(f"singles frame: {n_eager} programs and {RAN.frontend - before_ran} "
+                                 f"frontends ran eagerly in a replayed frame")
+    pends, got, _ = runs[-1]
+    kinds = sorted(p.key[0][0] for p in used)
+    if kinds.count("frontend") != 1 or kinds.count("visual") != 1 or kinds.count("pose") != 1:
+        raise AssertionError(f"singles frame: programs replayed {kinds}, expected the single's "
+                             f"frontend, visual stage and ensemble")
+    if sorted(got[0]) != list(range(len(SINGLES_CATS))) or any(v is None for v in got[0].values()):
+        raise AssertionError(f"singles frame: not every instance came back posed: {got[0]}")
+    _, _, reads, _, _ = dispatch_without_reads(lambda: driver.dispatch_frame(
+        again[0], again[1], again[2], REAL275_K, models, pipe, draws=again[3], **kw))
+    if reads:
+        raise AssertionError(f"singles frame: device-to-host copies while dispatching {reads}")
+    replay_ms = statistics.median(r[2] for r in runs)
+    busy = device_ms(lambda: frame_run(again), iters=1)
+    with programs.disable_capture():
+        eager = [frame_run(again) for _ in range(2)]
+    same, noise = held_to_eager("singles frame", [p.dev if hasattr(p, "dev") else p[1].dev for p in pends],
+                                [p.dev if hasattr(p, "dev") else p[1].dev for p in eager[0][0]],
+                                [p.dev if hasattr(p, "dev") else p[1].dev for p in eager[1][0]])
+    out["singles"] = dict(groups=[f"{c}/{t}" for c, t in groups], capture_ms=frame_capture_ms,
+                          ms=replay_ms, eager_ms=statistics.median(e[2] for e in eager), busy_ms=busy,
+                          programs=len(used), kinds=kinds, k1=counts["mha"], k2=counts["hist16_peak"],
+                          reads=len(reads), diff=same, eager_noise=noise)
+    say(f"[serving] frame of {len(SINGLES_CATS)} detections, groups {out['singles']['groups']} (the "
+        f"bowl fits no tier): first dispatch {frame_capture_ms:.1f} ms; replay {replay_ms:.1f} ms e2e "
+        f"(median of 3), busy {busy:.1f} ms ({100 * busy / replay_ms:.1f}%); eager "
+        f"{out['singles']['eager_ms']:.1f} ms; programs replayed a frame {len(used)} ({kinds}), none "
+        f"eager; launches credited per replay K1 {counts['mha']}, K2 {counts['hist16_peak']}; "
+        f"device-to-host copies while dispatching {len(reads)}; replay vs eager max |diff| {same:.3g} "
+        f"(two eager runs {noise:.3g})")
+
+    # 3. the parallel evaluator's blocks on phase 11's frames, at world 1
+    det_dir, img_dir, serial = eval_inputs
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store13"), 1),
+                            rank=0, world_size=1)
+    runs = {}
+    try:
+        def evaluate(label):
+            zero_counts()
+            with timed_calls([(parallel_eval, "compute_degree_cm_map")]) as spent:
+                t0 = time.perf_counter()
+                parallel_eval.evaluate_real275_parallel(
+                    det_dir, img_dir, os.path.join(tmp, f"eval13_{label}"), ckpt_root=ckpts,
+                    pipe=pipe, draws=serial, device=dev.type, models=models)
+                ms = (time.perf_counter() - t0) * 1e3
+            poses = {}
+            for name in sorted(os.listdir(os.path.join(tmp, f"eval13_{label}"))):
+                if name.endswith(".pkl"):
+                    with open(os.path.join(tmp, f"eval13_{label}", name), "rb") as fh:
+                        poses[name] = pickle.load(fh)["pred_RTs"]
+            runs[label] = dict(ms=ms, scoring_ms=spent["compute_degree_cm_map"], poses=poses,
+                               launches=read_counts())
+
+        rows_before = {k for m in models.values() for k in m._programs if k[0][0] == "rows"}
+        evaluate("first")
+        rows = [p for m in models.values() for k, p in m._programs.items()
+                if k[0][0] == "rows" and k not in rows_before]
+        seen = [p.replays for p in rows]
+        evaluate("replay")
+        blocks = sum(p.replays - n for p, n in zip(rows, seen))
+        with programs.disable_capture():
+            evaluate("eager")
+            evaluate("eager2")
+    finally:
+        dist.destroy_process_group()
+    n_inst = len(serial)
+    if runs["replay"]["launches"]["hist16_peak"] != pipe.vote_levels * blocks:
+        raise AssertionError(f"evaluator: K2 launches of a replayed run {runs['replay']['launches']}, "
+                             f"expected {pipe.vote_levels} a block, {blocks} blocks")
+    diff = max(float(np.max(np.abs(runs["replay"]["poses"][n] - runs["eager"]["poses"][n])))
+               for n in runs["eager"]["poses"])
+    noise = max(float(np.max(np.abs(runs["eager2"]["poses"][n] - runs["eager"]["poses"][n])))
+                for n in runs["eager"]["poses"])
+    if diff > noise:
+        raise AssertionError(f"evaluator: replayed poses vs eager max |diff| {diff:.3g}, two eager "
+                             f"runs {noise:.3g}")
+    per = {k: (r["ms"] - r["scoring_ms"]) / n_inst for k, r in runs.items()}
+    out["evaluator"] = dict(instances=n_inst, programs=len(rows), blocks=blocks,
+                            block_shapes=sorted(int(p.static[0].shape[0]) for p in rows),
+                            ms_per_instance={k: r["ms"] / n_inst for k, r in runs.items()},
+                            posing_ms_per_instance=per, diff=diff, eager_noise=noise,
+                            k2_per_block=pipe.vote_levels)
+    say(f"[serving] evaluate_real275_parallel (world 1) on phase 11's frames, {n_inst} instances in "
+        f"{blocks} blocks: {len(rows)} block programs (block sizes "
+        f"{out['evaluator']['block_shapes']}); ms per instance, scoring left out: first run (captures) "
+        f"{per['first']:.1f}, replayed {per['replay']:.1f}, eager {per['eager']:.1f} / "
+        f"{per['eager2']:.1f}; with scoring {runs['replay']['ms'] / n_inst:.1f} replayed, "
+        f"{runs['eager']['ms'] / n_inst:.1f} eager; replayed poses vs eager max |diff| {diff:.3g} (two "
+        f"eager runs {noise:.3g}); K2 launches of the replayed run {runs['replay']['launches']}")
+
+    # 4. the extractor alone at (256, 256), stride 4, bf16 and int8
+    ext8 = DinoFeatureExtractor(cfg=vit_cfg, quant="int8", device=dev.type).init_random(gen)
+    backbones.append(ext8.model)
+    img = torch.rand(256, 256, 3, generator=gen, device=dev)
+    kp = torch.rand(8192, 2, generator=gen, device=dev) * 256
+    out["extractor"] = {}
+    for label, e in (("bf16", ext), ("int8", ext8)):
+        e(img, kp)   # the capture
+        zero_counts()
+        QDense.launches = 0
+        got = e(img, kp)
+        credits = dict(k1=attention._MHA.launches, qdense=QDense.launches)
+        want_q = 4 * vit_cfg.depth if label == "int8" else 0
+        if credits != dict(k1=vit_cfg.depth, qdense=want_q):
+            raise AssertionError(f"extractor {label}: launches credited per replay {credits}")
+        ms = time_ms(lambda: e(img, kp), iters=10, repeats=3)
+        dms = device_ms(lambda: e(img, kp), iters=5)
+        with programs.disable_capture():
+            eager = e(img, kp)
+            eager2 = e(img, kp)
+            eager_ms = time_ms(lambda: e(img, kp), iters=5, repeats=3)
+        same, noise = held_to_eager(f"extractor {label}", [got], [eager], [eager2])
+        out["extractor"][label] = dict(ms=ms, device_ms=dms, eager_ms=eager_ms, diff=same,
+                                       eager_noise=noise, **credits)
+        say(f"[serving] DinoFeatureExtractor {label} (256x256, stride 4, 8192 keypoints): replay "
+            f"{ms:.2f} ms back to back (device {dms:.2f}), eager {eager_ms:.2f} ms; credited per "
+            f"replay K1 {credits['k1']}, int8 linears {credits['qdense']}; replay vs eager max |diff| "
+            f"{same:.3g} (two eager runs {noise:.3g})")
+
+    every = census()
+    out.update(programs=len(every), pool_mb=pool_mib(pool),
+               by_kind={k: sum(p.key[0][0] == k for p in every.values())
+                        for k in sorted({p.key[0][0] for p in every.values()})})
+    say(f"[serving] {out['programs']} programs of this phase's models and backbones "
+        f"({out['by_kind']}); graph pool reserved {out['pool_mb']} MiB (every program of the run)")
+    return out
+
+
 def _groups(dets):
     from cppf2_torch.infer.frontend import auto_crop
 
@@ -3155,7 +3501,7 @@ def main() -> int:
     try:
         # phases 3 to 10 run the eager route, as they did before the programs
         # (their plain swaps, stage timers and recorded inputs need it); phases
-        # 11 and 12 run the captured programs
+        # 11 to 13 run the captured programs
         with programs.disable_capture():
             launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
             t_phase = time.perf_counter()
@@ -3181,6 +3527,9 @@ def main() -> int:
         t_phase = time.perf_counter()
         captured = run_captured_programs(dev, pipe, VIT_L14)
         say(f"[captured] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        serving = run_serving_programs(dev, pipe, VIT_L14, batched.pop("eval_inputs"), tmp)
+        say(f"[serving] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3195,6 +3544,11 @@ def main() -> int:
         dict(name="mha", route="cuda", source=attention.SOURCE, replaces=attention.REPLACES,
              launches=launches["mha"], int8_launches=int8_launches["mha"],
              replay_launches=captured["frames"][0]["k1"],
+             # what one replay of each of phase 13's serving programs credits
+             serving_replay_launches=dict(
+                 **{f"instance {k}": v["k1"] for k, v in serving["instance"].items()},
+                 singles_frame=serving["singles"]["k1"],
+                 **{f"extractor {k}": v["k1"] for k, v in serving["extractor"].items()}),
              max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by="operations", library_ms=k1_main["library_ms"],
@@ -3227,6 +3581,10 @@ def main() -> int:
              entry="hist16_level_peak", launches=launches["hist16_peak"], demo_launches=demo_k2,
              int8_launches=int8_launches["hist16_peak"],
              replay_launches=captured["frames"][0]["k2"],
+             serving_replay_launches=dict(
+                 **{f"instance {k}": v["k2"] for k, v in serving["instance"].items()},
+                 singles_frame=serving["singles"]["k2"],
+                 evaluator_block=serving["evaluator"]["k2_per_block"]),
              max_abs_err=max(r["err"] for r in k2 + k2_levels + k2_rows),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
@@ -3299,6 +3657,19 @@ def main() -> int:
         f"{100 * ci['busy_ms'] / ci['ms']:.1f}% / {100 * ci['eager_busy_ms'] / ci['eager_ms']:.1f}%; "
         f"{captured['programs']} programs, graph pool {captured['pool_mb']} MiB against an eager "
         f"peak of {captured['eager_peak_mb']:.1f} MiB")
+    for label, r in serving["instance"].items():
+        say(f"[serving] estimate_instance via {label}: ms replay {r['ms']:.1f} / eager "
+            f"{r['eager_ms']:.1f}; busy {100 * r['busy_ms'] / r['ms']:.1f}% / "
+            f"{100 * r['eager_busy_ms'] / r['eager_ms']:.1f}%; {r['programs']} programs a call; "
+            f"K1 {r['k1']}, K2 {r['k2']} a replay; reads while dispatching {r['reads']}")
+    sf, ev = serving["singles"], serving["evaluator"]
+    say(f"[serving] frame with a tierless mask: ms replay {sf['ms']:.1f} / eager {sf['eager_ms']:.1f}; "
+        f"evaluate_real275_parallel ms_per_instance (scoring left out) replayed "
+        f"{ev['posing_ms_per_instance']['replay']:.1f} / eager {ev['posing_ms_per_instance']['eager']:.1f}"
+        f" / first run {ev['posing_ms_per_instance']['first']:.1f}, {ev['programs']} block programs; "
+        + "; ".join(f"extractor {k} ms {v['ms']:.2f} replay / {v['eager_ms']:.2f} eager"
+                    for k, v in serving["extractor"].items())
+        + f"; {serving['programs']} programs, graph pool {serving['pool_mb']} MiB")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,9 @@ levels, each built on the one before:
 
   * one instance: `dispatch_instance` queues `preprocess_frame` -> the
     visual descriptors (ViT, kernel K1) -> `estimate_pose_ensemble` (center
-    votes through kernel K2) and reads nothing back; the frontend and the
-    ensemble (`CategoryModels.pose_fn`) are programs, the descriptors eager;
+    votes through kernel K2) and reads nothing back; the frontend, the
+    visual stage (`_instance_visual`) and the ensemble
+    (`CategoryModels.pose_fn`) are three programs;
     `fetch_instances` brings a list of them to the host in one copy, applies
     the degenerate-input guards and assembles (RT, scales, loss) in the NOCS
     convention. `estimate_instance` is the same graph returning the raw
@@ -42,7 +43,9 @@ jits them: on the card it is captured once as a CUDA graph per key (the JAX
 key with the inputs' shapes and the weights' addresses) and replayed; on the
 CPU, and inside `programs.disable_capture()`, it runs eagerly. The caches:
 a category's ensembles and groups on its `CategoryModels`, the instance
-frontend's in `_FRONTENDS`, a backbone's ViT stages in `_VIT_STAGES`.
+frontend's in `_FRONTENDS`, a backbone's ViT stages in `_VIT_STAGES` and its
+instance visual stages in `_VISUALS`. A mask that fits no crop tier runs as
+any instance does, through the three programs at crop None.
 
 Randomness is injected: one `InstanceDraws` per instance, given or drawn
 from a torch.Generator in detection order, so a result does not depend on how
@@ -53,7 +56,6 @@ its mask, crop origin and draws.
 from __future__ import annotations
 
 import glob
-import itertools
 import os
 import pickle
 import re
@@ -96,6 +98,8 @@ from cppf2_torch.models.dinov2 import (
     DinoViT,
     bbox_crop_descriptors,
     bbox_crop_token_grid,
+    extractor_grid,
+    interpolate_features,
     load_backbone,
     load_dinov2_params,
     sample_crop_descriptors,
@@ -124,7 +128,8 @@ class CategoryModels:
         the frontend's single-instance outputs, `desc` (N, D) descriptors (or
         None: zeros) and `pose` one PoseDraws per restart; the JAX package's
         `CategoryModels.pose_fn`."""
-        key = ("pose", cat.name, pipe, run_opt, use_visual, use_geo, _weights(self.shot, self.dino))
+        key = ("pose", cat.name, pipe, run_opt, use_visual, use_geo,
+               programs.weights(self.shot, self.dino))
 
         def fn(pc, valid, count, desc, shot, normal, pose):
             est = _ensemble(self, cat, pipe, run_opt, use_visual, use_geo, pc[None], valid[None],
@@ -136,12 +141,6 @@ class CategoryModels:
             return programs.program(self._programs, key, fn, args)(*args)
 
         return run
-
-
-def _weights(*modules) -> tuple:
-    """Where the modules' parameters and buffers lie: a captured graph reads
-    them at these addresses, so a program is keyed on them."""
-    return tuple(t.data_ptr() for m in modules for t in itertools.chain(m.parameters(), m.buffers()))
 
 
 def _reference_ckpt_path(root: str, branch: str, name: str) -> Optional[str]:
@@ -329,8 +328,56 @@ def _visual_source(vit, dino_extractor, use_visual):
     return (vit is not None or dino_extractor is not None) if use_visual is None else use_visual
 
 
+# a backbone's instance visual-stage programs, on the backbone (they read its weights where they lie)
+_VISUALS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _instance_visual(rgb, mask: np.ndarray, mask_t, pixel_yx, dev, vit, dino_extractor, stride: int,
+                     out_size: int) -> torch.Tensor:
+    """One instance's (N, D) descriptors at its cloud's pixels, the visual
+    stage as a program on the backbone, one per route, backbone config,
+    stride, crop size (sampling form) and weights' addresses:
+      * `dino_extractor`, the JAX driver's route: the masked RGB cropped on
+        the host (`resize_crop`, 256 x 256 float32), uploaded, scaled on the
+        device, the cloud's pixels mapped into the crop (`_kp_to_crop`), the
+        extractor's resize and ViT at its stride and its token sampling: the
+        jitted `_kp_to_crop` and `DinoFeatureExtractor` of the JAX package;
+      * `vit`: `bbox_crop_descriptors` on the uint8 frame and the mask, the
+        in-graph route of the JAX package's benchmark.
+    The body calls the eager `extractor_grid`, not the extractor, whose own
+    call is a program: programs do not nest."""
+    if dino_extractor is not None:
+        masked = np.where(mask[..., None], np.asarray(rgb), 0).astype(np.uint8)
+        crop_img, transform = resize_crop(masked, bbox=mask_bbox(mask), out_size=256)
+        args = (torch.as_tensor(crop_img, device=dev),
+                torch.as_tensor(np.linalg.inv(transform).astype(np.float32), device=dev), pixel_yx)
+        backbone, stride, impl = dino_extractor.model, dino_extractor.stride, dino_extractor.interp_impl
+        own = weakref.ref(backbone)   # the cache lives as long as the backbone, not longer
+
+        def fn(crop, inv_t, pixel_yx):
+            grid = extractor_grid(own(), crop / 255.0, stride)
+            return interpolate_features(grid, _kp_to_crop(pixel_yx, inv_t), crop.shape[:2], impl=impl)
+
+        key = ("visual", "extractor", backbone.cfg, stride, impl, programs.weights(backbone))
+    else:
+        args = (torch.as_tensor(np.asarray(rgb, np.uint8), device=dev), mask_t, pixel_yx)
+        backbone = vit
+        own = weakref.ref(backbone)
+
+        def fn(rgb_u8, mask, pixel_yx):
+            return bbox_crop_descriptors(own(), rgb_u8.to(torch.float32) / 255.0, mask, pixel_yx,
+                                         out_size=out_size, stride=stride)
+
+        key = ("visual", "vit", backbone.cfg, stride, out_size, programs.weights(backbone))
+    cache = _VISUALS.setdefault(backbone, {})
+    return programs.program(cache, key, fn, args)(*args)
+
+
 def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, generator, vit, dev,
                     draws, stride, out_size, run_opt, use_visual, use_geo, crop, dino_extractor=None):
+    """One instance as three programs (the frontend, the visual stage, the
+    ensemble) around the host's crop origin and, on the extractor's route,
+    its host crop."""
     cat = get_category(cat_name)
     mask = np.asarray(mask, bool)
     use_visual = _visual_source(vit, dino_extractor, use_visual)
@@ -348,23 +395,12 @@ def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, genera
         origin = torch.as_tensor(np.asarray(crop_origin(mask, mask.shape, crop), np.int32), device=dev)
     fi = _frontend(depth_t, mask_t, k_t, draws.voxel_perm, draws.voxel_prio, origin, cat.res,
                    pipe.n_points, pipe.neighbor_k, crop)
-
-    # the visual stage runs eagerly; an all-empty detection mask has no bbox
-    # to crop: the pose graph still runs on zero descriptors and the count
-    # guard rejects the instance
+    # an all-empty detection mask has no bbox to crop: the pose graph still
+    # runs on zero descriptors and the count guard rejects the instance
     desc = None
-    if use_visual and dino_extractor is not None and mask.any():
-        # the JAX driver's route: the masked RGB cropped on the host, the
-        # extractor at its own stride, the cloud's pixels mapped into the crop
-        masked = np.where(mask[..., None], np.asarray(rgb), 0).astype(np.uint8)
-        crop_img, transform = resize_crop(masked, bbox=mask_bbox(mask), out_size=256)
-        crop_t = torch.as_tensor(crop_img, device=dev) / 255.0
-        inv_t = torch.as_tensor(np.linalg.inv(transform).astype(np.float32), device=dev)
-        desc = dino_extractor(crop_t, _kp_to_crop(fi.pixel_yx, inv_t))
-    elif use_visual and vit is not None and mask.any():
-        rgb_t = torch.as_tensor(np.asarray(rgb), device=dev).to(torch.float32) / 255.0
-        desc = bbox_crop_descriptors(vit, rgb_t, mask_t, fi.pixel_yx, out_size=out_size,
-                                     stride=stride)
+    if use_visual and (vit is not None or dino_extractor is not None) and mask.any():
+        desc = _instance_visual(rgb, mask, mask_t, fi.pixel_yx, dev, vit, dino_extractor, stride,
+                                out_size)
     pose = draws.pose if isinstance(draws.pose, list) else [draws.pose]
     est = models.pose_fn(cat, pipe, run_opt, use_visual, use_geo)(
         fi.pc, fi.valid, fi.count, desc, fi.shot, fi.normal, pose)
@@ -566,7 +602,7 @@ def _vit_stage(backbone: DinoViT, stride: int, out_size: int, batches: tuple, rg
         return tuple(parts)
 
     cache = _VIT_STAGES.setdefault(backbone, {})
-    key = ("vit", backbone.cfg, stride, out_size, batches, _weights(backbone))
+    key = ("vit", backbone.cfg, stride, out_size, batches, programs.weights(backbone))
     return programs.program(cache, key, fn, (rgb_u8, masks))(rgb_u8, masks)
 
 
@@ -613,7 +649,7 @@ def _group_program(models: CategoryModels, cat, pipe: PipelineConfig, run_opt: b
         return _pack(fi, est)
 
     key = ("frame", cat.name, pipe, run_opt, use_visual, use_geo, crop, stride, ext_key, batch,
-           _weights(models.shot, models.dino))
+           programs.weights(models.shot, models.dino))
     return programs.program(models._programs, key, fn, args)
 
 
@@ -643,11 +679,11 @@ def dispatch_frame(
     `detections` is an iterable of (category name, (H, W) bool mask). The
     instances are grouped by (category, `auto_crop` tier) as in the JAX
     driver; a mask that fits no tier goes through `dispatch_instance` with
-    `crop=None` (the whole frame), eagerly. A group is cut into chunks of at
-    most `buckets[-1]` instances, and each chunk padded up to the smallest
-    bucket that holds it, its padded rows repeating its last instance, so the
-    programs number O(categories x tiers x len(buckets)) whatever a frame
-    holds. The visual stage packs the chunks' crops into ViT forwards of at
+    `crop=None` (the whole frame), as three programs like any instance. A
+    group is cut into chunks of at most `buckets[-1]` instances, and each
+    chunk padded up to the smallest bucket that holds it, its padded rows
+    repeating its last instance, so the programs number O(categories x
+    tiers x len(buckets)) whatever a frame holds. The visual stage packs the chunks' crops into ViT forwards of at
     most `buckets[-1]` crops (`_vit_packs`), across groups. Each chunk then
     runs as one program: one frontend call, one descriptor sampling and one
     forward of each enabled branch MLP for its rows, and one pose graph over
@@ -682,12 +718,10 @@ def dispatch_frame(
     for idx, (name, mask) in enumerate(dets):
         tier = auto_crop(mask)
         if tier is None:
-            with programs.disable_capture():   # the whole-frame route stays eager
-                singles.append((idx, dispatch_instance(
-                    rgb, depth, mask, intrinsics, models[name], name, pipe, vit=vit, device=dev,
-                    draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
-                    use_visual=use_visual, use_geo=use_geo, crop=None,
-                    dino_extractor=dino_extractor)))
+            singles.append((idx, dispatch_instance(
+                rgb, depth, mask, intrinsics, models[name], name, pipe, vit=vit, device=dev,
+                draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
+                use_visual=use_visual, use_geo=use_geo, crop=None, dino_extractor=dino_extractor)))
         else:
             groups.setdefault((name, tier), []).append(idx)
 

@@ -9,6 +9,14 @@ block's rows (`driver._pose_group`, the visual branch off), and
 `all_gather_object` brings the outputs together. Rank 0 writes the result
 pkls and scores them; the other ranks return None.
 
+A rank's block is one program (`eval/programs.py`), as the JAX counterpart
+jits its vmapped graph: keyed on ("rows", category, pipeline, the branch
+switches, crop tier), the weights' addresses and the block's shapes, so a
+short last block has a program of its own, as a new shape retraces the JAX
+jit. The crop windows are cut on the device from (B, 2) origins computed on
+the host from the masks; the block's one host copy and the
+`all_gather_object` stay outside the program.
+
 Randomness: one `InstanceDraws` per instance in serial instance order,
 injected or drawn from one torch.Generator seeded by `seed`. Every rank walks
 the serial order and keeps the generator's state at each instance, so a rank
@@ -30,6 +38,7 @@ import torch.distributed as dist
 
 from cppf2_torch.config import CATEGORIES, SYNSET_NAMES, PipelineConfig, get_category
 from cppf2_torch.core.geometry import check_pinhole
+from cppf2_torch.eval import programs
 from cppf2_torch.eval.driver import (
     REAL275_INTRINSICS,
     CategoryModels,
@@ -54,12 +63,27 @@ def _get(x):
     return x() if callable(x) else x
 
 
+def _rows_program(models: CategoryModels, cat, pipe: PipelineConfig, run_opt: bool,
+                  use_visual: bool, use_geo: bool, crop: Optional[int], args) -> programs.Program:
+    """The program of a rank's block: `_pose_group` over its (B, ...) inputs
+    (depths, masks, (B, 2) origins or None, intrinsics, stacked draws) and
+    the packed (B, 22) rows out."""
+    def fn(depth, masks, origins, k_t, perm, prio, pose):
+        fi, est = _pose_group(depth, masks, origins, perm, prio, pose, k_t, crop, models, cat, pipe,
+                              run_opt, use_visual, use_geo)
+        return _pack(fi, est)
+
+    key = ("rows", cat.name, pipe, run_opt, use_visual, use_geo, crop,
+           programs.weights(models.shot, models.dino))
+    return programs.program(models._programs, key, fn, args)
+
+
 def _make_rows_fn(models: CategoryModels, cat_name: str, pipe: PipelineConfig, mesh, run_opt: bool,
                   use_visual: bool, use_geo: bool, intrinsics: np.ndarray, crop: Optional[int],
                   axis: str):
     """(depths, masks, draws) -> the (N, 22) rows of `driver.PendingInstance`
     for the whole batch, on every rank, posed block by block over `axis`,
-    each rank's block as one pose group."""
+    each rank's block as one pose group in one program (`_rows_program`)."""
     _require_group()
     cat = get_category(cat_name)
     dev = rank_device(mesh)
@@ -78,12 +102,15 @@ def _make_rows_fn(models: CategoryModels, cat_name: str, pipe: PipelineConfig, m
         if hi > lo:
             own = [np.asarray(_get(masks[i]), bool) for i in range(lo, hi)]
             depth = np.stack([np.asarray(_get(depths[i]), np.float32) for i in range(lo, hi)])
-            origins = None if crop is None else [crop_origin(m, m.shape, crop) for m in own]
-            fi, est = _pose_group(torch.as_tensor(depth, device=dev),
-                                  torch.as_tensor(np.stack(own), device=dev), origins,
-                                  *_stacked([_draws_on(_get(draws[i]), dev) for i in range(lo, hi)]),
-                                  k_t, crop, models, cat, pipe, run_opt, use_visual, use_geo)
-            block = _pack(fi, est).cpu().numpy()   # one host copy for the rank's block
+            origins = None
+            if crop is not None:
+                origins = torch.as_tensor(np.asarray([crop_origin(m, m.shape, crop) for m in own],
+                                                     np.int32), device=dev)
+            args = (torch.as_tensor(depth, device=dev), torch.as_tensor(np.stack(own), device=dev),
+                    origins, k_t,
+                    *_stacked([_draws_on(_get(draws[i]), dev) for i in range(lo, hi)]))
+            rows = _rows_program(models, cat, pipe, run_opt, use_visual, use_geo, crop, args)(*args)
+            block = rows.cpu().numpy()   # one host copy for the rank's block
         blocks: List = [None] * n_ranks
         dist.all_gather_object(blocks, block, group=group)
         return np.concatenate(blocks)
@@ -147,6 +174,7 @@ def evaluate_real275_parallel(
     flush_multiple: int = 4,
     draws: Optional[Sequence[InstanceDraws]] = None,
     device="cuda",
+    models: Optional[Dict[str, CategoryModels]] = None,
 ):
     """Rank-parallel REAL275 evaluation (geometry branch) on the initialized
     process group, one rank per device.
@@ -154,7 +182,11 @@ def evaluate_real275_parallel(
     Produces the result pkls and AP tables of the serial protocol; `draws`,
     when given, holds one InstanceDraws per instance of a known category in
     serial order (each sized for the instance's `auto_crop` window). Returns
-    (iou_aps, pose_aps) on rank 0 and None on every other rank.
+    (iou_aps, pose_aps) on rank 0 and None on every other rank. `models`
+    hands in loaded branch models (on the rank's device), as
+    `evaluate_real275` takes them; their block programs are kept on them, so
+    a second run replays what the first captured. Categories it lacks are
+    loaded from `ckpt_root`.
     """
     pipe = pipe or PipelineConfig()
     pkls = sorted(glob.glob(os.path.join(detections_dir, "results_*.pkl")))
@@ -207,7 +239,7 @@ def evaluate_real275_parallel(
         raise ValueError(f"{len(draws)} injected draws for {serial} instances")
 
     # pass 2: per (category, crop) group, flush chunks over the ranks
-    models: Dict[str, CategoryModels] = {}
+    models = dict(models or {})
     for (cat_name, crop), items in work.items():
         if not items:
             continue

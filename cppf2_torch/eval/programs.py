@@ -19,6 +19,9 @@ frame-wide ViT program per pack signature) and the jitted `preprocess_frame`
   `jax.disable_jit()`), the function runs eagerly.
 * A capture or a replay that fails raises and names the program's key.
   Nothing falls back to the eager route.
+* Programs do not nest: a program's body calls the eager functions, never
+  another program (a capture inside a capture fails on the card). A program
+  called while another one's body runs raises, on the CPU too.
 
 `program(cache, key, fn, args)` finds or makes the program of a call: its key
 is the caller's key (the JAX driver's) with the shape, dtype and device of
@@ -32,6 +35,9 @@ launch and so lies outside the shared pool, where another capture could
 reuse it. Weights are read where they lie: the driver keys its programs on
 their addresses.
 
+`weights(*modules)` is the address of every parameter and buffer of the
+modules: a program that reads weights is keyed on it.
+
 Counters: the kernel wrappers count their launches in Python, and a replay
 runs no Python. A program notes what every counted attribute (`COUNTED`,
 `count_replays`) gained during its capture, when nothing ran on the device,
@@ -42,6 +48,7 @@ list the items appended to it.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import time
 from typing import Any, Callable, Dict, List, Tuple
 
@@ -57,6 +64,7 @@ COUNTED: List[Tuple[Any, str]] = [(attention._MHA, "launches"), (hist16._PEAK, "
                                   (QDense, "launches")]
 _disabled = 0
 _pools: Dict[int, Any] = {}   # device index -> the graph memory pool its programs share
+_running: List[Any] = []      # the key of the program whose body runs now, if one does
 
 
 @contextlib.contextmanager
@@ -72,6 +80,12 @@ def disable_capture():
 
 def capture_enabled() -> bool:
     return _disabled == 0
+
+
+def weights(*modules) -> tuple:
+    """Where the modules' parameters and buffers lie: a captured graph reads
+    them at these addresses, so a program is keyed on them."""
+    return tuple(t.data_ptr() for m in modules for t in itertools.chain(m.parameters(), m.buffers()))
 
 
 def count_replays(obj, attr: str) -> None:
@@ -130,16 +144,31 @@ class Program:
         self.credits: List[Tuple[Any, str, Any]] = []
         self.capture_ms = None                 # host time of the warm-up and the capture
         self.replays = 0
+        self.eager_runs = 0                    # calls that ran the body eagerly
+
+    @contextlib.contextmanager
+    def _body(self):
+        """The body runs: a program called meanwhile raises."""
+        _running.append(self.key)
+        try:
+            yield
+        finally:
+            _running.pop()
 
     def credited(self, obj) -> int:
         """What one replay adds to the counter on `obj` (launches, or items)."""
         return sum(g if isinstance(g, int) else len(g) for o, _, g in self.credits if o is obj)
 
     def __call__(self, *args):
+        if _running:
+            raise RuntimeError(f"program {self.key!r} called inside program {_running[-1]!r}: a "
+                               f"program's body calls eager functions, never another program")
         leaves, spec = pytree.tree_flatten(args)
         tensors = [x for x in leaves if torch.is_tensor(x)]
         if not capture_enabled() or not any(x.device.type == "cuda" for x in tensors):
-            return self.fn(*args)
+            self.eager_runs += 1
+            with self._body():
+                return self.fn(*args)
         if self.graph is None:
             self._capture(leaves, spec, tensors)
         else:
@@ -175,7 +204,7 @@ class Program:
         side = torch.cuda.Stream(dev)
         side.wait_stream(main)
         try:
-            with torch.cuda.stream(side), hist16.owned_scratch(self.scratch):
+            with self._body(), torch.cuda.stream(side), hist16.owned_scratch(self.scratch):
                 self.fn(*args)
         except Exception as e:
             raise RuntimeError(f"warm-up of program {self.key!r} failed: {e}") from e
@@ -183,7 +212,8 @@ class Program:
         before = _counts()
         graph = torch.cuda.CUDAGraph()
         try:
-            with hist16.owned_scratch(self.scratch), torch.cuda.graph(graph, pool=pool_handle(dev)):
+            with self._body(), hist16.owned_scratch(self.scratch), \
+                    torch.cuda.graph(graph, pool=pool_handle(dev)):
                 out = self.fn(*args)
         except Exception as e:
             _take_back(before)

@@ -39,6 +39,7 @@ import dataclasses
 import json
 import math
 import os
+import weakref
 from typing import Optional, Tuple
 
 import numpy as np
@@ -534,6 +535,21 @@ def quantize_vit_params(variables, cfg: ViTConfig = VIT_L14):
     return variables
 
 
+def extractor_grid(model: "DinoViT", image: torch.Tensor, stride: int) -> torch.Tensor:
+    """The eager resize and ViT forward of `DinoFeatureExtractor`: the
+    (H, W, 3) float32 crop in [0, 1] resized bilinearly to (H/stride*14,
+    W/stride*14) and through `model`; returns the (H/stride, W/stride, D)
+    token grid. A program's body (the extractor's own, or the driver's
+    instance visual stage) calls this, never the extractor itself."""
+    h, w = image.shape[:2]
+    ph, pw = h // stride, w // stride
+    return model(resize_bilinear_matmul(image, ph * 14, pw * 14))
+
+
+# a backbone's extractor programs, on the backbone (they read its weights where they lie)
+_EXTRACTOR_PROGRAMS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
 class DinoFeatureExtractor:
     """Crop image -> per-keypoint descriptors, the analog of the reference's
     `DINOV2` module (dataset.py:62-80): bilinear resize to (h/stride*14,
@@ -550,6 +566,13 @@ class DinoFeatureExtractor:
     quantized first (`DinoViT.quantize_`; a tree that is int8 already loads
     as it is), as the JAX extractor's `_cast` quantizes. The `quant` keyword
     sets `cfg.quant`.
+
+    The resize and the ViT forward are a program (`eval/programs.py`), as
+    the JAX extractor jits them: one per (config, stride, crop size,
+    weights' addresses), captured as a CUDA graph on its first call on the
+    card and replayed after; eager on the CPU. The token sampling stays
+    eager: the render trainer's pools call it with a keypoint count that
+    changes every frame.
     """
 
     def __init__(self, params=None, cfg: Optional[ViTConfig] = None, stride: int = 4,
@@ -586,18 +609,34 @@ class DinoFeatureExtractor:
         self._cast()
         return self
 
+    def grid(self, image: torch.Tensor) -> torch.Tensor:
+        """The (H/stride, W/stride, D) token grid of an (H, W, 3) crop in
+        [0, 1], through the extractor's program. The crop is moved to the
+        extractor's device first, so a crop handed in from the host is
+        captured on the card like one that lies there."""
+        from cppf2_torch.eval import programs
+
+        if not self.ready:
+            raise RuntimeError("load or init the DINOv2 weights first")
+        image = image.to(self.device, torch.float32)
+        own, stride = weakref.ref(self.model), self.stride
+
+        def fn(image):
+            with torch.no_grad():
+                return extractor_grid(own(), image, stride)
+
+        cache = _EXTRACTOR_PROGRAMS.setdefault(self.model, {})
+        key = ("extractor", self.cfg, stride, programs.weights(self.model))
+        return programs.program(cache, key, fn, (image,))(image)
+
     def __call__(self, image: torch.Tensor, pts_xy: torch.Tensor) -> torch.Tensor:
         """image: (H, W, 3) in [0, 1]; pts_xy: (K, 2) crop-pixel (x, y).
         Returns (K, D) float32 unit descriptors on the extractor's device.
         The resize is an upscale whenever stride <= 14; a downscale raises
         rather than drop the antialias `jax.image.resize` would apply."""
-        if not self.ready:
-            raise RuntimeError("load or init the DINOv2 weights first")
         h, w = image.shape[:2]
-        ph, pw = h // self.stride, w // self.stride
+        grid = self.grid(image)
         with torch.no_grad():
-            resized = resize_bilinear_matmul(image.to(self.device, torch.float32), ph * 14, pw * 14)
-            grid = self.model(resized)
             return interpolate_features(grid, pts_xy.to(self.device, torch.float32), (h, w),
                                         impl=self.interp_impl)
 

@@ -88,10 +88,10 @@ def knn_radius_neighbors(
     per_block = max(_BLOCK_ELEMS // (query_chunk * max(n, 1)), 1)
     park = torch.full((), 1e6, dtype=points.dtype, device=points.device)
     pts = torch.where(valid[..., None], points, park)
-    # column norms as a plain sum, query norms as an fma chain: the two
-    # roundings XLA's CPU fusions give them, so the packed keys agree
-    sq = torch.sum(pts * pts, dim=-1)
-    q_sq = _sum_sq_fma(pts)
+    # column and query norms as one fma chain: the rounding XLA gives both
+    # under jax.jit, which is how the JAX driver runs the kNN (its
+    # preprocess_frame is jitted), so the packed keys agree with that graph
+    sq = _sum_sq_fma(pts)
     r2 = radius * radius
     levels = max((1 << 24) // max(n, 1) - 1, 1)
     col = torch.arange(n, dtype=torch.float32, device=points.device)
@@ -102,7 +102,7 @@ def knn_radius_neighbors(
         dists, idxs, rels = [], [], []
         for start in range(0, n, query_chunk):
             q = p[:, start:start + query_chunk]
-            qsq = q_sq[lo:lo + per_block, start:start + query_chunk]
+            qsq = sq[lo:lo + per_block, start:start + query_chunk]
             cross = torch.matmul(q, p.transpose(1, 2))
             d2 = qsq[..., None] + sq[lo:lo + per_block, None, :] - 2.0 * cross
             if exact:

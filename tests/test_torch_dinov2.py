@@ -249,3 +249,31 @@ def test_dino_feature_extractor_refusals():
     assert q.model.blocks[0].attn.qkv.weight.dtype == torch.int8
     assert inspect.signature(tdino.DinoFeatureExtractor).parameters["stride"].default == 4
     assert tdino.VIT_L14.attn_impl == "kernel" and tdino.VIT_L14.depth == 24
+
+
+def test_dino_feature_extractor_program_is_found_again():
+    """The extractor's resize and ViT are one program per (config, stride,
+    crop size, weights): two calls on one crop with 10 and then 37
+    keypoints find the same program and give the same grid, so the first
+    10 descriptors are equal to the bit; another crop size makes a second
+    program; another extractor (other weights) keeps its own."""
+    cfg = tdino.ViTConfig(embed_dim=64, depth=1, num_heads=4, pretrain_grid=4,
+                          compute_dtype="float32")
+    ext = tdino.DinoFeatureExtractor(cfg=cfg, out_size=32, device="cpu").init_random(
+        torch.Generator().manual_seed(3))
+    rng = np.random.default_rng(1)
+    img = torch.from_numpy(rng.uniform(size=(32, 32, 3)).astype(np.float32))
+    kp = torch.from_numpy(rng.uniform(0, 32, size=(37, 2)).astype(np.float32))
+    progs = tdino._EXTRACTOR_PROGRAMS
+    a = ext(img, kp[:10])
+    (prog,) = progs[ext.model].values()
+    b = ext(img, kp)
+    assert list(progs[ext.model].values()) == [prog] and prog.eager_runs == 2
+    assert b.shape == (37, 64) and torch.equal(a, b[:10])
+    assert torch.equal(ext.grid(img), ext.grid(img)) and ext.grid(img).shape == (8, 8, 64)
+    ext(torch.rand(64, 48, 3), kp)
+    assert len(progs[ext.model]) == 2
+    other = tdino.DinoFeatureExtractor(cfg=cfg, out_size=32, device="cpu").init_random(
+        torch.Generator().manual_seed(4))
+    other(img, kp)
+    assert len(progs[other.model]) == 1 and len(progs[ext.model]) == 2

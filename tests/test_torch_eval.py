@@ -384,6 +384,59 @@ def test_batched_fn_world2_matches_jax(mini_real275, tmp_path, run_opt):
     np.testing.assert_allclose(scale, jscale, rtol=1e-3)
 
 
+def test_batched_fn_crop_tier_matches_jax(mini_real275, tmp_path):
+    """At the 256 crop tier: the port's block program, its windows cut on
+    the device from (B, 2) origins the host computes from the masks, on one
+    gloo rank against JAX's make_batched_instance_fn with crop=256 on a
+    2-device mesh, f32 branches from ckpts_r3, the same draws, 5 Adam steps:
+    counts exact, R within 0.5 deg, T within 2 mm, scales rtol 1e-3. The
+    rank calls the function with the two instances, then with the first
+    alone (a short block), then with both again: two block programs, the
+    second call of both equal to the first to the bit."""
+    from cppf2_tpu.config import PipelineConfig as JPipe
+    from cppf2_tpu.eval.parallel_eval import make_batched_instance_fn
+    from cppf2_tpu.parallel import make_mesh
+
+    det_dir, img_dir, res = mini_real275
+    depth = (cv2.imread(os.path.join(img_dir, "scene_1_0000_depth.png"), -1) / 1000.0).astype(np.float32)
+    masks = np.stack([res["pred_masks"][:, :, i] for i in range(2)])
+    assert [auto_crop(m) for m in masks] == [256, 256]
+    keys = jax.random.split(jax.random.key(9), 2)
+    models = jdriver.load_category_models("ckpts_r3", ["can"], infer_dtype="float32")["can"]
+    fn = make_batched_instance_fn(models, "can", JPipe(**PIPE), make_mesh(2), crop=256)
+    want = jax.tree.map(np.asarray, fn(jnp.asarray(np.stack([depth, depth])), jnp.asarray(masks), keys))
+    _save_draws(tmp_path / "draws.npz", [_jax_draws(k, depth.shape, 256, PIPE) for k in keys])
+    np.savez(tmp_path / "in.npz", depth=depth, masks=masks)
+    run_ranks(1, _LOAD_DRAWS + textwrap.dedent(f"""
+        from cppf2_torch.config import PipelineConfig
+        from cppf2_torch.eval.driver import load_category_models
+        from cppf2_torch.eval.parallel_eval import make_batched_instance_fn
+        from cppf2_torch.parallel import make_mesh
+        x = np.load(TMP + "/in.npz")
+        models = load_category_models("ckpts_r3", ["can"], torch.float32, "cpu")["can"]
+        fn = make_batched_instance_fn(models, "can", PipelineConfig(**{PIPE!r}),
+                                      make_mesh(device="cpu"), crop=256)
+        draws = load_draws(TMP + "/draws.npz")
+        out = fn([x["depth"], x["depth"]], list(x["masks"]), draws)
+        fn([x["depth"]], list(x["masks"][:1]), draws[:1])
+        again = fn([x["depth"], x["depth"]], list(x["masks"]), draws)
+        rows = [k for k in models._programs if k[0][0] == "rows"]
+        assert len(rows) == 2 and all(k[0][6] == 256 for k in rows), rows
+        assert all(np.array_equal(a, b) for a, b in zip(out, again))
+        np.savez(TMP + "/out.npz", *out)
+    """), tmp_path)
+    got = np.load(tmp_path / "out.npz")
+    rot, trans, scale, snorm, loss, count, ext = (got[f"arr_{i}"] for i in range(7))
+    jrot, jtrans, jscale, jsnorm, jloss, jcount, jext = want
+    assert count.min() >= 32
+    np.testing.assert_array_equal(count, jcount)
+    np.testing.assert_allclose(ext, jext, atol=1e-6)
+    for i in range(2):
+        assert _rot_deg(rot[i], jrot[i]) < 0.5
+    np.testing.assert_allclose(trans, jtrans, atol=2e-3)
+    np.testing.assert_allclose(scale, jscale, rtol=1e-3)
+
+
 _EVAL = """
 from cppf2_torch.config import PipelineConfig
 from cppf2_torch.eval.parallel_eval import evaluate_real275_parallel

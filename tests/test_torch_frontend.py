@@ -36,19 +36,55 @@ def _surface(n=400, seed=0):
     return np.where(valid[:, None], pts, 0).astype(np.float32), valid
 
 
+# The JAX kNN as the JAX driver runs it: under jax.jit (`preprocess_frame` is
+# jitted). XLA rounds the packed key's column norms otherwise when the
+# function is called eagerly, and the port holds the jitted rounding.
+jknn = jax.jit(jnb.knn_radius_neighbors, static_argnums=(2, 3),
+               static_argnames=("exact", "query_chunk"))
+
+
 def _neighbors(pts, valid, radius=0.02, k=24):
-    return (jnb.knn_radius_neighbors(jnp.asarray(pts), jnp.asarray(valid), radius, k),
+    return (jknn(jnp.asarray(pts), jnp.asarray(valid), radius, k),
             tnb.knn_radius_neighbors(t(pts), t(valid), radius, k))
 
 
 def test_knn_indices_exact():
-    """Indices and validity exact: the same packed key, exact top-k on both sides."""
+    """Indices and validity exact against the jitted JAX kNN, the rounding the
+    JAX driver runs (the eager call rounds the key's column norms as a
+    plain sum and picks other neighbours on some rows): the same packed key,
+    exact top-k on both sides."""
     pts, valid = _surface()
     jn, tn = _neighbors(pts, valid)
     np.testing.assert_array_equal(tn.idx.numpy(), np.asarray(jn.idx))
     np.testing.assert_array_equal(tn.valid.numpy(), np.asarray(jn.valid))
     np.testing.assert_allclose(tn.dist.numpy(), np.asarray(jn.dist), atol=1e-7)
     np.testing.assert_allclose(tn.rel.numpy(), np.asarray(jn.rel), atol=1e-7)
+
+
+def _cap_cloud(n, seed):
+    """n points of a noisy 5 cm sphere cap at 0.7 m, a tenth of them invalid."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(-0.035, 0.035, size=(n, 2))
+    z = 0.7 - np.sqrt(np.maximum(0.05 ** 2 - np.sum(xy ** 2, -1), 0.0)) + rng.normal(0, 3e-4, n)
+    pts = np.concatenate([xy, z[:, None]], -1).astype(np.float32)
+    valid = rng.uniform(size=n) < 0.9
+    return np.where(valid[:, None], pts, 0).astype(np.float32), valid
+
+
+@pytest.mark.parametrize("exact", [False, True])
+@pytest.mark.parametrize("n", [256, 2048, 8192])
+def test_knn_matches_jitted_jax_at_cloud_sizes(n, exact):
+    """The frontend's kNN (radius 2 cm, k 48) on sphere caps of the pipeline's
+    cloud sizes against the jitted JAX function, both routes: every valid
+    row's neighbour list and validity equal. With the column norms rounded
+    as the eager JAX call rounds them, 2.6%, 26.5% and 61-68% of the valid
+    rows had another list at 256, 2048 and 8192 points (mostly another
+    order; 0.7% and 2.4-2.8% another in-radius set at the larger two)."""
+    pts, valid = _cap_cloud(n, seed=n)
+    jn = jknn(jnp.asarray(pts), jnp.asarray(valid), 0.02, 48, exact=exact)
+    tn = tnb.knn_radius_neighbors(t(pts), t(valid), 0.02, 48, exact=exact)
+    np.testing.assert_array_equal(tn.idx.numpy()[valid], np.asarray(jn.idx)[valid])
+    np.testing.assert_array_equal(tn.valid.numpy(), np.asarray(jn.valid))
 
 
 def test_sym_eig3x3():
@@ -68,9 +104,11 @@ def test_sym_eig3x3():
 
 
 def test_normals_and_shot():
-    """Normals atol 1e-4 (the 3x3 covariance sums 24 terms in another order
-    and the eigen solver amplifies it); SHOT atol 5e-4 on unit descriptors
-    (a soft-bin weight near a bin edge moves with the frame's last ulps)."""
+    """On the jitted JAX kNN's neighbours (the JAX driver's rounding; the
+    eager call's differ on some rows): normals atol 1e-4 (the 3x3 covariance
+    sums 24 terms in another order and the eigen solver amplifies it); SHOT
+    atol 5e-4 on unit descriptors (a soft-bin weight near a bin edge moves
+    with the frame's last ulps)."""
     pts, valid = _surface()
     jn, tn = _neighbors(pts, valid)
     jnorm_ = jnorm.estimate_normals(jnp.asarray(pts), jn)
@@ -93,12 +131,16 @@ def _frame(h=64, w=80, seed=0):
 
 @pytest.mark.parametrize("crop", [None, 48])
 def test_preprocess_frame(crop):
-    """64x80 depth, n_max 512, the reference's own voxel draws. Cloud,
-    validity, count and pixels exact. Normals: 99% of points within 1e-5,
-    all within 0.05 (a few rim points have near-degenerate covariances whose
-    smallest eigenvector swings with the last ulp). SHOT takes its
-    neighbors' normals, so rows near those points move too: 85% of rows
-    within 1e-4, all within 0.2 on unit descriptors."""
+    """64x80 depth, n_max 512, the reference's own voxel draws, against the
+    jitted JAX `preprocess_frame`. Cloud, validity, count and pixels exact.
+    The kNN rounds its packed key as that jitted graph does, so every row
+    has the same neighbour set; what remains is the last ulps of the
+    covariance and the soft bins. Normals all within 1e-5 (measured
+    1.9e-6); SHOT 85% of rows within 1e-5 and all within 2e-3 on unit
+    descriptors (measured 3.3e-7 and 6.8e-4: a soft-bin weight at a bin
+    edge). (The bounds were 0.05 and 0.2 while the port rounded the key's
+    column norms as the eager JAX call does: some rim rows then had another
+    neighbour set, and their normals and SHOT moved.)"""
     depth, mask = _frame()
     key = jax.random.key(5)
     want = jfront.preprocess_frame(jnp.asarray(depth), jnp.asarray(mask), jnp.asarray(REAL275_K),
@@ -116,8 +158,8 @@ def test_preprocess_frame(crop):
     np.testing.assert_array_equal(got.window_yx.numpy(), np.asarray(want.window_yx))
     err_n = np.abs(got.normal.numpy() - np.asarray(want.normal)).max(-1)
     err_s = np.abs(got.shot.numpy() - np.asarray(want.shot)).max(-1)
-    assert np.quantile(err_n, 0.99) < 1e-5 and err_n.max() < 0.05
-    assert np.quantile(err_s, 0.85) < 1e-4 and err_s.max() < 0.2
+    assert err_n.max() < 1e-5
+    assert np.quantile(err_s, 0.85) < 1e-5 and err_s.max() < 2e-3
 
 
 def test_auto_crop_matches():

@@ -109,16 +109,17 @@ def test_group_frontend_rows_equal_the_single_instance(group_frontend):
 
 
 def test_group_frontend_matches_vmapped_jax(group_frontend):
-    """The rows against jax.vmap of the JAX `preprocess_frame` on the same
-    keys, with `test_torch_frontend.py::test_preprocess_frame`'s bounds over
-    the group's valid points: cloud, validity, count, pixels and window
-    exact; normals 99% within 1e-5 and all within 0.05; SHOT 85% within
-    1e-4. Its bound on the largest SHOT error (0.2) does not hold on these
-    small caps for the single-instance port against JAX's single call either
-    (0.345 on one rim row; the vmapped JAX rows equal its single calls): a
-    rim point's near-degenerate normal swings with the last ulp and moves
-    the SHOT rows around it. So SHOT is held at 2e-4 on every row whose
-    in-radius neighbors' normals all agree within 1e-5."""
+    """The rows against jax.vmap of the JAX `preprocess_frame` (jitted) on
+    the same keys, with `test_torch_frontend.py::test_preprocess_frame`'s
+    bounds over the group's valid points: cloud, validity, count, pixels and
+    window exact; normals all within 1e-5; SHOT 85% within 1e-5 and all
+    within 2e-3 (measured 1.2e-6, 2.7e-7 and 1.6e-4). Every row has the
+    jitted graph's neighbour set: the kNN rounds its packed key as XLA does
+    under jit. (While the port rounded the key's column norms as the eager
+    JAX call does, some rim rows had another neighbour set, not a
+    near-degenerate normal: their normals moved by up to 0.02 and SHOT by
+    0.345, and this test held SHOT only on rows whose neighbours' normals
+    agreed.)"""
     _, _, _, _, _, got, want = group_frontend
     for name in ("pc", "valid", "count", "pixel_yx", "window_yx"):
         np.testing.assert_array_equal(getattr(got, name).numpy(), np.asarray(getattr(want, name)),
@@ -126,13 +127,8 @@ def test_group_frontend_matches_vmapped_jax(group_frontend):
     ok = got.valid.numpy()
     err_n = np.abs(got.normal.numpy() - np.asarray(want.normal)).max(-1)
     err_s = np.abs(got.shot.numpy() - np.asarray(want.shot)).max(-1)
-    assert np.quantile(err_n[ok], 0.99) < 1e-5 and err_n[ok].max() < 0.05
-    assert np.quantile(err_s[ok], 0.85) < 1e-4
-    nb = tnb.knn_radius_neighbors(got.pc, got.valid, RES * 10, SHOT_K)
-    nb_err_n = np.where(nb.valid.numpy(), err_n[np.arange(len(ok))[:, None, None], nb.idx.numpy()],
-                        0).max(-1)
-    calm = ok & (nb_err_n <= 1e-5)
-    assert calm.sum() > 0.85 * ok.sum() and err_s[calm].max() < 2e-4
+    assert err_n[ok].max() < 1e-5
+    assert np.quantile(err_s[ok], 0.85) < 1e-5 and err_s[ok].max() < 2e-3
 
 
 def _clouds(n=600, seed=3):

@@ -11,6 +11,8 @@ builds a tensor from host values once its constants exist (either would
 break a capture).
 """
 
+import weakref
+
 import jax
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from cppf2_torch.config import PipelineConfig as TPipe
 from cppf2_torch.eval import driver as tdriver
+from cppf2_torch.eval import parallel_eval as tparallel
 from cppf2_torch.eval import programs
 from cppf2_torch.infer import frontend as tfront
 from cppf2_torch.models import dinov2 as tdino
@@ -42,6 +45,34 @@ def _five_mugs(radius=0.04):
     return rgb, depth, dets
 
 
+def _tierless(depth):
+    """A 318-pixel-wide strip that fits no crop tier, its depth a wave at
+    0.8 m written into a copy of `depth`: (depth, mask)."""
+    rng = np.random.default_rng(1)
+    big = np.zeros((H, W), bool)
+    big[60:180, 1:319] = True
+    wave = 0.8 + 0.05 * np.sin(np.mgrid[0:H, 0:W][1] / 40.0) + rng.normal(0, 3e-4, (H, W))
+    return np.where(big, wave, depth).astype(np.float32), big
+
+
+def _extractor(vit_like):
+    """A port DinoFeatureExtractor at the tests' stride and crop size whose
+    backbone has the weights of `vit_like`."""
+    ext = tdino.DinoFeatureExtractor(cfg=tdino.ViTConfig(**VIT), stride=STRIDE, out_size=OUT,
+                                     device="cpu")
+    ext.model.load_state_dict(vit_like.state_dict())
+    ext.ready = True
+    return ext
+
+
+def _rows_args(depth, dets, draws, crop):
+    """The inputs of a rank's block program (`parallel_eval._rows_program`)."""
+    masks = np.stack([m for _, m in dets])
+    origins = torch.tensor([tfront.crop_origin(m, (H, W), crop) for m in masks], dtype=torch.int32)
+    return (torch.from_numpy(np.stack([depth] * len(dets))), torch.from_numpy(masks), origins,
+            torch.from_numpy(K), *tdriver._stacked(draws))
+
+
 def _chunk_draws(key, dets, hw, buckets):
     """One InstanceDraws per detection from the keys the JAX `dispatch_frame`
     hands out when it chunks a group (`driver.py:534-545`, `:579-580`): per
@@ -62,23 +93,38 @@ def _chunk_draws(key, dets, hw, buckets):
 
 
 @pytest.fixture(scope="module")
-def five_reference():
-    """Five mugs through the JAX `dispatch_frame` at buckets (1, 2), and both
-    packages' models and ViT with the same weights."""
-    rgb, depth, dets = _five_mugs()
-    ext = jdino.DinoFeatureExtractor(cfg=jdino.ViTConfig(**VIT, attn_impl="pallas", attn_block_q=128),
-                                     stride=STRIDE, out_size=OUT)
-    ext.init_random(hw=(OUT, OUT))
-    jmodels = jdriver.load_category_models("ckpts_r3", ["mug"], infer_dtype="float32")
-    key = jax.random.key(11)
-    pends = jdriver.dispatch_frame(rgb, depth, dets, K, jmodels, JPipe(**PIPE), key,
-                                   dino_extractor=ext, buckets=(1, 2))
-    chunks = [(p.idxs, int(np.shape(p.dev[0])[0])) for p in pends]
-    want = jdriver.fetch_frames(pends)
-    tvit = load_vit(tdino.DinoViT(tdino.ViTConfig(**VIT)), jax.device_get(ext.params)).eval()
-    tmodels = tdriver.load_category_models("ckpts_r3", ["mug"], torch.float32, "cpu")
-    return (rgb, depth, dets, chunks, want, tvit, tmodels,
-            _chunk_draws(key, dets, depth.shape, (1, 2)))
+def five_references():
+    """Five mugs of a given radius through the JAX `dispatch_frame` at
+    buckets (1, 2), and both packages' models and ViT with the same
+    weights; made once a radius."""
+    made = {}
+
+    def get(radius):
+        if radius not in made:
+            rgb, depth, dets = _five_mugs(radius)
+            ext = jdino.DinoFeatureExtractor(cfg=jdino.ViTConfig(**VIT, attn_impl="pallas",
+                                                                 attn_block_q=128),
+                                             stride=STRIDE, out_size=OUT)
+            ext.init_random(hw=(OUT, OUT))
+            jmodels = jdriver.load_category_models("ckpts_r3", ["mug"], infer_dtype="float32")
+            key = jax.random.key(11)
+            pends = jdriver.dispatch_frame(rgb, depth, dets, K, jmodels, JPipe(**PIPE), key,
+                                           dino_extractor=ext, buckets=(1, 2))
+            chunks = [(p.idxs, int(np.shape(p.dev[0])[0])) for p in pends]
+            want = jdriver.fetch_frames(pends)
+            tvit = load_vit(tdino.DinoViT(tdino.ViTConfig(**VIT)), jax.device_get(ext.params)).eval()
+            tmodels = tdriver.load_category_models("ckpts_r3", ["mug"], torch.float32, "cpu")
+            made[radius] = (rgb, depth, dets, chunks, want, tvit, tmodels,
+                            _chunk_draws(key, dets, depth.shape, (1, 2)))
+        return made[radius]
+
+    return get
+
+
+@pytest.fixture(scope="module")
+def five_reference(five_references):
+    """The five 4 cm mugs of `five_references`."""
+    return five_references(0.04)
 
 
 def test_pack_vit_chunks_matches_jax():
@@ -91,12 +137,17 @@ def test_pack_vit_chunks_matches_jax():
         assert tdriver._pack_vit_chunks(batches, cap) == jdriver._pack_vit_chunks(batches, cap)
 
 
-def test_dispatch_frame_chunks_and_pads_as_jax(five_reference):
-    """Five mugs of one group at buckets (1, 2): chunks (0, 1), (2, 3) and (4,)
-    padded to 2, 2 and 1 rows in both packages, the padded rows dropped at
-    fetch, and the poses at `test_dispatch_frame_matches_jax`'s tolerances
-    (R 0.5 deg, T 2 mm, scales rtol 1e-3, loss rtol 0.05)."""
-    rgb, depth, dets, chunks, want, tvit, tmodels, draws = five_reference
+@pytest.mark.parametrize("radius", [0.04, 0.03])
+def test_dispatch_frame_chunks_and_pads_as_jax(five_references, radius):
+    """Five mugs of one group at buckets (1, 2), caps of 4 cm and of 3 cm:
+    chunks (0, 1), (2, 3) and (4,) padded to 2, 2 and 1 rows in both
+    packages, the padded rows dropped at fetch, and the poses at
+    `test_dispatch_frame_matches_jax`'s tolerances (R 0.5 deg, T 2 mm,
+    scales rtol 1e-3, loss rtol 0.05). At 3 cm two rim rows had another
+    neighbour set while the kNN key rounded its column norms as the eager
+    JAX call does, and an instance's rotation came out 51.46 deg off the
+    jitted JAX driver's."""
+    rgb, depth, dets, chunks, want, tvit, tmodels, draws = five_references(radius)
     pends = tdriver.dispatch_frame(rgb, depth, dets, K, tmodels, TPipe(**PIPE), vit=tvit,
                                    device="cpu", draws=draws, stride=STRIDE, out_size=OUT,
                                    buckets=(1, 2))
@@ -215,6 +266,59 @@ def test_program_cache_keys(five_reference, monkeypatch):
     assert programs.capture_enabled()
 
 
+def test_serving_program_cache_keys(five_reference, monkeypatch):
+    """On the CPU: one instance visual-stage program per route and backbone
+    (the bbox-crop ViT's, the extractor's), found again for another
+    instance; one block program of the parallel evaluator per block shape
+    (a block of 2 and a short one of 1), found again for a second block of
+    2, its rows equal to the first's."""
+    rgb, depth, dets, _, _, tvit, tmodels, _ = five_reference
+    pipe = TPipe(**PIPE)
+    monkeypatch.setattr(tdriver, "_VISUALS", weakref.WeakKeyDictionary())
+    ext = _extractor(tvit)
+    for route in (dict(vit=tvit), dict(dino_extractor=ext)):
+        for i in (0, 1):
+            tdriver.estimate_instance(rgb, depth, dets[i][1], K, tmodels["mug"], "mug", pipe,
+                                      generator=torch.Generator().manual_seed(i), device="cpu",
+                                      stride=STRIDE, out_size=OUT, run_opt=False, **route)
+    kinds = {b: [k[0][:2] for k in tdriver._VISUALS[b]] for b in (tvit, ext.model)}
+    assert kinds == {tvit: [("visual", "vit")], ext.model: [("visual", "extractor")]}
+    assert [p.eager_runs for b in kinds for p in tdriver._VISUALS[b].values()] == [2, 2]
+
+    mug = tmodels["mug"]
+    crop = tfront.auto_crop(dets[0][1])
+    draws = [tdriver.draw_instance((H, W), m, "mug", pipe, "cpu", torch.Generator().manual_seed(i),
+                                   crop=crop) for i, (_, m) in enumerate(dets)]
+
+    def block(lo, hi):
+        args = _rows_args(depth, dets[lo:hi], draws[lo:hi], crop)
+        return tparallel._rows_program(mug, tdriver.get_category("mug"), pipe, False, False, True,
+                                       crop, args)(*args)
+
+    first = block(0, 2)
+    short = block(2, 3)
+    again = block(0, 2)
+    rows = [k for k in mug._programs if k[0][0] == "rows"]
+    assert len(rows) == 2 and first.shape == (2, 22) and short.shape == (1, 22)
+    assert torch.equal(first, again)
+
+
+def test_programs_do_not_nest():
+    """A program called while another one's body runs raises, naming both,
+    on the CPU as on the card (a capture inside a capture fails there), and
+    inside `disable_capture()` too; the guard is released after the raise."""
+    cache = {}
+    x = torch.arange(4.0)
+    inner = programs.program(cache, ("inner",), lambda t: t + 1, (x,))
+    outer = programs.program(cache, ("outer",), lambda t: inner(t) * 2, (x,))
+    with pytest.raises(RuntimeError, match=r"program \(\('inner',\).*called inside program "
+                                           r"\(\('outer',\)"):
+        outer(x)
+    with programs.disable_capture(), pytest.raises(RuntimeError, match="called inside program"):
+        outer(x)
+    assert torch.equal(inner(x), x + 1) and not programs._running
+
+
 class _HostReads(TorchDispatchMode):
     """Records the operators that read the device back or build a tensor
     from host values: a CUDA graph capture fails on either."""
@@ -235,11 +339,20 @@ class _HostReads(TorchDispatchMode):
 
 
 def test_program_bodies_make_no_host_reads(five_reference, monkeypatch):
-    """Every program the driver runs (the ViT stage, the group, the instance
-    frontend and ensemble), called a second time: none of its operators reads
-    the device back or builds a tensor from host values."""
+    """Every program the driver runs, called a second time: the ViT stage,
+    the group, the instance frontend (at a crop tier and at crop None, the
+    singles route of a mask that fits no tier), the instance visual stage on
+    both routes, the ensemble, the extractor and the parallel evaluator's
+    block. None of its operators reads the device back or builds a tensor
+    from host values."""
     rgb, depth, dets, _, _, tvit, tmodels, _ = five_reference
     pipe = TPipe(**PIPE)
+    ext = _extractor(tvit)
+    wide_depth, wide = _tierless(depth)
+    crop = tfront.auto_crop(dets[0][1])
+    draws = [tdriver.draw_instance((H, W), m, "mug", pipe, "cpu", torch.Generator().manual_seed(i),
+                                   crop=crop) for i, (_, m) in enumerate(dets[:2])]
+    img = torch.rand(OUT, OUT, 3, generator=torch.Generator().manual_seed(0))
     bodies = []
     call = programs.Program.__call__
 
@@ -257,9 +370,17 @@ def test_program_bodies_make_no_host_reads(five_reference, monkeypatch):
                                                     buckets=(1, 2, 4), **kw))
         tdriver.estimate_instance(rgb, depth, dets[0][1], K, tmodels["mug"], "mug", pipe,
                                   generator=gen, **kw)
+        tdriver.fetch_frames(tdriver.dispatch_frame(rgb, wide_depth, [("mug", wide), dets[0]], K,
+                                                    tmodels, pipe, generator=gen, device="cpu",
+                                                    dino_extractor=ext))
+        ext(img, torch.rand(7, 2, generator=gen) * OUT)
+        args = _rows_args(depth, dets[:2], draws, crop)
+        tparallel._rows_program(tmodels["mug"], tdriver.get_category("mug"), pipe, True, False,
+                                True, crop, args)(*args)
 
     run()
     monkeypatch.setattr(programs.Program, "__call__", watched)
     run()
-    assert {name for name, _ in bodies} == {"vit", "frame", "frontend", "pose"}
+    assert {name for name, _ in bodies} == {"vit", "frame", "frontend", "pose", "visual",
+                                            "extractor", "rows"}
     assert all(not seen for _, seen in bodies), bodies
