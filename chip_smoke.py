@@ -6,8 +6,8 @@
 Phases, each printing its own lines; any failure exits non-zero. Phases 3
 to 10 run the driver's programs eagerly (`programs.disable_capture()`), as
 they ran before the programs were captured: their plain swaps, stage timers
-and recorded kernel inputs need the eager route. Phases 11 to 13 run the
-captured programs:
+and recorded kernel inputs need the eager route (phases 7 and 8 are the
+training programs' eager baseline). Phases 11 to 14 run the captured programs:
   1. the card (nvidia-smi name and power limit) and the kernel build: every
      `cppf2_torch/csrc/*.cu` compiled with nvcc for sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the same inputs on the
@@ -191,6 +191,27 @@ captured programs:
      sizes, 4 K2 a block; the extractor alone at 256 x 256, stride 4, bf16
      and int8: replay and eager ms, 24 K1 (and 96 int8 linears) a replay.
 
+ 14. the training programs: a splat and a raster frame (480x640, 250,000
+     samples, 2048 points) of a fixed mug, each captured on one draw and
+     replayed on another, equal to the eager route on the same inputs in
+     depth, gray, cloud, SHOT and count, bit for bit; ms per frame replayed
+     and eager on fresh meshes (a frame whose mesh captures a new raster
+     bucket's program left out), split into host mesh + samples, the device
+     part and the one read, the programs made and the first call's ms. Then,
+     on a world-1 NCCL group, the `shot`, `dino` and `dino-e2e` steps (phase
+     7's records, 10,000 tuples, the lr halved after step 10), 20 steps each
+     from the same weights, batches and uniforms, replayed against the eager
+     route with the same capturable AdamW (losses and final parameters equal,
+     or within two eager runs' spread), AdamW's step count 20, the lr of
+     `make_lr_schedule` after steps 10 and 20, the plain AdamW's losses within
+     1e-3 relative, no kernel of the port launched; ms per step replayed and
+     eager and the busy shares, and eager with the plain AdamW. Then `train_category("mug", "dino")` on a
+     rendered pool of 64 frames with every program replayed: 24 K1 credited
+     for each pool frame and refresh, the loss falling, ms per step beside
+     phase 8's; the checkpoint restores and the next two steps' losses equal
+     those of the state in memory. The graph pool's reserved MiB and the
+     raster programs (one per mesh bucket).
+
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 4 launches of the slice, all through the fused entry at two rows,
 with a fine level's times, and the demo's launches; the candidate-array
@@ -200,7 +221,8 @@ nested, the latter with the demo's launches; K1 and K2 carry the launches of
 phase 10's int8 paths as `int8_launches`; both carry `replay_launches`,
 what one replay of phase 12's eight-mug frame launches, and
 `serving_replay_launches`, what one replay of each of phase 13's programs
-credits), then the card's name and power limit. The last line:
+credits; K1 carries `train_replay_launches`, the launches of phase 14's
+replayed "dino" render trainer), then the card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -3456,6 +3478,369 @@ def run_serving_programs(dev, pipe, vit_cfg, eval_inputs, tmp, hw=(480, 640), ba
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the training programs
+# ---------------------------------------------------------------------------
+
+FRAME_FIELDS = ("depth", "gray", "pc", "shot", "count")
+
+
+def frame_attempt(gen, mesh):
+    """(frame program inputs, static arguments) of the first attempt of one
+    `gen.next_frame(mesh)`, which runs as it always does."""
+    from cppf2_torch.data import synthetic
+
+    seen, real = [], synthetic.frame_program
+
+    def recording(renderer, args, *static):
+        seen.append((args, static))
+        return real(renderer, args, *static)
+
+    synthetic.frame_program = recording
+    try:
+        gen.next_frame(mesh)
+    finally:
+        synthetic.frame_program = real
+    return seen[0]
+
+
+def frame_split(gen, renderer, frames):
+    """ms per `next_frame` (fresh meshes), split into the host's mesh and
+    samples, the frame program (the device part), the one read and the rest,
+    each stage bracketed by device synchronizations: medians over `frames`
+    frames. A frame whose mesh falls in a raster bucket not met before
+    captures a program; such frames are left out (at most 3 x `frames` are
+    drawn), and their number is returned beside the medians."""
+    from cppf2_torch.data import synthetic
+
+    mesh = [(synthetic, "make_category_mesh"),
+            (synthetic, "sample_surface" if renderer == "splat" else "subdivide_mesh")]
+    targets = mesh + [(synthetic, "frame_program"), (synthetic, "to_host")]
+
+    def captured():
+        return sum(p.graph is not None for p in synthetic._FRAME_PROGRAMS.values())
+
+    runs, left_out = [], 0
+    while len(runs) < frames and len(runs) + left_out < 3 * frames:
+        before = captured()
+        with timed_calls(targets) as spent:
+            t0 = time.perf_counter()
+            gen.next_frame()
+            total = (time.perf_counter() - t0) * 1e3
+        if captured() != before:
+            left_out += 1
+            continue
+        runs.append({"host mesh + samples": sum(spent[n] for _, n in mesh),
+                     "device part": spent["frame_program"], "the one read": spent["to_host"],
+                     "rest": total - sum(spent.values()), "total": total})
+    if not runs:
+        raise AssertionError(f"{renderer}: every one of {left_out} frames captured a program")
+    return {k: statistics.median(r[k] for r in runs) for k in runs[0]}, left_out
+
+
+def check_frame_programs(dev, hw, samples, n_points, frames=6):
+    """The frame programs of both renderers: each captured on one draw of a
+    fixed mug and replayed on another, against the eager route on the same
+    inputs (depth, gray, cloud, SHOT and count equal to the bit); then ms per
+    frame replayed and eager on fresh meshes, by stage."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.data import shapes, synthetic
+    from cppf2_torch.eval import programs
+
+    out = {}
+    for renderer in ("splat", "raster"):
+        gen = synthetic.SyntheticFrameGenerator(get_category("mug"), n_max=n_points, height=hw[0],
+                                                width=hw[1], surface_samples=samples, seed=31,
+                                                renderer=renderer, device=dev.type)
+        fixed = shapes.make_category_mesh("mug", np.random.default_rng(31))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        args, static = frame_attempt(gen, fixed)   # the capture
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        prog = synthetic._FRAME_PROGRAMS[(("synthetic frame", renderer) + static,
+                                          programs._signature(args))]
+        args, static = frame_attempt(gen, fixed)   # another draw: pose, scale, lighting, texture
+        replays = prog.replays
+        got = synthetic.frame_program(renderer, args, *static)
+        if prog.replays != replays + 1 or prog.graph is None:
+            raise AssertionError(f"{renderer}: the frame did not replay its program")
+        with programs.disable_capture():
+            eager = synthetic.frame_program(renderer, args, *static)
+            eager2 = synthetic.frame_program(renderer, args, *static)
+        noise = max(float(torch.max(torch.abs(getattr(eager, f).double() - getattr(eager2, f).double())))
+                    for f in FRAME_FIELDS)
+        apart = [f for f in FRAME_FIELDS if not torch.equal(getattr(got, f), getattr(eager, f))]
+        if apart or noise:
+            raise AssertionError(f"{renderer}: replayed frame vs eager differ in {apart} (two eager "
+                                 f"runs {noise:.3g})")
+        split, left_out = frame_split(gen, renderer, frames)
+        with programs.disable_capture():
+            eager_split, _ = frame_split(gen, renderer, frames)
+        mine = [p for k, p in synthetic._FRAME_PROGRAMS.items() if k[0][1] == renderer]
+        n_progs, n_graphs = len(mine), sum(p.graph is not None for p in mine)
+        out[renderer] = dict(first_ms=first_ms, capture_ms=prog.capture_ms, programs=n_progs,
+                             captured=n_graphs, count=int(got.count), split=split,
+                             eager_split=eager_split, capturing_frames=left_out)
+        say(f"[train programs] {renderer} frame {hw[0]}x{hw[1]}, "
+            f"{samples if renderer == 'splat' else 'subdivided'} surface, {n_points} points: replay on "
+            f"a second draw equal to eager on it in {', '.join(FRAME_FIELDS)} (count {int(got.count)}); "
+            f"first call {first_ms:.1f} ms (warm-up + capture {prog.capture_ms:.1f}); {n_progs} "
+            f"{renderer} program(s) of the run, {n_graphs} captured; ms per frame replayed (median "
+            f"of {frames}, {left_out} frames left out that captured a new bucket's program) "
+            + ", ".join(f"{k} {v:.1f}" for k, v in split.items()) + "; eager "
+            + ", ".join(f"{k} {v:.1f}" for k, v in eager_split.items()))
+    return out
+
+
+def check_step_programs(dev, mesh, records, steps=20, n_points=2048, tuples=10000, out_size=256,
+                        e2e_vit=None):
+    """The three train steps, `steps` steps each from the same weights,
+    batches and uniforms: replayed (capturable AdamW) against the eager route
+    with the same optimizer, twice, and against the plain AdamW; the lr
+    halves after step steps // 2. Returns {branch: numbers}."""
+    import torch
+
+    from cppf2_torch import train
+    from cppf2_torch.config import TrainConfig
+    from cppf2_torch.data.records import RecordReader
+    from cppf2_torch.eval import programs
+    from cppf2_torch.models.cppf import DinoBranch, ShotBranch
+    from cppf2_torch.models.dinov2 import VIT_S14, DinoViT
+    from cppf2_torch.ops import attention
+
+    e2e_vit = dataclasses.replace(e2e_vit or dataclasses.replace(VIT_S14, pretrain_grid=out_size // 8),
+                                  attn_impl="hbm")
+    cfg = TrainConfig(n_points=n_points, tuples_per_step=tuples, steps_per_epoch=steps // 2,
+                      lr_step_epochs=1)
+    schedule = train.make_lr_schedule(cfg)
+    out = {}
+    for branch in ("shot", "dino", "dino-e2e"):
+        reader = RecordReader(records[branch])
+        rng = np.random.default_rng(3)
+        batches = [reader.batch([int(rng.integers(0, len(reader)))]) for _ in range(steps)]
+        reader.close()
+        ug = torch.Generator().manual_seed(4)
+        us = [torch.rand((1, tuples, 5), generator=ug) for _ in range(steps)]
+        width = batches[0]["desc"].shape[-1] if branch == "dino" else e2e_vit.embed_dim
+
+        def route(capturable=True):
+            gen = torch.Generator().manual_seed(0)
+            if branch == "dino-e2e":
+                vit, head = DinoViT(e2e_vit), DinoBranch(desc_dim=width)
+                state = train.create_visual_train_state(vit, head, cfg, gen, device=dev.type)
+                step = train.make_visual_train_step(vit, head, cfg, out_size=out_size, mesh=mesh)
+            else:
+                model = ShotBranch() if branch == "shot" else DinoBranch(desc_dim=width)
+                state = train.create_train_state(model, cfg, gen, device=dev.type)
+                step = train.make_train_step(model, cfg, branch, mesh)
+            if not capturable:
+                state.optimizer, state.scheduler = train.make_optimizer(
+                    cfg, state.module.parameters(), capturable=False)
+            return state, step
+
+        def run(state, step):
+            lr = state.optimizer.param_groups[0]["lr"]
+            losses, lrs = [], []
+            for s in range(steps):
+                _, m = step(state, batches[s], tuple_u=us[s])
+                losses.append(m["total"])
+                if s + 1 in (steps // 2, steps):
+                    now = state.optimizer.param_groups[0]["lr"]
+                    if torch.is_tensor(lr) and now is not lr:
+                        raise AssertionError(f"{branch}: the scheduler replaced the lr tensor")
+                    lrs.append(now.clone() if torch.is_tensor(now) else now)
+            torch.cuda.synchronize()
+            return torch.stack(losses), [p.detach().clone() for p in state.module.parameters()], lrs
+
+        zero_counts()
+        rs, rstep = route()
+        replay = run(rs, rstep)
+        launched = read_counts()
+        progs = list(rstep.programs.values())
+        if len(progs) != 1 or progs[0].replays != steps - 1 or progs[0].credits:
+            raise AssertionError(f"{branch}: step programs {len(progs)}, replays "
+                                 f"{[p.replays for p in progs]}, credits {[p.credits for p in progs]} "
+                                 f"(expected one program, replayed after its first step, crediting "
+                                 f"no kernel)")
+        if any(launched.values()):
+            raise AssertionError(f"{branch}: a train step launched a kernel of the port: {launched}")
+        adam = {float(st["step"]) for st in rs.optimizer.state.values()}
+        want_lr = [float(np.float32(schedule(n))) for n in (steps // 2, steps)]
+        got_lr = [float(x) for x in replay[2]]
+        if adam != {float(steps)} or got_lr != want_lr:
+            raise AssertionError(f"{branch}: AdamW step {adam}, lr after steps {steps // 2} and "
+                                 f"{steps} {got_lr} (want {float(steps)}, {want_lr})")
+        with programs.disable_capture():
+            eager = run(*route())
+            eager2 = run(*route())
+            plain = run(*route(capturable=False))
+
+        def apart(a, b):
+            return max(float(torch.max(torch.abs(x.double() - y.double())))
+                       for x, y in zip([a[0]] + a[1], [b[0]] + b[1]))
+
+        same, noise = apart(replay, eager), apart(eager, eager2)
+        if same > noise:
+            raise AssertionError(f"{branch}: replayed losses and parameters vs eager max |diff| "
+                                 f"{same:.3g}, above two eager runs' {noise:.3g}")
+        loss_rel = float(torch.max(torch.abs(plain[0] - replay[0]) / torch.abs(plain[0])))
+        param_diff = max(float(torch.max(torch.abs(x - y))) for x, y in zip(plain[1], replay[1]))
+        if loss_rel > 1e-3:
+            raise AssertionError(f"{branch}: capturable vs plain AdamW, the losses differ by "
+                                 f"{loss_rel:.3g} relative (limit 1e-3)")
+        # time: the state and the programs as a user's loop has them
+        batch, u = batches[0], us[0]
+
+        def one(state, step):
+            step(state, batch, tuple_u=u)
+
+        def steady(state, step, n=10):
+            one(state, step)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                one(state, step)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / n
+
+        ms = steady(rs, rstep)
+        busy = device_ms(lambda: one(rs, rstep), iters=5)
+        with programs.disable_capture():
+            es, estep = route()
+            eager_ms = steady(es, estep)
+            eager_busy = device_ms(lambda: one(es, estep), iters=5)
+            plain_ms = steady(*route(capturable=False))
+        out[branch] = dict(ms=ms, eager_ms=eager_ms, busy_ms=busy, eager_busy_ms=eager_busy,
+                           plain_ms=plain_ms,
+                           capture_ms=progs[0].capture_ms, diff=same, eager_noise=noise,
+                           plain_loss_rel=loss_rel, plain_param_diff=param_diff, lr=got_lr,
+                           k1=attention._MHA.launches)
+        say(f"[train programs] {branch} step ({n_points} points, {tuples} tuples, batch 1): {steps} "
+            f"steps replayed (one program, first call {progs[0].capture_ms:.1f} ms with its capture) "
+            f"vs eager: losses and parameters max |diff| {same:.3g} (two eager runs {noise:.3g}); "
+            f"AdamW step {steps}; lr after {steps // 2} and {steps} steps {got_lr}; capturable vs "
+            f"plain AdamW losses within {loss_rel:.3g} relative (limit 1e-3), parameters "
+            f"{param_diff:.3g}; no kernel of the port launched; ms per step replayed {ms:.2f} (busy "
+            f"{busy:.2f} ms, {100 * busy / ms:.1f}%), eager {eager_ms:.2f} (busy {eager_busy:.2f} ms, "
+            f"{100 * eager_busy / eager_ms:.1f}%), eager with the plain AdamW {plain_ms:.2f}")
+    return out
+
+
+def check_render_trainer(dev, mesh, tmp, records, vit_cfg, eager_ms, hw=(480, 640), n_points=2048,
+                         tuples=10000, pool=64, steps=40):
+    """`train_category("mug", "dino")` on a rendered pool with every program
+    replayed: 24 K1 credited for each pool frame and refresh, the loss
+    falling, ms per step beside phase 8's eager one; then the checkpoint
+    restores and the next steps' losses are those of the state in memory."""
+    import torch
+
+    from cppf2_torch import train
+    from cppf2_torch.config import TrainConfig
+    from cppf2_torch.data.records import RecordReader
+    from cppf2_torch.models.cppf import DinoBranch
+    from cppf2_torch.models import dinov2
+    from cppf2_torch.ops import attention
+    from cppf2_torch.train import checkpoints
+    from cppf2_torch.train.driver import train_category
+
+    cfg = TrainConfig(n_points=n_points, steps_per_epoch=steps, max_epochs=1, tuples_per_step=tuples)
+    # the driver's default extractor, made here so that its program is captured before the count
+    ext = dinov2.DinoFeatureExtractor(cfg=vit_cfg, device=dev.type).init_random(
+        torch.Generator(device=dev).manual_seed(cfg.seed))
+    ext(torch.rand(ext.out_size, ext.out_size, 3, device=dev), torch.rand(16, 2, device=dev))
+    (prog,) = dinov2._EXTRACTOR_PROGRAMS[ext.model].values()
+    replays0 = prog.replays
+    out = os.path.join(tmp, "tck", "dino", "mug")
+    zero_counts()
+    t0 = time.perf_counter()
+    state = train_category("mug", "dino", cfg, out, n_points=n_points, frames_in_pool=pool,
+                           render_hw=hw, log_every=1, progress=lambda s: None, dino_extractor=ext,
+                           device=dev.type)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launched = read_counts()
+    want = vit_cfg.depth * (pool + steps)
+    if launched != {"mha": want, "hist16_peak": 0, "sphere_accumulate": 0} or \
+            prog.replays - replays0 != pool + steps or prog.credited(attention._MHA) != vit_cfg.depth:
+        raise AssertionError(f"dino: launches {launched}, extractor replays {prog.replays - replays0}, "
+                             f"credited {prog.credited(attention._MHA)} (expected {want} K1, one replay "
+                             f"crediting {vit_cfg.depth} for each of {pool} pool frames and {steps} "
+                             f"refreshes)")
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    totals = [r["total"] for r in rows]
+    if len(rows) != steps or not all(math.isfinite(r[k]) for r in rows for k in ("cls", "scale", "total")):
+        raise AssertionError(f"dino: {len(rows)} metric rows, or a non-finite one: {rows[-1]}")
+    ms = statistics.median(np.diff([r["wall"] for r in rows])) * 1e3
+    n_mean = min(10, steps // 2)
+    head, tail = np.mean(totals[:n_mean]), np.mean(totals[-n_mean:])
+    if not tail < head:
+        raise AssertionError("dino: the loss did not fall")
+    # the checkpoint: two steps of the state in memory and of the restored one
+    fresh = train.create_train_state(DinoBranch(desc_dim=vit_cfg.embed_dim), cfg, device=dev.type)
+    fresh = checkpoints.restore_checkpoint(checkpoints.latest_checkpoint(out), fresh)
+    if fresh.step != state.step or state.step != steps:
+        raise AssertionError(f"dino: restored step {fresh.step}, trained {state.step}")
+    step_fn = train.make_train_step(state.module, cfg, "dino", mesh)
+    reader = RecordReader(records["dino"])
+    batch = reader.batch([0])
+    reader.close()
+    losses = []
+    for st in (state, fresh):
+        gen = torch.Generator().manual_seed(5)
+        losses.append(torch.stack([step_fn(st, batch, generator=gen)[1]["total"] for _ in range(2)]))
+    if not torch.equal(losses[0], losses[1]) or len(step_fn.programs) != 2:
+        raise AssertionError(f"dino: next steps' losses {losses[0].tolist()} in memory, "
+                             f"{losses[1].tolist()} from the checkpoint ({len(step_fn.programs)} "
+                             f"programs)")
+    res = dict(ms=ms, eager_ms=eager_ms, k1=launched["mha"], per_frame=vit_cfg.depth,
+               set_up_s=total_s - rows[-1]["wall"], first=totals[0], last=totals[-1], head=head,
+               tail=tail, next_losses=losses[1].tolist())
+    say(f"[train programs] train_category dino on rendered frames, every program replayed: pool of "
+        f"{pool} + {steps} steps, {ms:.1f} ms per step (median; phase 8 eager {eager_ms:.1f}; the "
+        f"metrics read back every step), {res['set_up_s']:.1f} s before the first step; K1 {want} "
+        f"credited ({vit_cfg.depth} per pool frame and refresh, {prog.replays - replays0} extractor "
+        f"replays); total loss {totals[0]:.3f} -> {totals[-1]:.3f} (mean of the first {n_mean} "
+        f"{head:.3f}, of the last {n_mean} {tail:.3f}); the checkpoint restores step {steps} and the "
+        f"next two steps' losses {[round(x, 6) for x in losses[1].tolist()]} bit for bit (captured)")
+    return res
+
+
+def run_training_programs(dev, tmp, records, vit_cfg, eager_ms, backend="nccl", hw=(480, 640),
+                          samples=250_000, n_points=2048, tuples=10000, steps=20, pool=64,
+                          train_steps=40, e2e_vit=None, out_size=256, frames=6):
+    """Phase 14: the synthetic frames, the three train steps and the render
+    trainer through their programs. Returns a dict of the phase's numbers."""
+    import torch
+    import torch.distributed as dist
+
+    from cppf2_torch import parallel
+    from cppf2_torch.data import synthetic
+    from cppf2_torch.eval import programs
+
+    out = dict(frames=check_frame_programs(dev, hw, samples, n_points, frames))
+    dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store14"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = parallel.make_mesh(device=dev.type)
+        out["steps"] = check_step_programs(dev, mesh, records, steps, n_points, tuples, out_size,
+                                           e2e_vit)
+        out["trainer"] = check_render_trainer(dev, mesh, tmp, records, vit_cfg, eager_ms, hw, n_points,
+                                              tuples, pool, train_steps)
+    finally:
+        dist.destroy_process_group()
+    out["raster_programs"] = sum(k[0][1] == "raster" for k in synthetic._FRAME_PROGRAMS)
+    out["pool_mb"] = pool_mib(programs.pool_handle(dev))
+    say(f"[train programs] {len(synthetic._FRAME_PROGRAMS)} frame programs ({out['raster_programs']} "
+        f"raster, one per padded mesh bucket); graph pool reserved {out['pool_mb']} MiB (every program "
+        f"of the run, the training programs added); peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB")
+    return out
+
+
 def _groups(dets):
     from cppf2_torch.infer.frontend import auto_crop
 
@@ -3501,7 +3886,7 @@ def main() -> int:
     try:
         # phases 3 to 10 run the eager route, as they did before the programs
         # (their plain swaps, stage timers and recorded inputs need it); phases
-        # 11 to 13 run the captured programs
+        # 11 to 14 run the captured programs
         with programs.disable_capture():
             launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
             t_phase = time.perf_counter()
@@ -3530,6 +3915,11 @@ def main() -> int:
         t_phase = time.perf_counter()
         serving = run_serving_programs(dev, pipe, VIT_L14, batched.pop("eval_inputs"), tmp)
         say(f"[serving] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        training = run_training_programs(dev, tmp, {b: os.path.join(tmp, f"{b}.rec")
+                                                    for b in ("shot", "dino", "dino-e2e")},
+                                         VIT_L14, render_train_ms["dino"])
+        say(f"[train programs] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3549,6 +3939,9 @@ def main() -> int:
                  **{f"instance {k}": v["k1"] for k, v in serving["instance"].items()},
                  singles_frame=serving["singles"]["k1"],
                  **{f"extractor {k}": v["k1"] for k, v in serving["extractor"].items()}),
+             # phase 14's "dino" render trainer, every program replayed: 24 a pool
+             # frame and a refresh
+             train_replay_launches=training["trainer"]["k1"],
              max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by="operations", library_ms=k1_main["library_ms"],
@@ -3670,6 +4063,14 @@ def main() -> int:
         + "; ".join(f"extractor {k} ms {v['ms']:.2f} replay / {v['eager_ms']:.2f} eager"
                     for k, v in serving["extractor"].items())
         + f"; {serving['programs']} programs, graph pool {serving['pool_mb']} MiB")
+    fr, st, tr = training["frames"], training["steps"], training["trainer"]
+    say("[train programs] ms per frame replayed / eager: " + ", ".join(
+        f"{r} {fr[r]['split']['total']:.1f} / {fr[r]['eager_split']['total']:.1f}" for r in fr)
+        + "; ms per step replayed / eager: " + ", ".join(
+        f"{b} {v['ms']:.2f} / {v['eager_ms']:.2f}" for b, v in st.items())
+        + f"; render trainer dino ms per step {tr['ms']:.1f} replayed / {tr['eager_ms']:.1f} eager "
+        f"(phase 8); graph pool {training['pool_mb']} MiB, {training['raster_programs']} raster "
+        f"programs")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -10,7 +10,6 @@ from __future__ import annotations
 import math
 
 import torch
-import torch.nn.functional as F
 
 
 def real2prob(val: torch.Tensor, max_val: float, num_bins: int, circular: bool = False) -> torch.Tensor:
@@ -35,8 +34,11 @@ def real2prob(val: torch.Tensor, max_val: float, num_bins: int, circular: bool =
     low = torch.clamp(torch.floor(val / interval).to(torch.int64), 0, num_bins - 2)
     frac = val / interval - low.to(val.dtype)
     w_low = 1.0 - frac
-    onehot_low = F.one_hot(low, num_bins).to(val.dtype)
-    onehot_high = F.one_hot(low + 1, num_bins).to(val.dtype)
+    # F.one_hot's values, without the range checks it reads back from a CPU
+    # tensor (a train step's program must read nothing back)
+    bins = torch.arange(num_bins, device=val.device)
+    onehot_low = (low[..., None] == bins).to(val.dtype)
+    onehot_high = (low[..., None] + 1 == bins).to(val.dtype)
     return onehot_low * w_low[..., None] + onehot_high * (1.0 - w_low)[..., None]
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.device import device_constant
 
 # NOCS-camera pinhole used by the reference for synthesis (dataset.py:189)
 NOCS_INTRINSICS = np.array(
@@ -56,8 +57,11 @@ class AlbedoDraw(NamedTuple):
 
 
 def default_lighting(device="cuda") -> Lighting:
-    d = torch.tensor([0.3, -0.5, -0.8], device=device)
-    return Lighting(d / norm(d), torch.tensor(0.85, device=device), torch.tensor(0.15, device=device))
+    """The fixed light of a frame drawn without lighting. Its numbers reach
+    the device as a constant and fills: a frame program's body builds it,
+    and a capture cannot record a copy from the host."""
+    d = device_constant("render.light_direction", lambda: torch.tensor([0.3, -0.5, -0.8]), device)
+    return Lighting(d / norm(d), torch.full((), 0.85, device=device), torch.full((), 0.15, device=device))
 
 
 def _uniform(shape, lo, hi, generator, device) -> torch.Tensor:
@@ -113,7 +117,7 @@ def _zbuffer(pix: torch.Tensor, z: torch.Tensor, shade: torch.Tensor, ok: torch.
     pixel, then the largest shade among fragments within 1e-5 of the
     pixel's winning depth."""
     dev = z.device
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
     zbuf = torch.full((height * width,), float("inf"), device=dev).scatter_reduce_(0, pix, z, "amin")
     # pixel 0 holds the parked fragments: it is covered only if a valid one landed there
     zbuf[0] = torch.where(torch.any(ok & (pix == 0)), zbuf[0], inf)
@@ -157,7 +161,7 @@ def splat_render_depth(
     vi = torch.round(v).to(torch.int64)
     inside = ok & (ui >= 0) & (ui < width) & (vi >= 0) & (vi < height)
     pix = torch.where(inside, vi * width + ui, torch.zeros((), dtype=torch.int64, device=dev))
-    zval = torch.where(inside, z, torch.tensor(float("inf"), device=dev))
+    zval = torch.where(inside, z, torch.full((), float("inf"), device=dev))
     shade = _shade(nrm, lighting if lighting is not None else default_lighting(dev))
     if albedo is not None:
         shade = shade * albedo
@@ -199,7 +203,7 @@ def raster_render_depth(
     g = frag_grid
     steps = torch.arange(g, device=dev)
     zero = torch.zeros((), device=dev)
-    inf = torch.tensor(float("inf"), device=dev)
+    inf = torch.full((), float("inf"), device=dev)
     parts = []
     for start in range(0, faces.shape[0], face_chunk):
         fc = faces[start:start + face_chunk].to(torch.int64)

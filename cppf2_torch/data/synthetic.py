@@ -7,6 +7,14 @@ voxel-downsamples, computes SHOT features and the canonical cloud; one copy
 back to the host per attempt carries what the retry and symmetry logic
 needs.
 
+The device part of an attempt (render, cloud, features, canonical frame) is
+a program (`eval/programs.py`), as the JAX package jits `_device_frame` and
+`_device_frame_raster`: one per renderer, static arguments (res, n_max,
+height, width, shot_k), draws (lighting and albedo drawn or not) and input
+shapes, captured as a CUDA graph on its first call on the card and replayed
+after; raster meshes are padded to buckets, so there is one raster program
+per bucket. The scale travels as a 0-d tensor, not as a key.
+
 The numpy stream is the reference's, draw for draw: the same seed gives the
 same meshes, poses and scales, and `SyntheticFrameGenerator.rng` is in the
 same state after N frames. The two integers the reference turns into
@@ -39,10 +47,12 @@ from cppf2_torch.data.render import (
     splat_render_depth,
 )
 from cppf2_torch.data.shapes import make_category_mesh, sample_surface, subdivide_mesh
-from cppf2_torch.device import resolve_device
+from cppf2_torch.device import device_constant, resolve_device
+from cppf2_torch.eval import programs
 from cppf2_torch.ops.shot import compute_shot_features
 
 _FLIP = np.diag([-1.0, -1.0, 1.0]).astype(np.float32)  # backproject's x/y flip
+_FRAME_PROGRAMS: Dict = {}   # the frame programs, by renderer, static arguments and inputs
 
 
 class SynthFrame(NamedTuple):
@@ -113,7 +123,7 @@ def _frame_from_render(depth, gray, r_obj, t_obj, scale, bound_canon, intrinsics
     pix = torch.where(ds.valid[:, None], pixel_yx[ds.indices],
                       torch.zeros((), dtype=pixel_yx.dtype, device=dev))
     shot, normal = compute_shot_features(pc, ds.valid, res * 10, k=shot_k)
-    flip = torch.as_tensor(_FLIP, device=dev)
+    flip = device_constant("synthetic.flip", lambda: torch.from_numpy(_FLIP), dev)
     rot = flip @ r_obj
     trans = flip @ t_obj
     bound = bound_canon * scale
@@ -147,6 +157,21 @@ def raster_frame(verts, faces, r_obj, t_obj, scale, bound_canon, intrinsics, res
                                       lighting=_lighting(draws, verts.device), albedo=draws.albedo)
     return _frame_from_render(depth, gray, r_obj, t_obj, scale, bound_canon, intrinsics, res, draws,
                               n_max, shot_k)
+
+
+def frame_program(renderer: str, args, res: float, n_max: int, height: int, width: int,
+                  shot_k: int) -> SynthFrame:
+    """`splat_frame` (args: samples, sample normals, ...) or `raster_frame`
+    (args: verts, faces, ...) through its program; the rest of `args` is
+    (r_obj, t_obj, scale as a 0-d tensor, bound_canon, intrinsics, draws)."""
+    render = splat_frame if renderer == "splat" else raster_frame
+
+    def body(a, b, r_obj, t_obj, scale, bound_canon, intrinsics, draws):
+        return render(a, b, r_obj, t_obj, scale, bound_canon, intrinsics, res, draws, n_max=n_max,
+                      height=height, width=width, shot_k=shot_k)
+
+    key = ("synthetic frame", renderer, res, n_max, height, width, shot_k)
+    return programs.program(_FRAME_PROGRAMS, key, body, args)(*args)
 
 
 def _pad_mesh(verts: np.ndarray, faces: np.ndarray, v_mult=1024, f_mult=2048):
@@ -277,17 +302,16 @@ class SyntheticFrameGenerator:
             frame_seed = int(self.rng.integers(0, 2**31))
             light_seed = int(self.rng.integers(0, 2**31)) if self.randomize_lighting else None
             draws = self.draw_fn(frame_seed, light_seed, self.height * self.width, self.texture, dev)
-            common = dict(n_max=self.n_max, height=self.height, width=self.width, shot_k=self.shot_k)
-            pose = (torch.as_tensor(r_obj, device=dev), torch.as_tensor(t_obj, device=dev), float(scale),
-                    torch.as_tensor(bound_canon, device=dev), self.intrinsics, float(self.cat.res), draws)
+            pose = (torch.as_tensor(r_obj, device=dev), torch.as_tensor(t_obj, device=dev),
+                    torch.as_tensor(scale, device=dev), torch.as_tensor(bound_canon, device=dev),
+                    self.intrinsics, draws)
             if self.renderer == "raster":
-                verts, faces = self._raster_mesh(mesh, m)
-                frame = raster_frame(torch.as_tensor(verts, device=dev), torch.as_tensor(faces, device=dev),
-                                     *pose, **common)
+                geometry = self._raster_mesh(mesh, m)
             else:
-                samples, normals = sample_surface(m, self.surface_samples, self.rng)
-                frame = splat_frame(torch.as_tensor(samples, device=dev),
-                                    torch.as_tensor(normals, device=dev), *pose, **common)
+                geometry = sample_surface(m, self.surface_samples, self.rng)
+            frame = frame_program(self.renderer, tuple(torch.as_tensor(x, device=dev) for x in geometry)
+                                  + pose, float(self.cat.res), self.n_max, self.height, self.width,
+                                  self.shot_k)
             # one copy back per attempt, of everything the host needs below
             host = to_host(frame, _FETCHED)
             if int(host["count"]) < self.min_points:

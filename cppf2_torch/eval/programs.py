@@ -22,6 +22,15 @@ frame-wide ViT program per pack signature) and the jitted `preprocess_frame`
 * Programs do not nest: a program's body calls the eager functions, never
   another program (a capture inside a capture fails on the card). A program
   called while another one's body runs raises, on the CPU too.
+* A stateful program (`stateful=True`: a train step, whose body updates the
+  weights and the optimizer's state in place) must run its body exactly once
+  a call. Its first CUDA call returns what its warm-up computed: the warm-up
+  is that call's step. The capture that follows records and executes
+  nothing, and every later call replays. What the body writes in place must
+  lie outside the shared pool, allocated before the capture (the trainer's
+  gradients and AdamW's moments), and the program is keyed on where it lies.
+  Python side effects (the step count, the scheduler, a draw from a host
+  generator) stay outside the body: a replay runs no Python.
 
 `program(cache, key, fn, args)` finds or makes the program of a call: its key
 is the caller's key (the JAX driver's) with the shape, dtype and device of
@@ -64,6 +73,7 @@ COUNTED: List[Tuple[Any, str]] = [(attention._MHA, "launches"), (hist16._PEAK, "
                                   (QDense, "launches")]
 _disabled = 0
 _pools: Dict[int, Any] = {}   # device index -> the graph memory pool its programs share
+_anchors: Dict[int, Any] = {}  # device index -> the graph that keeps that pool in use
 _running: List[Any] = []      # the key of the program whose body runs now, if one does
 
 
@@ -86,6 +96,23 @@ def weights(*modules) -> tuple:
     """Where the modules' parameters and buffers lie: a captured graph reads
     them at these addresses, so a program is keyed on them."""
     return tuple(t.data_ptr() for m in modules for t in itertools.chain(m.parameters(), m.buffers()))
+
+
+def trained(optimizer) -> tuple:
+    """Where a train step reads and writes an optimizer's tensors: every
+    parameter, its gradient and its state tensors (AdamW's step and moments),
+    and the learning rate where it is a tensor. A step program is keyed on it
+    beside `weights`: a checkpoint restored into the optimizer replaces its
+    state tensors, and the restored state then gets a program of its own."""
+    out = []
+    for group in optimizer.param_groups:
+        lr = group["lr"]
+        out.append(lr.data_ptr() if torch.is_tensor(lr) else None)
+        for p in group["params"]:
+            st = optimizer.state.get(p, {})
+            out.append((p.data_ptr(), None if p.grad is None else p.grad.data_ptr(),
+                        tuple(v.data_ptr() for v in st.values() if torch.is_tensor(v))))
+    return tuple(out)
 
 
 def count_replays(obj, attr: str) -> None:
@@ -114,12 +141,23 @@ def _take_back(before: List[int]) -> List[Tuple[Any, str, Any]]:
 
 
 def pool_handle(device):
-    """The graph memory pool that the programs of `device` share."""
+    """The graph memory pool that the programs of `device` share.
+
+    A one-node graph captured into the pool when it is made, and kept, holds
+    the pool's use count above zero. The caching allocator asserts (in
+    `create_or_incref_pool`) when a capture joins a pool whose graphs have
+    all died while it still caches their memory, as it would after a
+    trainer's step programs die with their step function."""
     dev = torch.device(device)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     if idx not in _pools:
         with torch.cuda.device(idx):
-            _pools[idx] = torch.cuda.graph_pool_handle()
+            handle = torch.cuda.graph_pool_handle()
+            anchor = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(anchor, pool=handle):
+                torch.zeros((), device=torch.device("cuda", idx))
+            _pools[idx] = handle
+            _anchors[idx] = anchor
     return _pools[idx]
 
 
@@ -135,8 +173,8 @@ def _signature(args) -> tuple:
 class Program:
     """One function of tensors, captured once per key and replayed."""
 
-    def __init__(self, key, fn: Callable):
-        self.key, self.fn = key, fn
+    def __init__(self, key, fn: Callable, stateful: bool = False):
+        self.key, self.fn, self.stateful = key, fn, stateful
         self.graph = None
         self.static: List[torch.Tensor] = []   # the input tensors the graph reads
         self.outputs = None
@@ -170,7 +208,9 @@ class Program:
             with self._body():
                 return self.fn(*args)
         if self.graph is None:
-            self._capture(leaves, spec, tensors)
+            first = self._capture(leaves, spec, tensors)
+            if self.stateful:
+                return first
         else:
             for s, x in zip(self.static, tensors):
                 if s.shape != x.shape or s.dtype != x.dtype or s.device != x.device:
@@ -192,6 +232,8 @@ class Program:
         return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, self.outputs)
 
     def _capture(self, leaves, spec, tensors):
+        """Warm up, capture into the shared pool, keep the graph; returns the
+        warm-up's outputs (a stateful program's first call returns them)."""
         devs = {x.device for x in tensors}
         if len(devs) != 1:
             raise RuntimeError(f"program {self.key!r}: inputs on several devices {devs}")
@@ -205,10 +247,14 @@ class Program:
         side.wait_stream(main)
         try:
             with self._body(), torch.cuda.stream(side), hist16.owned_scratch(self.scratch):
-                self.fn(*args)
+                warm = self.fn(*args)
         except Exception as e:
             raise RuntimeError(f"warm-up of program {self.key!r} failed: {e}") from e
         main.wait_stream(side)
+        # a stateful program returns the warm-up's outputs, copied on the caller's stream
+        first = (pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, warm)
+                 if self.stateful else None)
+        del warm
         before = _counts()
         graph = torch.cuda.CUDAGraph()
         try:
@@ -221,13 +267,14 @@ class Program:
         self.credits = _take_back(before)
         self.graph, self.outputs = graph, out
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        return first
 
 
-def program(cache: Dict, key, fn: Callable, args) -> Program:
+def program(cache: Dict, key, fn: Callable, args, stateful: bool = False) -> Program:
     """The program of `key` and of the inputs `args` in `cache`, made from
     `fn` when there is none yet."""
     full = (key, _signature(args))
     prog = cache.get(full)
     if prog is None:
-        prog = cache[full] = Program(full, fn)
+        prog = cache[full] = Program(full, fn, stateful)
     return prog

@@ -263,7 +263,9 @@ def load_train_state(state, params: Dict[str, Any], mu: Dict[str, Any], nu: Dict
     trees (optax's `ScaleByAdamState.mu`, `.nu`, `.count`) into a
     `train.loop.TrainState` (its module, its Adam or AdamW optimizer over the
     module's parameters, its scheduler), in place. The moments go through the
-    same layout mapping as the parameters. Returns the state."""
+    same layout mapping as the parameters. A capturable optimizer keeps its
+    step count on the parameters' device and its tensor lr, rewritten in
+    place. Returns the state."""
     import copy
 
     module, optimizer = state.module, state.optimizer
@@ -273,15 +275,20 @@ def load_train_state(state, params: Dict[str, Any], mu: Dict[str, Any], nu: Dict
         shadow = copy.deepcopy(module)
         load_tree(shadow, tree)
         moments.append(dict(shadow.named_parameters()))
+    capturable = optimizer.param_groups[0].get("capturable", False)
     for name, prm in module.named_parameters():
         st = optimizer.state[prm]
-        st["step"] = torch.tensor(float(count))
+        st["step"] = torch.full((), float(count), device=prm.device if capturable else "cpu")
         st["exp_avg"] = moments[0][name].detach().to(prm.device, prm.dtype).clone()
         st["exp_avg_sq"] = moments[1][name].detach().to(prm.device, prm.dtype).clone()
     state.step = int(count)
     sched = state.scheduler
     sched.last_epoch = int(count)
     for group, base, fn in zip(optimizer.param_groups, sched.base_lrs, sched.lr_lambdas):
-        group["lr"] = base * fn(int(count))
-    sched._last_lr = [g["lr"] for g in optimizer.param_groups]
+        if torch.is_tensor(group["lr"]):
+            group["lr"].fill_(base * fn(int(count)))
+        else:
+            group["lr"] = base * fn(int(count))
+    sched._last_lr = [g["lr"].clone() if torch.is_tensor(g["lr"]) else g["lr"]
+                      for g in optimizer.param_groups]
     return state

@@ -59,7 +59,13 @@ def latest_checkpoint(ckpt_dir: str) -> Optional[str]:
 
 def restore_checkpoint(path: str, template: TrainState) -> TrainState:
     """Load a checkpoint into `template` (a state of the same model and
-    config, as `create_train_state` makes it), in place, and return it."""
+    config, as `create_train_state` makes it), in place, and return it.
+
+    The parameters are written where they lie; the optimizer's state tensors
+    (and a tensor lr) are replaced by the loaded ones. A train step's
+    program is keyed on their addresses (`programs.trained`), so the restored
+    state gets a program of its own: one captured before would read the old
+    tensors."""
     dev = next(template.module.parameters()).device
     ck = torch.load(os.path.abspath(path), map_location=dev, weights_only=True)
     load_tree(template.module, _map_leaves(lambda t: t.cpu().numpy(), ck["params"]))

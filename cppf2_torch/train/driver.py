@@ -8,6 +8,13 @@ frames come from the synthetic generator (`data/synthetic.py`) or from a
 step; batches are data-parallel over the ranks of the process group, and
 checkpoints and metrics go to `out_dir`.
 
+On the card the JAX driver's compiled programs are captured CUDA graphs
+(`eval/programs.py`), replayed after their first call: every step (the train
+step's program), every rendered frame (the frame programs of
+`data/synthetic.py`) and, for "dino", every frame's descriptors (the
+extractor's program). Between two step replays only the picked batch and
+the step's uniforms go up; the metrics are read at `log_every`.
+
 Usage (one process per device; a single process starts a world of one):
     python -m cppf2_torch.train.driver --category mug --branch shot \
         --epochs 101 --steps-per-epoch 200 --out ckpts/shot/mug

@@ -13,6 +13,17 @@ train_dino.py:99-161), under autograd:
     rank takes the loss of its block, and the gradients are averaged over the
     axis by one `all_reduce` on the flattened gradient.
 
+The JAX package jits its train step (the loss, `value_and_grad`, the
+gradient reduction and the optax update in one program); here the step is a
+stateful program (`eval/programs.py`): on the card its first call runs the
+step and captures it, and every later call replays the losses, the backward,
+the all_reduce and the AdamW update as one CUDA graph. AdamW is then
+capturable, with its lr a 0-d device tensor that the scheduler rewrites in
+place between replays; the gradients and AdamW's moments are allocated before
+the first step, outside the graphs' pool, and the program is keyed on their
+addresses. The step count, the scheduler and the draw of the tuple uniforms
+stay outside the program. On the CPU the step runs eagerly.
+
 The JAX train step reaches no TPU kernel, so this one launches no CUDA kernel
 of the port: the branch MLPs are `torch.matmul` under autograd.
 """
@@ -20,6 +31,7 @@ of the port: the branch MLPs are `torch.matmul` under autograd.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Dict, Optional
 
 import torch
@@ -29,6 +41,7 @@ from torch import nn
 from cppf2_torch.config import TrainConfig
 from cppf2_torch.core.binning import real2prob
 from cppf2_torch.device import resolve_device
+from cppf2_torch.eval import programs
 from cppf2_torch.models.layers import Dense, lecun_normal_
 from cppf2_torch.ops.sampling import masked_tuple_choice
 from cppf2_torch.parallel.mesh import axis_size, rank_device, shard_batch
@@ -57,13 +70,27 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return schedule
 
 
-def make_optimizer(cfg: TrainConfig, params):
+def make_optimizer(cfg: TrainConfig, params, capturable: Optional[bool] = None):
     """(AdamW, LambdaLR) over `params`, with optax.adamw's constants (betas
     0.9 / 0.999, eps 1e-8 outside the root). Call `scheduler.step()` after
     `optimizer.step()`: update number n (from 0) then runs at
-    `make_lr_schedule(cfg)(n)`, the count before the update, as optax reads it."""
-    opt = torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                            weight_decay=cfg.weight_decay)
+    `make_lr_schedule(cfg)(n)`, the count before the update, as optax reads it.
+
+    `capturable` defaults to whether the parameters lie on CUDA. A capturable
+    AdamW keeps its step count on the device and takes its lr as a 0-d
+    tensor there, which LambdaLR rewrites in place: a captured update reads
+    the lr of each replay. It runs the multi-tensor update, CUDA's default,
+    named here so that the CPU tests run the same arithmetic. The lr is
+    float32, as optax's schedule is: over five steps across an lr boundary
+    the loss then follows optax's within 2.8e-7 (relative), against 9.1e-5
+    with a float64 lr (tests/test_torch_train_programs.py)."""
+    params = list(params)
+    if capturable is None:
+        capturable = all(p.device.type == "cuda" for p in params)
+    lr = torch.full((), cfg.lr, dtype=torch.float32, device=params[0].device) if capturable else cfg.lr
+    opt = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                            weight_decay=cfg.weight_decay, capturable=capturable,
+                            foreach=True if capturable else None)
     boundary = cfg.lr_step_epochs * cfg.steps_per_epoch
     sched = torch.optim.lr_scheduler.LambdaLR(opt, lambda n: cfg.lr_gamma ** (n // boundary))
     return opt, sched
@@ -127,14 +154,34 @@ def _shard_uniforms(tuple_u, generator, n_frames: int, cfg: TrainConfig, tuple_s
     return shard_batch(tuple_u, mesh, axis)
 
 
-def _data_parallel_step(state: TrainState, frame_losses, mesh, axis: str,
-                        grad_scale: Optional[Callable[[str], float]] = None):
+def _allocate(state: TrainState) -> None:
+    """Every gradient, and AdamW's step and moments, as zeros before the first
+    step, as AdamW itself would make them at its first update: a step program
+    writes them in place, outside the graphs' pool, and is keyed on where
+    they lie."""
+    opt = state.optimizer
+    for group in opt.param_groups:
+        for p in group["params"]:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            st = opt.state[p]
+            if not st:
+                st["step"] = (torch.zeros((), device=p.device) if group["capturable"]
+                              else torch.tensor(0.0))
+                st["exp_avg"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+                st["exp_avg_sq"] = torch.zeros_like(p, memory_format=torch.preserve_format)
+
+
+def _update(state: TrainState, frame_losses, mesh, axis: str,
+            grad_scale: Optional[Callable[[str], float]] = None):
     """Backward of the mean of this rank's per-frame totals, gradients and
-    metrics averaged over `axis`, one optimizer update."""
+    metrics averaged over `axis`, one optimizer update; returns the metrics.
+    The gradients are zeroed in place, never set to None: they keep the
+    addresses the step program was captured with."""
     metrics = {k: torch.mean(torch.stack([f[k] for f in frame_losses])) for k in frame_losses[0]}
-    state.optimizer.zero_grad(set_to_none=True)
+    state.optimizer.zero_grad(set_to_none=False)
     metrics["total"].backward()
-    named = [(n, p) for n, p in state.module.named_parameters() if p.grad is not None]
+    named = list(state.module.named_parameters())
     if grad_scale is not None:
         for n, p in named:
             p.grad.mul_(grad_scale(n))
@@ -148,9 +195,21 @@ def _data_parallel_step(state: TrainState, frame_losses, mesh, axis: str,
         p.grad.copy_(flat[off:off + p.numel()].view_as(p))
         off += p.numel()
     state.optimizer.step()
+    return {k: flat[off + i] for i, k in enumerate(keys)}
+
+
+def _run_step(state: TrainState, cache: Dict, key, body: Callable, local, us):
+    """One step through the step program of `key` and of the inputs (the
+    rank's block of the batch, its uniforms), keyed also on where the
+    weights, gradients and the optimizer's state lie; then the scheduler and
+    the step count, which a replay would not advance."""
+    _allocate(state)
+    key = key + (programs.weights(state.module), programs.trained(state.optimizer))
+    prog = programs.program(cache, key, functools.partial(body, state), (local, us), stateful=True)
+    metrics = prog(local, us)
     state.scheduler.step()
     state.step += 1
-    return state, {k: flat[off + i] for i, k in enumerate(keys)}
+    return state, metrics
 
 
 def make_train_step(model: nn.Module, cfg: TrainConfig, branch: str = "shot", mesh=None,
@@ -166,7 +225,8 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, branch: str = "shot", me
     `tuple_u` (B, tuples_per_step, tuple_size) in [0, 1) picks the tuples, or
     they are drawn from `generator`. The state is advanced in place; the
     metrics (cls, scale, total: means over the global batch) are 0-d tensors
-    on the rank's device.
+    on the rank's device. `train_step.programs` holds the step programs
+    (one per state's addresses and input shapes).
     """
     if mesh is None:
         raise ValueError("make_train_step needs a mesh (parallel.make_mesh on an initialized "
@@ -182,11 +242,17 @@ def make_train_step(model: nn.Module, cfg: TrainConfig, branch: str = "shot", me
             preds = module(frame["pc"], frame["desc"], tuple_idx)
         return tuple_loss(preds, frame["pc_canon"], tuple_idx, frame["bound"], cfg.num_bins)
 
+    def body(state, local, us):
+        losses = [frame_loss(state.module, {k: v[i] for k, v in local.items()}, us[i])
+                  for i in range(len(us))]
+        return _update(state, losses, mesh, axis)
+
+    cache: Dict = {}
+
     def train_step(state: TrainState, batch, tuple_u=None, generator=None):
         local = shard_batch(batch, mesh, axis)
         us = _shard_uniforms(tuple_u, generator, len(batch["pc"]), cfg, model.tuple_size, mesh, axis)
-        losses = [frame_loss(state.module, {k: v[i] for k, v in local.items()}, us[i])
-                  for i in range(len(us))]
-        return _data_parallel_step(state, losses, mesh, axis)
+        return _run_step(state, cache, ("step", branch, cfg, model.tuple_size), body, local, us)
 
+    train_step.programs = cache
     return train_step

@@ -10,11 +10,16 @@ Descriptor conventions are those of the frozen-backbone path
 `out_size`, resized to (out_size / stride * 14)^2 for the ViT, tokens
 bilinearly sampled at the cloud's pixels and L2-normalized, so a trained
 backbone drops into the evaluation driver unchanged.
+
+The step is a stateful program, as `loop.make_train_step`'s is: on the card
+one CUDA graph holds the ViT's forward and backward, the branch, the
+all_reduce and the AdamW update, with `backbone_lr_scale` a multiply of the
+backbone's gradients inside it.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -26,8 +31,9 @@ from cppf2_torch.ops.sampling import masked_tuple_choice
 from cppf2_torch.parallel.mesh import shard_batch
 from cppf2_torch.train.loop import (
     TrainState,
-    _data_parallel_step,
+    _run_step,
     _shard_uniforms,
+    _update,
     init_flax_,
     make_optimizer,
     tuple_loss,
@@ -71,6 +77,7 @@ def make_visual_train_step(vit_model: DinoViT, branch_model: nn.Module, cfg: Tra
       pc (B, N, 3), pc_canon (B, N, 3), bound (B, 3), count (B,) int.
     `backbone_lr_scale` scales the backbone's gradients against the head's
     (1.0 trains from scratch; below 1 fine-tunes a given backbone).
+    `train_step.programs` holds the step programs.
     """
     if mesh is None:
         raise ValueError("make_visual_train_step needs a mesh (parallel.make_mesh on an "
@@ -88,13 +95,20 @@ def make_visual_train_step(vit_model: DinoViT, branch_model: nn.Module, cfg: Tra
     def scale(name: str) -> float:
         return backbone_lr_scale if name.startswith("backbone.") else 1.0
 
+    def body(state, local, us):
+        losses = [frame_loss(state.module, {k: v[i] for k, v in local.items()}, us[i])
+                  for i in range(len(us))]
+        return _update(state, losses, mesh, axis, scale if backbone_lr_scale != 1.0 else None)
+
+    cache: Dict = {}
+    key = ("visual step", vit_model.cfg, cfg, out_size, stride, backbone_lr_scale,
+           branch_model.tuple_size)
+
     def train_step(state: TrainState, batch, tuple_u=None, generator=None):
         local = shard_batch(batch, mesh, axis)
         us = _shard_uniforms(tuple_u, generator, len(batch["pc"]), cfg, branch_model.tuple_size,
                              mesh, axis)
-        losses = [frame_loss(state.module, {k: v[i] for k, v in local.items()}, us[i])
-                  for i in range(len(us))]
-        return _data_parallel_step(state, losses, mesh, axis,
-                                   scale if backbone_lr_scale != 1.0 else None)
+        return _run_step(state, cache, key, body, local, us)
 
+    train_step.programs = cache
     return train_step
