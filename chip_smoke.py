@@ -211,6 +211,23 @@ training programs' eager baseline). Phases 11 to 14 run the captured programs:
      phase 8's; the checkpoint restores and the next two steps' losses equal
      those of the state in memory. The graph pool's reserved MiB and the
      raster programs (one per mesh bucket).
+ 15. the accuracy entry points (`cppf2_torch/scripts/`, `examples/`): the
+     seeded ViT-L/14 built on the card (the JAX package's seed-0 init tree,
+     made on the device) and a few of its leaves held to the same function
+     on the CPU (at most 4 ulps, at least 99.9% of their bf16 casts equal;
+     block 0 from a depth-1 tree, which the fold-like split makes the same);
+     `ensemble_benchmark.main` with RESULTS.md's reference flags
+     (`--eval-only ckpts_r3 --shot-ckpts ckpts_r3 --stride 8`: 4096
+     points, 20,000 pairs, 3 restarts, per-branch mug) on 4 frames each of
+     can and mug: per-frame errors beside the first rows of
+     `benchmarks/r5_production/errors_<cat>.npz`, the mug frames' handle
+     visibility equal to r5's, every per-frame unit a program replayed with
+     no eager run, K1 24 a frame and K2 12 an ensemble pass (3 restarts x 4
+     levels), each program's launches accounted for; the first 2 frames of
+     each again through `eval_ensemble`, on the kernel route and all-plain
+     and eager (same picks and handle visibility, R 1 deg, T 3 mm); then
+     `custom_training --quick`, its 150 steps one program replayed: the
+     loss falls, the held-out error printed.
 
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 4 launches of the slice, all through the fused entry at two rows,
@@ -222,7 +239,8 @@ phase 10's int8 paths as `int8_launches`; both carry `replay_launches`,
 what one replay of phase 12's eight-mug frame launches, and
 `serving_replay_launches`, what one replay of each of phase 13's programs
 credits; K1 carries `train_replay_launches`, the launches of phase 14's
-replayed "dino" render trainer), then the card's name and power limit. The last line:
+replayed "dino" render trainer; K1 and K2 carry `accuracy_launches`, phase
+15's ensemble run), then the card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -1652,7 +1670,7 @@ def check_renderers(dev, hw, samples, seed=21):
                                             device=dev.type, z_range=(0.6, 0.8))
     r, t = gen._draw_pose()
     scale = float(rng.uniform(0.15, 0.25))
-    draws = synthetic.draw_frame(1, 2, h * w, True, dev)
+    draws = synthetic.threefry_draws(1, 2, h * w, True, dev)
     cpu = torch.device("cpu")
     rows = {}
     for name in ("splat", "raster"):
@@ -3841,6 +3859,210 @@ def run_training_programs(dev, tmp, records, vit_cfg, eager_ms, backend="nccl", 
     return out
 
 
+@contextlib.contextmanager
+def programs_used():
+    """The programs called inside, found or made: {id: (program, its replays
+    when first called here, whether that call made it)}. The programs of a
+    script's models die with them; this keeps them."""
+    from cppf2_torch.eval import programs
+
+    used, find = {}, programs.program
+
+    def program(cache, key, fn, args, stateful=False):
+        prog = find(cache, key, fn, args, stateful)
+        used.setdefault(id(prog), (prog, prog.replays, prog.graph is None))
+        return prog
+
+    programs.program = program
+    try:
+        yield used
+    finally:
+        programs.program = find
+
+
+def check_seeded_vit(dev):
+    """Phase 15, part 1: the seeded ViT-L/14 extractor (stride 8) built on
+    the card, a few leaves held to the CPU's. Returns (extractor, numbers)."""
+    import torch
+
+    from cppf2_torch.models import dinov2
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ext = dinov2.DinoFeatureExtractor(stride=8, device=dev.type).init_random(hw=(256, 256), seed=0)
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    full = dinov2.init_leaves(dinov2.VIT_L14, 0)
+    # the fold-like split gives block 0 of a depth-1 tree the full tree's block-0 keys
+    one = dinov2.init_leaves(dataclasses.replace(dinov2.VIT_L14, depth=1), 0)
+    leaves = {}
+    for path in (("pos_embed",), ("patch_embed", "kernel"), ("blocks", "attn", "qkv", "kernel"),
+                 ("blocks", "mlp_fc2", "kernel")):
+        maker = full
+        for name in path:
+            maker = maker[name]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = maker(dev)
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        if path[0] == "blocks":
+            cpu_maker = one
+            for name in path:
+                cpu_maker = cpu_maker[name]
+            cpu, card = cpu_maker("cpu")[0], card[0]
+        else:
+            cpu = maker("cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        if path == ("blocks", "attn", "qkv", "kernel"):
+            w = ext.model.blocks[0].attn.qkv.weight
+            if not torch.equal(w, card.t().to(w.dtype)):
+                raise AssertionError("the extractor's block-0 qkv is not the seeded leaf, cast")
+        host = card.cpu()
+        ulps = int((host.view(torch.int32).long() - cpu.view(torch.int32).long()).abs().max())
+        bf16 = float((host.bfloat16() == cpu.bfloat16()).double().mean())
+        if ulps > 4 or bf16 < 0.999:
+            raise AssertionError(f"seeded leaf {'/'.join(path)}: card vs CPU {ulps} ulps, "
+                                 f"{100 * bf16:.3f}% of bf16 casts equal")
+        leaves["/".join(path)] = dict(ulps=ulps, bf16_equal=bf16, card_ms=card_ms, cpu_ms=cpu_ms,
+                                      size=cpu.numel())
+        say(f"[accuracy] seeded leaf {'/'.join(path)} ({cpu.numel()} values): card vs CPU max "
+            f"{ulps} ulps, {100 * bf16:.4f}% of bf16 casts equal; card {card_ms:.1f} ms, CPU "
+            f"{cpu_ms:.1f} ms")
+    say(f"[accuracy] seeded ViT-L/14 extractor (stride 8) built on the card in {build_ms:.1f} ms")
+    return ext, dict(build_ms=build_ms, leaves=leaves)
+
+
+def run_accuracy(dev, tmp, frames=4, plain_frames=2):
+    """Phase 15: the seeded backbone, `ensemble_benchmark.main` with
+    RESULTS.md's reference flags on `frames` frames of can and mug through
+    the programs, the first `plain_frames` again all-plain and eager, and
+    `custom_training --quick`. Returns a dict of the phase's numbers."""
+    import torch
+
+    from cppf2_torch.config import CATEGORIES, PipelineConfig
+    from cppf2_torch.eval import programs
+    from cppf2_torch.examples import custom_training
+    from cppf2_torch.ops import attention, hist16
+    from cppf2_torch.scripts import ensemble_benchmark as eb
+
+    ext, seeded = check_seeded_vit(dev)
+    root = os.path.dirname(os.path.abspath(__file__))
+    ckpts = os.path.join(root, "ckpts_r3")
+    out = os.path.join(tmp, "ensemble")
+    cats = ("can", "mug")
+    zero_counts()
+    t0 = time.perf_counter()
+    with programs_used() as used:
+        summary = eb.main(["--eval-only", ckpts, "--shot-ckpts", ckpts, "--frames", str(frames),
+                           "--stride", "8", "--categories", *cats, "--out", out])
+    run_s = time.perf_counter() - t0
+    counts = read_counts()
+    # (program, replays here, 1 if its first call was here: a warm-up's launches)
+    runs = [(p, p.replays - r0, int(made)) for p, r0, made in used.values()]
+    eager = sum(p.eager_runs for p, _, _ in runs)
+    if eager:
+        raise AssertionError(f"{eager} eager runs of a program in the ensemble run")
+    # every launch of the run is a warm-up's or a replay's of one of its
+    # programs; a program's first call warms up, captures and replays
+    for obj, name in ((attention._MHA, "mha"), (hist16._PEAK, "hist16_peak")):
+        want = sum(p.credited(obj) * (n + made) for p, n, made in runs)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} launches, the programs account for {want}")
+    k1 = [(p.credited(attention._MHA), n) for p, n, _ in runs if p.credited(attention._MHA)]
+    if k1 != [(24, len(cats) * frames)]:
+        raise AssertionError(f"K1 (launches a replay, replays): {k1}, want one extractor program "
+                             f"of 24 replayed {len(cats) * frames} times")
+    # can: the ensemble; mug: the ensemble and each branch alone
+    k2 = [(p.credited(hist16._PEAK), n) for p, n, _ in runs if p.credited(hist16._PEAK)]
+    if k2 != [(12, frames)] * 4:
+        raise AssertionError(f"K2 (launches a replay, replays): {k2}, want 4 ensemble programs of "
+                             f"12 replayed {frames} times")
+    say(f"[accuracy] ensemble_benchmark.main on {frames} frames each of {', '.join(cats)} in "
+        f"{run_s:.1f} s: {len(runs)} programs ({sum(m for _, _, m in runs)} made), "
+        f"{sum(n for _, n, _ in runs)} replays, 0 eager runs; launches K1 {counts['mha']} (24 a "
+        f"frame and the warm-up), K2 {counts['hist16_peak']} (12 an ensemble pass and the "
+        f"warm-ups)")
+
+    rows = {}
+    r5_dir = os.path.join(root, "benchmarks", "r5_production")
+    for cat in cats:
+        got = np.load(os.path.join(out, f"errors_{cat}.npz"))
+        r5 = np.load(os.path.join(r5_dir, f"errors_{cat}.npz"))
+        if not np.array_equal(got["handle_visible"], r5["handle_visible"][:frames]):
+            raise AssertionError(f"{cat}: handle visibility {got['handle_visible'].tolist()}, "
+                                 f"r5 {r5['handle_visible'][:frames].tolist()}")
+        rows[cat] = dict(errs=got["errs"].tolist(), r5_errs=r5["errs"][:frames].tolist(),
+                         picks=got["picks"].tolist(), r5_picks=r5["picks"][:frames].tolist(),
+                         handle_visible=got["handle_visible"].tolist())
+        for i in range(frames):
+            say(f"[accuracy] {cat} frame {i}: {got['errs'][i][0]:.2f} deg {got['errs'][i][1]:.2f} cm "
+                f"pick {int(got['picks'][i])} | r5 (TPU) {r5['errs'][i][0]:.2f} deg "
+                f"{r5['errs'][i][1]:.2f} cm pick {int(r5['picks'][i])} | handle visible "
+                f"{int(got['handle_visible'][i])}")
+
+    # the first frames again through eval_ensemble: the kernel route (its
+    # programs), then every kernel swapped for its plain version, eagerly
+    pipe = PipelineConfig(n_points=4096, num_pairs=20000, restarts=3)
+
+    def ensemble(cat):
+        shot = eb.load_shot_params(ckpts, cat, CATEGORIES[cat], dev.type)
+        dino = eb._load_branch(eb.DinoBranch(tuple_size=CATEGORIES[cat].tuple_size),
+                               os.path.join(ckpts, "dino", cat, "params.msgpack"), dev.type)
+        rows_, _, picks, vis, _, _ = eb.eval_ensemble(cat, shot, dino, ext, plain_frames, pipe, 4096,
+                                                      0, lambda *_: None, per_branch=cat == "mug",
+                                                      device=dev.type)
+        return [r["pred_RTs"][0] for r in rows_], picks.tolist(), vis.tolist()
+
+    kernel = {cat: ensemble(cat) for cat in cats}
+    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
+    attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
+    hist16.hist16_level_peak = hist16.hist16_level_peak_plain
+    zero_counts()
+    t0 = time.perf_counter()
+    try:
+        with programs.disable_capture():
+            plain = {cat: ensemble(cat) for cat in cats}
+    finally:
+        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak = saved
+    plain_s = time.perf_counter() - t0
+    if any(read_counts().values()):
+        raise AssertionError(f"the all-plain run launched kernels: {read_counts()}")
+    for cat in cats:
+        (k_rt, k_picks, k_vis), (p_rt, p_picks, p_vis) = kernel[cat], plain[cat]
+        if k_picks != p_picks or k_vis != p_vis or k_picks != rows[cat]["picks"][:plain_frames]:
+            raise AssertionError(f"{cat}: picks / visibility kernel {k_picks} / {k_vis}, plain "
+                                 f"{p_picks} / {p_vis}, main {rows[cat]['picks'][:plain_frames]}")
+        ang = max(rt_angle_deg(a, b) for a, b in zip(k_rt, p_rt))
+        dt = max(float(np.abs(a[:3, 3] - b[:3, 3]).max()) for a, b in zip(k_rt, p_rt))
+        if ang > 1.0 or dt > 3e-3:
+            raise AssertionError(f"{cat}: kernel vs all-plain route R {ang:.3g} deg, T {dt:.3g} m")
+        rows[cat]["plain_vs_kernel"] = dict(r_deg=ang, t_m=dt)
+    say(f"[accuracy] kernel route against the all-plain eager route on {plain_frames} frames each "
+        f"(plain {plain_s:.1f} s): same picks and handle visibility; "
+        + ", ".join(f"{c} R {rows[c]['plain_vs_kernel']['r_deg']:.3g} deg, T "
+                    f"{1e3 * rows[c]['plain_vs_kernel']['t_m']:.3g} mm" for c in cats))
+
+    t0 = time.perf_counter()
+    with programs_used() as used:
+        quick = custom_training.main(["--quick"])
+    quick_s = time.perf_counter() - t0
+    steps = [p for p, _, made in used.values() if made and p.stateful]
+    if len(steps) != 1 or steps[0].replays != 149 or steps[0].eager_runs:
+        raise AssertionError(f"custom_training --quick: step programs "
+                             f"{[(p.replays, p.eager_runs) for p in steps]}, want one replayed 149 "
+                             f"times")
+    if not quick["loss_last"] < quick["loss_first"] or not np.isfinite(quick["rot_err_deg"]):
+        raise AssertionError(f"custom_training --quick: {quick}")
+    say(f"[accuracy] custom_training --quick in {quick_s:.1f} s: 150 steps, one program replayed "
+        f"149 times; loss {quick['loss_first']:.3f} -> {quick['loss_last']:.3f}; held-out "
+        f"{quick['rot_err_deg']:.2f} deg, {quick['trans_err_cm']:.2f} cm, scale "
+        f"{quick['scale_err_cm']:.2f} cm")
+    return dict(seeded=seeded, summary=summary, run_s=run_s, launches=counts, rows=rows,
+                plain_s=plain_s, quick=quick, quick_s=quick_s)
+
+
 def _groups(dets):
     from cppf2_torch.infer.frontend import auto_crop
 
@@ -3920,6 +4142,9 @@ def main() -> int:
                                                     for b in ("shot", "dino", "dino-e2e")},
                                          VIT_L14, render_train_ms["dino"])
         say(f"[train programs] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        accuracy = run_accuracy(dev, tmp)
+        say(f"[accuracy] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3942,6 +4167,8 @@ def main() -> int:
              # phase 14's "dino" render trainer, every program replayed: 24 a pool
              # frame and a refresh
              train_replay_launches=training["trainer"]["k1"],
+             # phase 15's ensemble run: 24 a frame, and the extractor program's warm-up
+             accuracy_launches=accuracy["launches"]["mha"],
              max_abs_err=max(r["err"] for r in k1),
              ms=k1_main["ms"], plain_ms=k1_main["plain_ms"], bound_ms=k1_main["bound_ms"],
              bound_by="operations", library_ms=k1_main["library_ms"],
@@ -3978,6 +4205,7 @@ def main() -> int:
                  **{f"instance {k}": v["k2"] for k, v in serving["instance"].items()},
                  singles_frame=serving["singles"]["k2"],
                  evaluator_block=serving["evaluator"]["k2_per_block"]),
+             accuracy_launches=accuracy["launches"]["hist16_peak"],
              max_abs_err=max(r["err"] for r in k2 + k2_levels + k2_rows),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],
@@ -4071,6 +4299,11 @@ def main() -> int:
         + f"; render trainer dino ms per step {tr['ms']:.1f} replayed / {tr['eager_ms']:.1f} eager "
         f"(phase 8); graph pool {training['pool_mb']} MiB, {training['raster_programs']} raster "
         f"programs")
+    acc = accuracy["summary"]["per_category"]
+    say("[accuracy] ensemble_benchmark 5deg5cm " + ", ".join(
+        f"{c} {v['deg5cm5']:.2f} {[round(x, 2) for x in v['deg5cm5_ci95']]}" for c, v in acc.items())
+        + f"; mAP 5deg5cm {accuracy['summary']['mean_5deg5cm']:.3f}, IoU50 "
+        f"{accuracy['summary']['mean_iou50']:.3f} (a few frames: a smoke, not the table)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -16,10 +16,9 @@ Shading mirrors the reference's randomized pyrender lighting (dataset.py:
 247-253): a light direction, diffuse intensity and ambient floor per frame,
 and `procedural_albedo`, band-limited value noise over canonical coordinates
 (the stand-in for ShapeNet textures feeding the descriptors, dataset.py:
-394-402). Each random stage is split into a draw and an apply: `draw_lighting`
-/ `draw_albedo` take a torch.Generator, and `sample_lighting` /
-`procedural_albedo` take the drawn numbers, so the tests can pass the numbers
-`jax.random` drew for the reference.
+394-402). Each random stage is split into a draw and an apply:
+`data/synthetic.py::threefry_draws` makes the reference's `jax.random`
+numbers, and `sample_lighting` / `procedural_albedo` take them.
 
 Camera convention: OpenCV (+z forward, x right, y down); objects sit at
 positive z.
@@ -64,17 +63,6 @@ def default_lighting(device="cuda") -> Lighting:
     return Lighting(d / norm(d), torch.full((), 0.85, device=device), torch.full((), 0.15, device=device))
 
 
-def _uniform(shape, lo, hi, generator, device) -> torch.Tensor:
-    return lo + (hi - lo) * torch.rand(shape, generator=generator, device=device)
-
-
-def draw_lighting(generator: torch.Generator, device="cuda"):
-    """(direction (3,) standard normal, intensity U(0.5, 1), ambient U(0.05, 0.3))."""
-    return (torch.randn(3, generator=generator, device=device),
-            _uniform((), 0.5, 1.0, generator, device),
-            _uniform((), 0.05, 0.3, generator, device))
-
-
 def sample_lighting(direction: torch.Tensor, intensity: torch.Tensor,
                     ambient: torch.Tensor) -> Lighting:
     """Per-frame lighting from its draws (reference: dataset.py:247-253
@@ -83,13 +71,6 @@ def sample_lighting(direction: torch.Tensor, intensity: torch.Tensor,
     d = direction / torch.clamp(norm(direction), min=1e-6)
     d = d * torch.where(d[2] > 0, -1.0, 1.0)
     return Lighting(d, intensity, ambient)
-
-
-def draw_albedo(generator: torch.Generator, device="cuda", octaves: int = 4) -> AlbedoDraw:
-    return AlbedoDraw(torch.randn((octaves, 3), generator=generator, device=device),
-                      _uniform((octaves,), 1.5, 3.0, generator, device),
-                      _uniform((octaves,), 0.0, 2 * math.pi, generator, device),
-                      _uniform((octaves,), 0.3, 1.0, generator, device))
 
 
 def procedural_albedo(pos: torch.Tensor, draw: AlbedoDraw) -> torch.Tensor:

@@ -19,28 +19,27 @@ The numpy stream is the reference's, draw for draw: the same seed gives the
 same meshes, poses and scales, and `SyntheticFrameGenerator.rng` is in the
 same state after N frames. The two integers the reference turns into
 `jax.random` keys for each attempt are passed to `draw_fn`, which makes the
-device-side draws (`FrameDraws`); the default draws them from
-torch.Generators seeded with those integers, and the tests pass one that
-reproduces the reference's `jax.random` draws.
+device-side draws (`FrameDraws`). The default, `threefry_draws`, makes the
+reference's own `jax.random` numbers from them (`models/jax_random.py`), so
+a seed gives the JAX package's frames, the gray image included.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from cppf2_torch.config import CategoryConfig
-from cppf2_torch.core.downsample import draw_downsample, voxel_downsample
+from cppf2_torch.core.downsample import voxel_downsample
 from cppf2_torch.core.geometry import backproject_masked, check_pinhole, map_sym
 from cppf2_torch.data.render import (
     NOCS_INTRINSICS,
     AlbedoDraw,
     default_lighting,
-    draw_albedo,
-    draw_lighting,
     procedural_albedo,
     raster_render_depth,
     sample_lighting,
@@ -49,6 +48,7 @@ from cppf2_torch.data.render import (
 from cppf2_torch.data.shapes import make_category_mesh, sample_surface, subdivide_mesh
 from cppf2_torch.device import device_constant, resolve_device
 from cppf2_torch.eval import programs
+from cppf2_torch.models import jax_random as jr
 from cppf2_torch.ops.shot import compute_shot_features
 
 _FLIP = np.diag([-1.0, -1.0, 1.0]).astype(np.float32)  # backproject's x/y flip
@@ -75,22 +75,35 @@ class FrameDraws(NamedTuple):
     """The device-side random numbers of one render attempt."""
     perm: torch.Tensor    # (H*W,) permutation for voxel_downsample
     prio: torch.Tensor    # (H*W,) uniform priorities for voxel_downsample
-    lighting: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # draw_lighting's, or None
+    lighting: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]  # direction, intensity, ambient
     albedo: Optional[AlbedoDraw]   # the texture's numbers, or None
 
 
-def draw_frame(frame_seed: int, light_seed: Optional[int], n_pixels: int, texture: bool,
-               device) -> FrameDraws:
-    """The default `draw_fn`: voxel draws from a generator seeded with
-    `frame_seed`; lighting (and, with `texture`, the albedo) from one seeded
-    with `light_seed`, or none when it is None (default lighting)."""
-    g = torch.Generator(device=device).manual_seed(frame_seed)
-    perm, prio = draw_downsample(n_pixels, device, g)
+def threefry_draws(frame_seed: int, light_seed: Optional[int], n_pixels: int, texture: bool,
+                   device) -> FrameDraws:
+    """The default `draw_fn`: the JAX package's draws from the same two
+    integers (`models/jax_random.py`). key(frame_seed) gives
+    `voxel_downsample`'s permutation and its fold_in(key, 1) priorities;
+    key(light_seed), split in a lighting and an albedo key, gives
+    `sample_lighting`'s draws (split in 3) and `procedural_albedo`'s (split
+    in 4). Uniforms and the permutation equal JAX's to the bit, normals to
+    a few ulps."""
+    key = jr.key(frame_seed)
+    perm = jr.permutation(key, n_pixels, device)
+    prio = jr.uniform(jr.fold_in(key, 1), (n_pixels,), device=device)
     if light_seed is None:
         return FrameDraws(perm, prio, None, None)
-    lg = torch.Generator(device=device).manual_seed(light_seed)
-    lighting = draw_lighting(lg, device)
-    return FrameDraws(perm, prio, lighting, draw_albedo(lg, device) if texture else None)
+    lk, ak = jr.split(jr.key(light_seed))
+    k1, k2, k3 = jr.split(lk, 3)
+    lighting = (jr.normal(k1, (3,), device), jr.uniform(k2, (), 0.5, 1.0, device),
+                jr.uniform(k3, (), 0.05, 0.3, device))
+    if not texture:
+        return FrameDraws(perm, prio, lighting, None)
+    kd, kf, kp, ka = jr.split(ak, 4)
+    albedo = AlbedoDraw(jr.normal(kd, (4, 3), device), jr.uniform(kf, (4,), 1.5, 3.0, device),
+                        jr.uniform(kp, (4,), 0.0, 2 * math.pi, device),
+                        jr.uniform(ka, (4,), 0.3, 1.0, device))
+    return FrameDraws(perm, prio, lighting, albedo)
 
 
 def to_host(frame: SynthFrame, names: Sequence[str]) -> Dict[str, np.ndarray]:
@@ -218,7 +231,7 @@ class SyntheticFrameGenerator:
     require_handle_visible: bool = False
     device: str = "cuda"
     # (frame_seed, light_seed or None, n_pixels, texture, device) -> FrameDraws
-    draw_fn: Callable[..., FrameDraws] = draw_frame
+    draw_fn: Callable[..., FrameDraws] = threefry_draws
 
     def __post_init__(self):
         if self.renderer not in ("splat", "raster"):

@@ -104,6 +104,7 @@ from cppf2_torch.models.dinov2 import (
     load_dinov2_params,
     sample_crop_descriptors,
 )
+from cppf2_torch.models.jax_random import init_branch_
 from cppf2_torch.models.porting import load_beyondcppf_checkpoint, load_branch
 from cppf2_torch.utils.viz import draw_pose_overlay
 
@@ -185,9 +186,10 @@ def load_category_models(ckpt_root: Optional[str], categories: Sequence[str] = N
     else the reference release's Lightning checkpoint
     (`_reference_ckpt_path`, held against its hydra sidecar).
 
-    A branch with none keeps torch's default random init: the pipeline
-    still runs, like the JAX loader's random fallback. The visual branch
-    takes the descriptor width its weights were trained on."""
+    A branch with none gets the JAX loader's random fallback, its init from
+    `jax.random.key(0)` (shot) or `key(1)` (dino) (`models/jax_random.py`):
+    the pipeline still runs. The visual branch takes the descriptor width
+    its weights were trained on."""
     from cppf2_torch.train.checkpoints import latest_checkpoint, restore_params
 
     dev = resolve_device(device)
@@ -211,9 +213,11 @@ def load_category_models(ckpt_root: Optional[str], categories: Sequence[str] = N
             p = trees["dino"].get("params", trees["dino"])
             width = {"desc_dim": p["desc_transform"]["kernel"].shape[0]}
         dino = DinoBranch(tuple_size=cat.tuple_size, compute_dtype=compute_dtype, **width)
-        for branch, module in (("shot", shot), ("dino", dino)):
+        for seed, (branch, module) in enumerate((("shot", shot), ("dino", dino))):
             if branch in trees:
                 load_branch(module, trees[branch])
+            else:
+                init_branch_(module, seed)
         out[name] = CategoryModels(shot.to(dev).eval(), dino.to(dev).eval())
     return out
 

@@ -49,6 +49,7 @@ from torch import nn
 
 from cppf2_torch.core.geometry import norm
 from cppf2_torch.device import device_constant
+from cppf2_torch.models import jax_random
 from cppf2_torch.models.layers import Dense, QDense, lecun_normal_, quantize_kernel
 from cppf2_torch.ops import attention
 from cppf2_torch.ops.voting import take_rows
@@ -238,11 +239,21 @@ class DinoViT(nn.Module):
         self.blocks = nn.ModuleList([Block(cfg) for _ in range(cfg.depth)])
         self.norm = LayerNorm(d)
 
-    def init_random(self, generator: torch.Generator) -> "DinoViT":
-        """Seeded random weights in the JAX init's distributions (flax's
+    def init_random(self, generator: Optional[torch.Generator] = None,
+                    seed: Optional[int] = None) -> "DinoViT":
+        """Seeded random weights. With `seed`, the JAX package's: the init tree
+        `DinoViT(cfg).init(jax.random.key(seed), image)` makes, drawn on the
+        weights' device (`models/jax_random.py`) and carried in. With a
+        `generator`, the same distributions drawn from it (flax's
         `lecun_normal` kernels, a normal truncated at two standard deviations
         with variance 1 / fan_in; zero biases; N(0, 0.02) position
         embedding)."""
+        if (generator is None) == (seed is None):
+            raise ValueError("pass a generator or a seed")
+        if seed is not None:
+            from cppf2_torch.models.porting import load_vit
+
+            return load_vit(self, init_tree(self.cfg, seed, self.pos_embed.device))
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Dense):
@@ -518,6 +529,18 @@ def masked_window_descriptors(model: DinoViT, rgb: torch.Tensor, mask: torch.Ten
     return interpolate_features(grid, kp_xy, (ch, cw), impl=interp_impl)
 
 
+def init_tree(cfg: ViTConfig, seed: int, device="cpu"):
+    """The JAX package's `DinoViT(cfg).init(jax.random.key(seed), image)`
+    parameter tree, made on `device` (`models/jax_random.py`)."""
+    return jax_random.vit_init_tree(cfg, jax_random.key(seed), device)
+
+
+def init_leaves(cfg: ViTConfig, seed: int):
+    """`init_tree`'s leaves one by one: the tree's layout with a function
+    (device -> tensor) at each leaf."""
+    return jax_random.vit_init_leaves(cfg, jax_random.key(seed))
+
+
 def quantize_vit_params(variables, cfg: ViTConfig = VIT_L14):
     """A copy of a DinoViT parameter tree (the JAX layout, numpy leaves, the
     blocks stacked on a depth axis) in the int8 W8A8 layout of
@@ -602,10 +625,16 @@ class DinoFeatureExtractor:
         self.model.cast_for_inference()
         self.ready = True
 
-    def init_random(self, generator: torch.Generator) -> "DinoFeatureExtractor":
-        """Seeded random weights (`DinoViT.init_random`); `generator` lives on
-        the extractor's device."""
-        self.model.init_random(generator)
+    def init_random(self, hw=(256, 256), seed: int = 0) -> "DinoFeatureExtractor":
+        """Seeded random weights, then cast as loaded weights are: the JAX
+        package's `init_random(hw, seed)` tree, made on the extractor's
+        device (no parameter depends on `hw`, the crop it traces with). A
+        torch.Generator in place of `hw` draws the same distributions from
+        it instead (`DinoViT.init_random(generator)`)."""
+        if isinstance(hw, torch.Generator):
+            self.model.init_random(hw)
+        else:
+            self.model.init_random(seed=seed)
         self._cast()
         return self
 

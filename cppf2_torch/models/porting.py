@@ -4,8 +4,9 @@ reference's BeyondCPPF Lightning checkpoints as such trees
 (`port_beyondcppf_state_dict`, `load_beyondcppf_checkpoint`).
 
 A tree is nested dicts of numpy arrays (as `models/checkpoints.py` reads
-them from disk, or as `jax.device_get` returns them), with or without the
-top-level "params" key. Two layout facts drive the mapping:
+them from disk, or as `jax.device_get` returns them) or of tensors (a
+seeded init tree made on the device, `models/jax_random.py`), with or
+without the top-level "params" key. Two layout facts drive the mapping:
   * a flax Dense kernel is (in, out); a torch Linear weight is (out, in);
   * the ViT's `blocks` leaves carry a leading depth axis (flax `nn.scan`),
     unstacked here into one module per block.
@@ -25,12 +26,20 @@ import torch
 from torch import nn
 
 
+def _leaf(x):
+    """A float leaf: a tensor as it is, anything else as a float32 array."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x, np.float32)
+
+
 def _params(tree: Dict[str, Any]) -> Dict[str, Any]:
     return tree["params"] if "params" in tree else tree
 
 
 def _set(param: torch.Tensor, value) -> None:
-    value = torch.from_numpy(np.array(value, dtype=np.float32))
+    if isinstance(value, torch.Tensor):   # a tree made on a device (models/jax_random.py)
+        value = value.float()
+    else:
+        value = torch.from_numpy(np.array(value, dtype=np.float32))
     if tuple(param.shape) != tuple(value.shape):
         raise ValueError(f"shape mismatch: module {tuple(param.shape)} vs tree {tuple(value.shape)}")
     with torch.no_grad():
@@ -38,15 +47,16 @@ def _set(param: torch.Tensor, value) -> None:
 
 
 def _dense(lin: nn.Linear, p: Dict[str, Any]) -> None:
-    _set(lin.weight, np.asarray(p["kernel"], np.float32).T)
+    _set(lin.weight, _leaf(p["kernel"]).T)
     _set(lin.bias, p["bias"])
 
 
 def _qdense(lin: nn.Module, p: Dict[str, Any]) -> None:
     """A Dense / QDense from a flax kernel (in, out), float or int8 codes,
     with `qscale` where the tree has one. Int8 codes need a QDense."""
-    kernel = np.asarray(p["kernel"])
-    if kernel.dtype == np.int8:
+    kernel = p["kernel"]
+    if not isinstance(kernel, torch.Tensor) and np.asarray(kernel).dtype == np.int8:
+        kernel = np.asarray(kernel)
         if not hasattr(lin, "set_int8"):
             raise ValueError("an int8 kernel needs a ViTConfig with quant='int8'")
         lin.set_int8(kernel.T, p["qscale"])
@@ -85,7 +95,7 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     the port's `DinoViT` in place."""
     p = _params(tree)
     d = module.cfg.embed_dim
-    _set(module.patch_embed.weight, np.asarray(p["patch_embed"]["kernel"], np.float32).reshape(-1, d).T)
+    _set(module.patch_embed.weight, _leaf(p["patch_embed"]["kernel"]).reshape(-1, d).T)
     _set(module.patch_embed.bias, p["patch_embed"]["bias"])
     _set(module.cls_token, p["cls_token"])
     _set(module.pos_embed, p["pos_embed"])
@@ -94,7 +104,7 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     blk = p["blocks"]
     for i, b in enumerate(module.blocks):
         def at(x, i=i):
-            return np.asarray(x, np.float32)[i]
+            return _leaf(x)[i]
 
         for name in ("norm1", "norm2"):
             ln = getattr(b, name)
@@ -104,7 +114,8 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         _set(b.ls2, at(blk["ls2"]))
         for lin, src in ((b.attn.qkv, blk["attn"]["qkv"]), (b.attn.proj, blk["attn"]["proj"]),
                          (b.mlp_fc1, blk["mlp_fc1"]), (b.mlp_fc2, blk["mlp_fc2"])):
-            _qdense(lin, {k: np.asarray(v)[i] for k, v in src.items()})
+            _qdense(lin, {k: v[i] if isinstance(v, torch.Tensor) else np.asarray(v)[i]
+                          for k, v in src.items()})
     return module
 
 

@@ -7,6 +7,7 @@ from cppf2_torch.parallel.mesh import (
     replicate,
     shard_batch,
     tuple_sharded_sphere_vote,
+    world_of_one,
 )
 
 __all__ = [
@@ -18,4 +19,5 @@ __all__ = [
     "replicate",
     "shard_batch",
     "tuple_sharded_sphere_vote",
+    "world_of_one",
 ]

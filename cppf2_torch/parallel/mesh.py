@@ -12,13 +12,16 @@ crosses `dcn` (the layout rule of the JAX package: the slow axis carries
 independent images, the fast one the reductions).
 
 Every function raises when no process group is initialized: a world of one
-is started explicitly, never implied.
+is started explicitly (`world_of_one`), never implied.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
+import shutil
+import tempfile
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -32,6 +35,32 @@ def _require_group() -> None:
     if not (dist.is_available() and dist.is_initialized()):
         raise RuntimeError("no torch.distributed process group is initialized: call "
                            "torch.distributed.init_process_group first (a world of one is fine)")
+
+
+@contextlib.contextmanager
+def world_of_one(device="cuda"):
+    """A process group for the body: the one a launcher (torchrun, which
+    sets RANK and WORLD_SIZE) describes, or else a world of one over a
+    FileStore in a temporary directory (NCCL on CUDA, gloo on the CPU). A
+    group that is already initialized is used as it is; one started here is
+    destroyed after the body."""
+    if dist.is_initialized():
+        yield
+        return
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend)
+        tmp = None
+    else:
+        tmp = tempfile.mkdtemp(prefix="cppf2_world_")
+        dist.init_process_group(backend, store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                                rank=0, world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+        if tmp is not None:
+            shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _init_mesh(shape: Sequence[int], names: Sequence[str], device):

@@ -27,7 +27,6 @@ import argparse
 import dataclasses
 import json
 import os
-import tempfile
 import time
 from typing import Optional, Tuple
 
@@ -42,7 +41,7 @@ from cppf2_torch.infer.frontend import mask_bbox, resize_crop
 from cppf2_torch.models.cppf import DinoBranch, ShotBranch
 from cppf2_torch.models.dinov2 import (VIT_S14, DinoFeatureExtractor, DinoViT, ViTConfig,
                                        save_backbone)
-from cppf2_torch.parallel.mesh import axis_size, make_mesh
+from cppf2_torch.parallel.mesh import axis_size, make_mesh, world_of_one
 from cppf2_torch.train.checkpoints import (
     export_params_msgpack,
     latest_checkpoint,
@@ -114,9 +113,10 @@ def train_category(
     `SyntheticFrameGenerator(cat, n_max=n_points, height, width = render_hw,
     seed=cfg.seed)` and every replacement is a newly rendered frame; the
     "dino" branch stores each frame's descriptors from `dino_extractor`, by
-    default a fixed random ViT-L/14 `DinoFeatureExtractor` at stride 4
-    seeded with cfg.seed (no DINOv2 weights ship with the repo; a fixed
-    backbone still gives consistent features), and "dino-e2e" stores the
+    default a fixed random ViT-L/14 `DinoFeatureExtractor` at stride 4, the
+    JAX package's `init_random(hw=(256, 256), seed=cfg.seed)` (no DINOv2
+    weights ship with the repo; a fixed backbone still gives consistent
+    features), and "dino-e2e" stores the
     crop and the cloud's pixels in it. With `records`, a container written by
     `data/records.py` with the fields pc, pc_canon, bound, count and the
     branch's features (shot + normal; desc; or crop + kp), the pool holds
@@ -151,8 +151,8 @@ def train_category(
                                         width=render_hw[1], seed=cfg.seed, device=device)
         if branch == "dino" and dino_extractor is None:
             progress("[train] no DINOv2 weights given: using a fixed random backbone")
-            dino_extractor = DinoFeatureExtractor(device=device).init_random(
-                torch.Generator(device=synth.device).manual_seed(cfg.seed))
+            dino_extractor = DinoFeatureExtractor(device=device).init_random(hw=(256, 256),
+                                                                             seed=cfg.seed)
 
         def next_frame(rng=None):   # rendered from the generator's own stream
             f = synth.next_frame()
@@ -171,7 +171,6 @@ def train_category(
     def to_batch(frames):
         return {k: np.stack([f[k] for f in frames]) for k in keys}
 
-    gen = torch.Generator().manual_seed(cfg.seed)
     if branch == "dino-e2e":
         if vit_cfg is None:
             # position grid = the training token grid: no bicubic resample in
@@ -185,12 +184,12 @@ def train_category(
         model = DinoBranch(tuple_size=cat.tuple_size, num_bins=cfg.num_bins, desc_dim=desc_dim)
     if branch == "dino-e2e":
         vit_model = DinoViT(vit_cfg)
-        state = create_visual_train_state(vit_model, model, cfg, gen, device=device)
+        state = create_visual_train_state(vit_model, model, cfg, device=device, seed=cfg.seed)
         step_fn = make_visual_train_step(vit_model, model, cfg, out_size=e2e_out_size,
                                          stride=e2e_stride, backbone_lr_scale=backbone_lr_scale,
                                          mesh=mesh)
     else:
-        state = create_train_state(model, cfg, gen, device=device)
+        state = create_train_state(model, cfg, device=device, seed=cfg.seed)
         step_fn = make_train_step(model, cfg, branch=branch, mesh=mesh)
     if out_dir and resume:
         last = latest_checkpoint(out_dir)
@@ -263,26 +262,10 @@ def main(argv=None):
         tuples_per_step=args.tuples, n_points=args.n_points, seed=args.seed,
     )
     out = args.out or f"ckpts/{args.branch}/{args.category}"
-    started = None
-    if not dist.is_initialized():
-        # a launcher (torchrun) sets RANK and WORLD_SIZE; alone, a world of one
-        backend = "nccl" if args.device == "cuda" else "gloo"
-        if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
-            dist.init_process_group(backend)
-        else:
-            started = tempfile.mkdtemp(prefix="cppf2_train_")
-            dist.init_process_group(backend, store=dist.FileStore(os.path.join(started, "store"), 1),
-                                    rank=0, world_size=1)
-    try:
+    with world_of_one(args.device):   # a launcher's group (torchrun), or alone a world of one
         train_category(args.category, args.branch, cfg, out, n_points=args.n_points,
                        records=args.records, backbone_lr_scale=args.backbone_lr_scale,
                        device=args.device)
-    finally:
-        if started is not None:
-            dist.destroy_process_group()
-            import shutil
-
-            shutil.rmtree(started, ignore_errors=True)
 
 
 if __name__ == "__main__":

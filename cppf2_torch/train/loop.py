@@ -42,6 +42,7 @@ from cppf2_torch.config import TrainConfig
 from cppf2_torch.core.binning import real2prob
 from cppf2_torch.device import resolve_device
 from cppf2_torch.eval import programs
+from cppf2_torch.models.jax_random import init_branch_
 from cppf2_torch.models.layers import Dense, lecun_normal_
 from cppf2_torch.ops.sampling import masked_tuple_choice
 from cppf2_torch.parallel.mesh import axis_size, rank_device, shard_batch
@@ -109,12 +110,17 @@ def init_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
 
 def create_train_state(model: nn.Module, cfg: TrainConfig,
-                       generator: Optional[torch.Generator] = None, device="cuda") -> TrainState:
-    """Step 0 of training `model` on `device`. With a generator the weights
-    are drawn anew (`init_flax_`); without one the model trains on from the
-    weights it holds."""
+                       generator: Optional[torch.Generator] = None, device="cuda",
+                       seed: Optional[int] = None) -> TrainState:
+    """Step 0 of training `model` on `device`. With `seed` the weights are
+    the JAX package's `create_train_state(model, ..., jax.random.key(seed))`
+    init (`init_branch_`); with a generator they are drawn anew from it
+    (`init_flax_`); with neither the model trains on from the weights it
+    holds."""
     dev = resolve_device(device)
-    if generator is not None:
+    if seed is not None:
+        init_branch_(model, seed)
+    elif generator is not None:
         init_flax_(model, generator)
     model = model.to(dev).train()
     opt, sched = make_optimizer(cfg, model.parameters())

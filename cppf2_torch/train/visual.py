@@ -26,7 +26,10 @@ from torch import nn
 
 from cppf2_torch.config import TrainConfig
 from cppf2_torch.device import resolve_device
+from cppf2_torch.models import jax_random
+from cppf2_torch.models.jax_random import init_branch_
 from cppf2_torch.models.dinov2 import DinoViT, interpolate_features, resize_bilinear_matmul
+from cppf2_torch.models.porting import load_vit
 from cppf2_torch.ops.sampling import masked_tuple_choice
 from cppf2_torch.parallel.mesh import shard_batch
 from cppf2_torch.train.loop import (
@@ -53,11 +56,18 @@ class VisualModel(nn.Module):
 
 def create_visual_train_state(vit_model: DinoViT, branch_model: nn.Module, cfg: TrainConfig,
                               generator: Optional[torch.Generator] = None,
-                              device="cuda") -> TrainState:
-    """Step 0 of training the pair. With a generator both are drawn anew in
-    the JAX init's distributions; without one they train on from their weights."""
+                              device="cuda", seed: Optional[int] = None) -> TrainState:
+    """Step 0 of training the pair. With `seed` both get the JAX package's
+    init (`create_visual_train_state(..., jax.random.key(seed))`: the key
+    split in two, the backbone's tree from the first, the head's from the
+    second); with a generator both are drawn anew from it in the same
+    distributions; with neither they train on from their weights."""
     dev = resolve_device(device)
-    if generator is not None:
+    if seed is not None:
+        k_vit, k_head = jax_random.split(jax_random.key(seed))
+        load_vit(vit_model, jax_random.vit_init_tree(vit_model.cfg, k_vit, dev))
+        init_branch_(branch_model, k_head)
+    elif generator is not None:
         vit_model.init_random(generator)
         init_flax_(branch_model, generator)
     model = VisualModel(vit_model, branch_model).to(dev).train()

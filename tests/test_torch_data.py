@@ -390,14 +390,14 @@ def test_batch_and_default_draws():
     for k in ("pc", "count", "bound"):
         np.testing.assert_array_equal(got[k], want[k])
     np.testing.assert_allclose(got["pc_canon"], want["pc_canon"], atol=1e-5)
-    a = tsynth.draw_frame(5, 6, 100, True, "cpu")
-    b = tsynth.draw_frame(5, 6, 100, True, "cpu")
+    a = tsynth.threefry_draws(5, 6, 100, True, "cpu")
+    b = tsynth.threefry_draws(5, 6, 100, True, "cpu")
     for x, y in zip([a.perm, a.prio, *a.lighting, *a.albedo], [b.perm, b.prio, *b.lighting, *b.albedo]):
         assert torch.equal(x, y)
     assert torch.equal(torch.sort(a.perm).values, torch.arange(100))
     assert a.albedo.directions.shape == (4, 3)
-    assert tsynth.draw_frame(5, None, 100, True, "cpu").lighting is None
-    assert tsynth.draw_frame(5, 6, 100, False, "cpu").albedo is None
+    assert tsynth.threefry_draws(5, None, 100, True, "cpu").lighting is None
+    assert tsynth.threefry_draws(5, 6, 100, False, "cpu").albedo is None
 
 
 def test_dump_rendered_frames_read_by_jax(tmp_path):

@@ -38,12 +38,19 @@ def test_every_module_imports_with_jax_blocked():
         last_slice = {{"cppf2_torch.native", "cppf2_torch.data.converters",
                        "cppf2_torch.eval.png"}}
         assert last_slice <= set(names), last_slice - set(names)
+        # the seeded streams and the accuracy entry points, which stand in
+        # for the JAX package's scripts and example
+        accuracy = {{"cppf2_torch.models.jax_random", "cppf2_torch.scripts",
+                     "cppf2_torch.scripts.ensemble_benchmark",
+                     "cppf2_torch.scripts.synthetic_benchmark", "cppf2_torch.examples",
+                     "cppf2_torch.examples.custom_training"}}
+        assert accuracy <= set(names), accuracy - set(names)
         print(len(names))
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 56
+    assert int(out.stdout.strip()) >= 63
 
 
 def _imports(path: pathlib.Path):
