@@ -7,7 +7,7 @@ Phases, each printing its own lines; any failure exits non-zero. Phases 3
 to 10 run the driver's programs eagerly (`programs.disable_capture()`), as
 they ran before the programs were captured: their plain swaps, stage timers
 and recorded kernel inputs need the eager route (phases 7 and 8 are the
-training programs' eager baseline). Phases 11 to 14 run the captured programs:
+training programs' eager baseline). Phases 11 to 16 run the captured programs:
   1. the card (nvidia-smi name and power limit) and the kernel build: every
      `cppf2_torch/csrc/*.cu` compiled with nvcc for sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the same inputs on the
@@ -228,6 +228,18 @@ training programs' eager baseline). Phases 11 to 14 run the captured programs:
      and eager (same picks and handle visibility, R 1 deg, T 3 mm); then
      `custom_training --quick`, its 150 steps one program replayed: the
      loss falls, the held-out error printed.
+ 16. the accuracy studies (`cppf2_torch/scripts/`): `config_validation`
+     on can, {approx, exact} kNN x {bf16, f32} on 2 frames (4096 points,
+     20,000 pairs, ckpts_r2); `budget_study` at budgets 4096 and 16384 on
+     2 close-range frames (the occupancy program first; the peak device
+     memory of each budget); `dtype_check` on 2 frames (8192 points, 50,000
+     pairs); every unit a program replayed with no eager run, each pose
+     program 4 K2 launches a replay (one a pyramid level), no K1, every
+     launch accounted for; then one pose of each study again on the kernel
+     route (its programs) and all-plain and eager (R 1 deg, T 3 mm; a
+     single-branch pass picks no branch); then `ablation_analysis` on the
+     recorded round-4 mug yaw npz (its transition matrix covers the 100
+     frames).
 
 Before the last line: one JSON object with every kernel's numbers (K2 is one
 row: the 4 launches of the slice, all through the fused entry at two rows,
@@ -240,7 +252,8 @@ what one replay of phase 12's eight-mug frame launches, and
 `serving_replay_launches`, what one replay of each of phase 13's programs
 credits; K1 carries `train_replay_launches`, the launches of phase 14's
 replayed "dino" render trainer; K1 and K2 carry `accuracy_launches`, phase
-15's ensemble run), then the card's name and power limit. The last line:
+15's ensemble run; K2 carries `study_launches`, phase 16's three studies),
+then the card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
 
@@ -3859,27 +3872,6 @@ def run_training_programs(dev, tmp, records, vit_cfg, eager_ms, backend="nccl", 
     return out
 
 
-@contextlib.contextmanager
-def programs_used():
-    """The programs called inside, found or made: {id: (program, its replays
-    when first called here, whether that call made it)}. The programs of a
-    script's models die with them; this keeps them."""
-    from cppf2_torch.eval import programs
-
-    used, find = {}, programs.program
-
-    def program(cache, key, fn, args, stateful=False):
-        prog = find(cache, key, fn, args, stateful)
-        used.setdefault(id(prog), (prog, prog.replays, prog.graph is None))
-        return prog
-
-    programs.program = program
-    try:
-        yield used
-    finally:
-        programs.program = find
-
-
 def check_seeded_vit(dev):
     """Phase 15, part 1: the seeded ViT-L/14 extractor (stride 8) built on
     the card, a few leaves held to the CPU's. Returns (extractor, numbers)."""
@@ -3954,14 +3946,14 @@ def run_accuracy(dev, tmp, frames=4, plain_frames=2):
     cats = ("can", "mug")
     zero_counts()
     t0 = time.perf_counter()
-    with programs_used() as used:
+    with programs.recorded() as used:
         summary = eb.main(["--eval-only", ckpts, "--shot-ckpts", ckpts, "--frames", str(frames),
                            "--stride", "8", "--categories", *cats, "--out", out])
     run_s = time.perf_counter() - t0
     counts = read_counts()
     # (program, replays here, 1 if its first call was here: a warm-up's launches)
-    runs = [(p, p.replays - r0, int(made)) for p, r0, made in used.values()]
-    eager = sum(p.eager_runs for p, _, _ in runs)
+    runs = [(p, p.replays - r0, int(made)) for p, r0, _, made in used.values()]
+    eager = sum(p.eager_runs - e0 for p, _, e0, _ in used.values())
     if eager:
         raise AssertionError(f"{eager} eager runs of a program in the ensemble run")
     # every launch of the run is a warm-up's or a replay's of one of its
@@ -4045,10 +4037,10 @@ def run_accuracy(dev, tmp, frames=4, plain_frames=2):
                     f"{1e3 * rows[c]['plain_vs_kernel']['t_m']:.3g} mm" for c in cats))
 
     t0 = time.perf_counter()
-    with programs_used() as used:
+    with programs.recorded() as used:
         quick = custom_training.main(["--quick"])
     quick_s = time.perf_counter() - t0
-    steps = [p for p, _, made in used.values() if made and p.stateful]
+    steps = [p for p, _, _, made in used.values() if made and p.stateful]
     if len(steps) != 1 or steps[0].replays != 149 or steps[0].eager_runs:
         raise AssertionError(f"custom_training --quick: step programs "
                              f"{[(p.replays, p.eager_runs) for p in steps]}, want one replayed 149 "
@@ -4061,6 +4053,163 @@ def run_accuracy(dev, tmp, frames=4, plain_frames=2):
         f"{quick['scale_err_cm']:.2f} cm")
     return dict(seeded=seeded, summary=summary, run_s=run_s, launches=counts, rows=rows,
                 plain_s=plain_s, quick=quick, quick_s=quick_s)
+
+
+STUDY_FRAMES = 2
+
+
+def run_studies(dev, tmp, frames=STUDY_FRAMES):
+    """Phase 16: `config_validation`, `budget_study` and `dtype_check` on
+    `frames` frames of can through their programs, one pose of each again
+    on the kernel route and all-plain and eager, and `ablation_analysis` on
+    the recorded yaw npz. Returns a dict of the phase's numbers."""
+    import io
+
+    import torch
+
+    from cppf2_torch.config import CATEGORIES, PipelineConfig
+    from cppf2_torch.data.synthetic import SyntheticFrameGenerator
+    from cppf2_torch.eval import programs
+    from cppf2_torch.models.checkpoints import load_params_msgpack
+    from cppf2_torch.models.cppf import ShotBranch
+    from cppf2_torch.models.porting import load_branch
+    from cppf2_torch.ops import attention, hist16
+    from cppf2_torch.scripts import (ablation_analysis, budget_study, config_validation,
+                                     dtype_check)
+    from cppf2_torch.scripts.synthetic_benchmark import pose_study
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    r2, r1 = os.path.join(root, "ckpts_r2"), os.path.join(root, "ckpts")
+    n = str(frames)
+    secs, out = {}, {}
+    zero_counts()
+    t_all = time.perf_counter()
+    with programs.recorded() as used:
+        t0 = time.perf_counter()
+        out["config_validation"] = config_validation.main([
+            "--categories", "can", "--frames", n, "--ckpts", r2, "--out",
+            os.path.join(tmp, "config_validation.json"), "--device", dev.type])["can"]
+        secs["config_validation"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["budget_study"] = budget_study.main([
+            "--category", "can", "--frames", n, "--budgets", "4096", "16384", "--ckpts", r1,
+            "--out", os.path.join(tmp, "budget_study.json"), "--device", dev.type])
+        secs["budget_study"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        dtypes = dtype_check.main(["--category", "can", "--frames", n, "--ckpts", r2, "--device",
+                                   dev.type])
+        out["dtype_check"] = {dt: e.tolist() for dt, e in dtypes.items()}
+        secs["dtype_check"] = time.perf_counter() - t0
+    run_s = time.perf_counter() - t_all
+    counts = read_counts()
+    runs = [(p, p.replays - r0, int(made)) for p, r0, _, made in used.values()]
+    eager = sum(p.eager_runs - e0 for p, _, e0, _ in used.values())
+    if eager:
+        raise AssertionError(f"{eager} eager runs of a program in the studies")
+    for obj, name in ((attention._MHA, "mha"), (hist16._PEAK, "hist16_peak")):
+        want = sum(p.credited(obj) * (r + made) for p, r, made in runs)
+        if counts[name] != want:
+            raise AssertionError(f"{name}: {counts[name]} launches, the programs account for {want}")
+    if counts["mha"]:
+        raise AssertionError(f"the studies launched K1 {counts['mha']} times")
+    # config_validation: a bf16 and an f32 program, each for approx and exact;
+    # budget_study: one a budget; dtype_check: one a dtype
+    k2 = sorted((p.credited(hist16._PEAK), r) for p, r, _ in runs if p.credited(hist16._PEAK))
+    if k2 != sorted([(4, 2 * frames)] * 2 + [(4, frames)] * 4):
+        raise AssertionError(f"K2 (launches a replay, replays): {k2}, want 6 pose programs of 4")
+    made = sum(m for _, _, m in runs)
+    say(f"[studies] config_validation {secs['config_validation']:.1f} s, budget_study "
+        f"{secs['budget_study']:.1f} s, dtype_check {secs['dtype_check']:.1f} s on {frames} frames "
+        f"each: {len(runs)} programs ({made} made), {sum(r for _, r, _ in runs)} replays, 0 eager "
+        f"runs; K2 {counts['hist16_peak']} launches (4 a pose and the warm-ups), K1 0")
+    for key, r in out["config_validation"].items():
+        say(f"[studies] config_validation can {key}: {r['median_deg']:.2f} deg, {r['median_cm']:.2f} "
+            f"cm, 5deg5cm {r['deg5cm5']:.2f}")
+    bs = out["budget_study"]
+    say(f"[studies] budget_study occupied voxels median {bs['median_occupied_voxels']}, max "
+        f"{bs['max_occupied_voxels']}; " + "; ".join(
+            f"{b}: {r['median_deg']:.2f} deg, kept {r['mean_kept_fraction']:.3f}, {r['sec']} s"
+            for b, r in bs["budgets"].items()))
+
+    # one pose of each study on the kernel route (its programs), then with
+    # every kernel swapped for its plain version, eagerly
+    can = CATEGORIES["can"]
+    cases = {}
+    models = config_validation.shot_models(os.path.join(r2, "shot", "can", "params.msgpack"), can,
+                                           dev)
+    gen = SyntheticFrameGenerator(can, n_max=4096, shot_k=48, seed=77, device=dev)
+    cases["config_validation approx bf16"] = (models["bfloat16"], gen, PipelineConfig(
+        n_points=4096, num_pairs=20000), 1000)
+    close = SyntheticFrameGenerator(can, n_max=16384, shot_k=48, seed=77, z_range=(0.6, 0.9),
+                                    device=dev)
+    shot = load_branch(ShotBranch(tuple_size=can.tuple_size), load_params_msgpack(
+        os.path.join(r1, "shot", "can", "params.msgpack"))).to(dev).eval()
+    cases["budget_study 16384"] = (shot, close, PipelineConfig(n_points=16384, num_pairs=20000),
+                                   1000)
+    gen123 = SyntheticFrameGenerator(can, n_max=8192, shot_k=48, seed=123, device=dev)
+    cases["dtype_check f32"] = (models["float32"], gen123, PipelineConfig(num_pairs=50000), 500)
+    frame = {name: g.next_frame() for name, (_, g, _, _) in cases.items()}
+
+    def poses():
+        rts, ms = {}, {}
+        for name, (m, g, pipe, base) in cases.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rts[name] = pose_study(m, [frame[name]], g.intrinsics, "can", pipe, pipe.n_points,
+                                   seed_base=base, device=dev)[1][0][0]
+            ms[name] = (time.perf_counter() - t0) * 1e3   # pose_study reads the pose back
+        return rts, ms
+
+    # the first call captures the frontend and pose programs, the second replays them
+    kernel, first_ms = poses()
+    again, replay_ms = poses()
+    for name in cases:
+        if not np.array_equal(kernel[name], again[name]):
+            raise AssertionError(f"{name}: a replay differs from the first call")
+        say(f"[studies] {name}: a frame's frontend and pose first call {first_ms[name]:.1f} ms, "
+            f"replayed {replay_ms[name]:.1f} ms")
+    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
+    attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
+    hist16.hist16_level_peak = hist16.hist16_level_peak_plain
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        with programs.disable_capture():
+            plain, plain_ms = poses()
+    finally:
+        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak = saved
+    plain_s = time.perf_counter() - t0
+    plain_peak_mib = torch.cuda.max_memory_allocated(dev) / 2**20
+    if any(read_counts().values()):
+        raise AssertionError(f"the all-plain run launched kernels: {read_counts()}")
+    routes = {}
+    for name in cases:
+        ang = rt_angle_deg(kernel[name], plain[name])
+        dt = float(np.abs(kernel[name][:3, 3] - plain[name][:3, 3]).max())
+        if ang > 1.0 or dt > 3e-3:
+            raise AssertionError(f"{name}: kernel vs all-plain route R {ang:.3g} deg, T {dt:.3g} m")
+        routes[name] = dict(r_deg=ang, t_m=dt)
+    say(f"[studies] kernel route against the all-plain eager route, one pose each (plain "
+        f"{plain_s:.1f} s, peak {plain_peak_mib:.1f} MiB allocated): " + ", ".join(
+            f"{k} R {v['r_deg']:.3g} deg, T {1e3 * v['t_m']:.3g} mm" for k, v in routes.items()))
+
+    npz = os.path.join(root, "benchmarks", "r4_yaw_mug", "errors_mug.npz")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        ablation_analysis.main([npz])
+    text = buf.getvalue()
+    lines = text.splitlines()
+    fixed, broken = (int(lines[3].split()[i]) for i in (1, 3))
+    matrix = sum(int(x) for line in lines[-5:] for x in line.split()[1:])
+    if not lines[0].startswith("treatment yaw_sweep_True:") or matrix != 100:
+        raise AssertionError(f"ablation_analysis on {npz}: {text!r}")
+    say(f"[studies] ablation_analysis on the recorded yaw npz: fixed {fixed}, broken {broken}, "
+        f"net {fixed - broken:+d} frames; the transition matrix covers {matrix} frames")
+    return dict(out=out, secs=secs, run_s=run_s, launches=counts, programs=len(runs), made=made,
+                routes=routes, plain_s=plain_s, plain_peak_mib=plain_peak_mib, first_ms=first_ms,
+                replay_ms=replay_ms, plain_ms=plain_ms,
+                ablation=dict(fixed=fixed, broken=broken))
 
 
 def _groups(dets):
@@ -4108,7 +4257,7 @@ def main() -> int:
     try:
         # phases 3 to 10 run the eager route, as they did before the programs
         # (their plain swaps, stage timers and recorded inputs need it); phases
-        # 11 to 14 run the captured programs
+        # 11 to 16 run the captured programs
         with programs.disable_capture():
             launches, e2e_ms, k2_levels = run_slice(dev, pipe, VIT_L14)
             t_phase = time.perf_counter()
@@ -4145,6 +4294,9 @@ def main() -> int:
         t_phase = time.perf_counter()
         accuracy = run_accuracy(dev, tmp)
         say(f"[accuracy] the phase took {time.perf_counter() - t_phase:.1f} s")
+        t_phase = time.perf_counter()
+        studies = run_studies(dev, tmp)
+        say(f"[studies] the phase took {time.perf_counter() - t_phase:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4206,6 +4358,8 @@ def main() -> int:
                  singles_frame=serving["singles"]["k2"],
                  evaluator_block=serving["evaluator"]["k2_per_block"]),
              accuracy_launches=accuracy["launches"]["hist16_peak"],
+             # phase 16's studies: 4 a pose, and the pose programs' warm-ups
+             study_launches=studies["launches"]["hist16_peak"],
              max_abs_err=max(r["err"] for r in k2 + k2_levels + k2_rows),
              ms=k2_level["ms"], plain_ms=k2_level["plain_ms"], bound_ms=k2_level["bound_ms"],
              bound_by=k2_level["bound_by"], library_ms=None, device_ms=k2_level["device_ms"],

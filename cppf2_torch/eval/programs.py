@@ -75,6 +75,7 @@ _disabled = 0
 _pools: Dict[int, Any] = {}   # device index -> the graph memory pool its programs share
 _anchors: Dict[int, Any] = {}  # device index -> the graph that keeps that pool in use
 _running: List[Any] = []      # the key of the program whose body runs now, if one does
+_recorders: List[Dict] = []   # the open `recorded()` blocks
 
 
 @contextlib.contextmanager
@@ -90,6 +91,20 @@ def disable_capture():
 
 def capture_enabled() -> bool:
     return _disabled == 0
+
+
+@contextlib.contextmanager
+def recorded():
+    """The programs called inside, found or made: {id: (program, its replays
+    and its eager runs when first called here, whether that call made it)}.
+    A script's models, and so their programs, may die when it returns; this
+    keeps them."""
+    used: Dict[int, Tuple[Any, int, int, bool]] = {}
+    _recorders.append(used)
+    try:
+        yield used
+    finally:
+        del _recorders[next(i for i, u in enumerate(_recorders) if u is used)]
 
 
 def weights(*modules) -> tuple:
@@ -277,4 +292,6 @@ def program(cache: Dict, key, fn: Callable, args, stateful: bool = False) -> Pro
     prog = cache.get(full)
     if prog is None:
         prog = cache[full] = Program(full, fn, stateful)
+    for used in _recorders:
+        used.setdefault(id(prog), (prog, prog.replays, prog.eager_runs, prog.graph is None))
     return prog

@@ -109,13 +109,12 @@ def _axis_rotations(deltas: torch.Tensor, axis: int) -> torch.Tensor:
     """(..., 3, 3) rotations by `deltas` (...) radians about canonical axis `axis`."""
     c, s = torch.cos(deltas), torch.sin(deltas)
     i, j = [k for k in range(3) if k != axis]
-    rots = torch.zeros(deltas.shape + (3, 3), dtype=deltas.dtype, device=deltas.device)
-    rots[..., axis, axis] = 1.0
-    rots[..., i, i] = c
-    rots[..., j, j] = c
-    rots[..., i, j] = -s
-    rots[..., j, i] = s
-    return rots
+    # stacked, not assigned: a Python scalar written into a slice is a host
+    # tensor copied to the device, which a program's capture refuses
+    m = [[torch.zeros_like(c)] * 3 for _ in range(3)]
+    m[axis][axis] = torch.ones_like(c)
+    m[i][i], m[j][j], m[i][j], m[j][i] = c, c, -s, s
+    return torch.stack([torch.stack(row, dim=-1) for row in m], dim=-2)
 
 
 def yaw_sweep(
@@ -143,7 +142,8 @@ def yaw_sweep(
     others = [k for k in range(3) if k != ax]
     valid = (pair_weight > 0).to(dt)                             # (B, K)
 
-    r = norm(pred_pairs_canon[..., others])                      # (B, K, 2)
+    # slices stacked: a list index is a host tensor uploaded, which a capture refuses
+    r = norm(torch.stack([pred_pairs_canon[..., k] for k in others], dim=-1))   # (B, K, 2)
     r_pair = torch.amax(r, dim=-1)
     nan = torch.full_like(r_pair, float("nan"))
     r_med = torch.nanquantile(torch.where(valid > 0, r_pair, nan), 0.5, dim=-1, keepdim=True)

@@ -136,10 +136,12 @@ def train_one(cat_name, steps, n_points, tuples, pool_frames, seed, progress, re
     return state.module.eval()
 
 
-def frame_draws(i: int, n_pixels: int, cat, pipe: PipelineConfig, restarts: int, device):
-    """An evaluated frame's draws from a generator seeded 1000 + i: the voxel
-    permutation and priorities, then one BranchDraws per restart."""
-    g = torch.Generator(device=device).manual_seed(1000 + i)
+def frame_draws(i: int, n_pixels: int, cat, pipe: PipelineConfig, restarts: int, device,
+                seed_base: int = 1000):
+    """An evaluated frame's draws from a generator seeded `seed_base` + i
+    (the JAX scripts' key): the voxel permutation and priorities, then one
+    BranchDraws per restart."""
+    g = torch.Generator(device=device).manual_seed(seed_base + i)
     perm, prio = draw_downsample(n_pixels, device, g)
     return perm, prio, [draw_branch(cat, pipe, device, g) for _ in range(restarts)]
 
@@ -168,6 +170,56 @@ def _branch_pose(model, cat, pipe: PipelineConfig, restarts: int, branch: str):
     return run
 
 
+def _pose_frame(pose, f, intrinsics, cat, n_points: int, perm, prio, bd, dev, exact_knn=False,
+                extractor=None):
+    """One frame through the instance frontend (the whole depth map, no
+    crop) and a `_branch_pose` program: the SHOT branch's features, or with
+    `extractor` the dino branch's descriptors, the rendered gray image
+    cropped and the ViT grid sampled at the preprocessed cloud's pixels."""
+    fi = _frontend(f.depth, f.depth > 0, intrinsics, perm.to(dev), prio.to(dev), None, cat.res,
+                   n_points, SHOT_K, None, exact_knn=exact_knn)
+    if extractor is not None:
+        feats = (_frame_descriptors(f._replace(pixel_yx=fi.pixel_yx), extractor),)
+    else:
+        feats = (fi.shot, fi.normal)
+    return pose(fi.pc, fi.valid, fi.count, feats, torch.stack([d.tuple_u for d in bd]).to(dev),
+                torch.stack([d.gumbel for d in bd]).to(dev))
+
+
+@torch.no_grad()
+def pose_study(model, frames, intrinsics, cat_name, pipe: PipelineConfig, n_points: int,
+               exact_knn=False, seed_base=1000, device="cuda", draws=None):
+    """The accuracy studies' pose loop (`scripts/config_validation.py`,
+    `budget_study.py`, `dtype_check.py`): `frames` posed by one SHOT branch
+    in one pass, tuples as floor(u * count), frame i's draws from a
+    generator seeded `seed_base` + i, or `draws(i, n_pixels)`. Scored as
+    those scripts score: without the frame's handle visibility. Returns the
+    (n, 2) (deg, cm) errors and the (rt, gt_rt) pairs."""
+    dev = resolve_device(device)
+    cat = CATEGORIES[cat_name]
+    pose = _branch_pose(model, cat, pipe, 1, "shot")
+    draws = draws or (lambda i, n: frame_draws(i, n, cat, pipe, 1, dev, seed_base))
+    errs, rts = [], []
+    for i, f in enumerate(frames):
+        perm, prio, bd = draws(i, f.depth.numel())
+        est = _pose_frame(pose, f, intrinsics, cat, n_points, perm, prio, bd, dev, exact_knn)
+        rt, _, gt_rt, _ = fetch_rt_pair(est, f)
+        errs.append(pose_error_degree_cm(rt, gt_rt, cat_name))
+        rts.append((rt, gt_rt))
+    return np.asarray(errs), rts
+
+
+def error_summary(errs) -> dict:
+    """Median rotation and translation error and the 5°5cm rate of (n, 2)
+    (deg, cm) errors, under the JAX scripts' keys."""
+    errs = np.asarray(errs)
+    return {
+        "median_deg": float(np.median(errs[:, 0])),
+        "median_cm": float(np.median(errs[:, 1])),
+        "deg5cm5": float(np.mean((errs[:, 0] < 5) & (errs[:, 1] < 5))),
+    }
+
+
 @torch.no_grad()
 def eval_one(cat_name, model, n_frames, pipe, n_points, seed, progress, branch="shot",
              extractor=None, restarts=1, device="cuda", draws=None):
@@ -187,16 +239,8 @@ def eval_one(cat_name, model, n_frames, pipe, n_points, seed, progress, branch="
         vis.append(handle_vis)
         n_pix = f.depth.numel()
         perm, prio, bd = (draws or (lambda i, n: frame_draws(i, n, cat, pipe, restarts, dev)))(i, n_pix)
-        fi = _frontend(f.depth, f.depth > 0, gen.intrinsics, perm.to(dev), prio.to(dev), None,
-                       cat.res, n_points, SHOT_K, None)
-        if branch == "dino":
-            # eval-path visual descriptors: the rendered gray image cropped and
-            # the ViT grid sampled at the preprocessed cloud's pixels
-            feats = (_frame_descriptors(f._replace(pixel_yx=fi.pixel_yx), extractor),)
-        else:
-            feats = (fi.shot, fi.normal)
-        est = pose(fi.pc, fi.valid, fi.count, feats, torch.stack([d.tuple_u for d in bd]).to(dev),
-                   torch.stack([d.gumbel for d in bd]).to(dev))
+        est = _pose_frame(pose, f, gen.intrinsics, cat, n_points, perm, prio, bd, dev,
+                          extractor=extractor if branch == "dino" else None)
         rt, scales, gt_rt, gt_scales = fetch_rt_pair(est, f)
         results.append({
             "image_path": f"synth_{i}",
@@ -279,11 +323,7 @@ def main(argv=None):
         all_results += results
         os.makedirs(args.out, exist_ok=True)
         np.savez(os.path.join(args.out, f"errors_{cat_name}.npz"), errs=errs, handle_visible=vis)
-        summary[cat_name] = {
-            "median_deg": float(np.median(errs[:, 0])),
-            "median_cm": float(np.median(errs[:, 1])),
-            "deg5cm5": float(np.mean((errs[:, 0] < 5) & (errs[:, 1] < 5))),
-        }
+        summary[cat_name] = error_summary(errs)
     os.makedirs(args.out, exist_ok=True)
     out = {"per_category": summary, **score(all_results, args.out), "steps": args.steps,
            "frames_per_cat": args.frames}

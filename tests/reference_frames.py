@@ -5,6 +5,7 @@ command that prints one line per frame.
 
     JAX_PLATFORMS=cpu python tests/reference_frames.py visibility mug 100
     JAX_PLATFORMS=cpu python tests/reference_frames.py poses can 16 53 98
+    JAX_PLATFORMS=cpu python tests/reference_frames.py validation laptop 30
 
 `visibility CAT N` renders the first N held-out frames of CAT (generator
 seed 77, 4096 points) with the JAX generator and prints the handle
@@ -15,6 +16,14 @@ twice: through the JAX script's graph with `jax.random.key(1000 + i)`, and
 through the port's frontend and ensemble program on the same frame with
 the same draws (`test_torch_accuracy._jax_frame_draws`). About 3 minutes
 of set-up (two seeded ViT-Ls) and 10-20 s a frame on an 8-core CPU.
+`validation CAT N` poses the first N held-out frames of CAT (generator seed
+77) in each of `config_validation`'s four configurations (ckpts_r2, 4096
+points, 20,000 pairs, one pass) through the JAX script's `eval_config`
+with `jax.random.key(1000 + i)` and through the port's `pose_study` with
+the same draws and its own frontend (whose SHOT rows on rendered clouds
+differ from the JAX ones by design), and prints both packages' per-frame
+errors and rates: what the two packages do with the same draws, for
+reading a card run of `config_validation` against the TPU's record.
 """
 
 import os
@@ -117,9 +126,49 @@ def poses(cat, frames):
               f"{vis} | {time.time() - t0:.0f} s", flush=True)
 
 
+def validation(cat, n):
+    import config_validation as jcv
+    from test_torch_studies import _jax_study_draws
+
+    from cppf2_torch.models.checkpoints import load_params_msgpack
+    from cppf2_torch.scripts import config_validation as tcv
+    from cppf2_torch.scripts.synthetic_benchmark import error_summary, pose_study
+
+    path = os.path.join(ROOT, "ckpts_r2", "shot", cat, "params.msgpack")
+    tree, models = load_params_msgpack(path), tcv.shot_models(path, TC[cat], "cpu")
+    gen = JGen(JC[cat], n_max=N_POINTS, shot_k=48, seed=77)
+    jframes = [gen.next_frame() for _ in range(n)]
+    tframes = [tsynth.SynthFrame(*(torch.from_numpy(np.array(x)) for x in f)) for f in jframes]
+    k = torch.from_numpy(np.array(gen.intrinsics))
+    jp, tp = JP(n_points=N_POINTS, num_pairs=PAIRS), TP(n_points=N_POINTS, num_pairs=PAIRS)
+    jerrs, score = [], jcv.pose_error_degree_cm
+
+    def recorded(*a):   # the JAX script's per-frame errors
+        jerrs.append(score(*a))
+        return jerrs[-1]
+
+    jcv.pose_error_degree_cm = recorded
+    for exact in (False, True):
+        for dtype in tcv.DTYPES:
+            key = f"{'exact' if exact else 'approx'}_{dtype}"
+            jerrs.clear()
+            jcv.eval_config(cat, tree, jframes, jp, N_POINTS, 0, exact, dtype)
+            terrs, _ = pose_study(models[dtype], tframes, k, cat, tp, N_POINTS, exact_knn=exact,
+                                  device="cpu", draws=_jax_study_draws(tp, TC[cat].tuple_size))
+            for i, (je, te) in enumerate(zip(jerrs, terrs)):
+                print(f"{cat} {key} frame {i}: JAX CPU {je[0]:.2f} deg {je[1]:.2f} cm | port CPU, "
+                      f"the same draws, {te[0]:.2f} deg {te[1]:.2f} cm", flush=True)
+            for name, e in (("JAX CPU", np.asarray(jerrs)), ("port CPU", terrs)):
+                r = error_summary(e)
+                print(f"{cat} {key} {name}: 5d5cm {r['deg5cm5']:.3f}, median {r['median_deg']:.2f} "
+                      f"deg / {r['median_cm']:.2f} cm", flush=True)
+
+
 if __name__ == "__main__":
     what, cat, *rest = sys.argv[1:]
     if what == "visibility":
         visibility(cat, int(rest[0]))
+    elif what == "validation":
+        validation(cat, int(rest[0]))
     else:
         poses(cat, [int(x) for x in rest])
