@@ -106,6 +106,7 @@ from cppf2_torch.models.dinov2 import (
 )
 from cppf2_torch.models.jax_random import init_branch_
 from cppf2_torch.models.porting import load_beyondcppf_checkpoint, load_branch
+from cppf2_torch.utils import profiling
 from cppf2_torch.utils.viz import draw_pose_overlay
 
 # REAL275 evaluation intrinsics (eval.py:82)
@@ -135,7 +136,7 @@ class CategoryModels:
         def fn(pc, valid, count, desc, shot, normal, pose):
             est = _ensemble(self, cat, pipe, run_opt, use_visual, use_geo, pc[None], valid[None],
                             count[None], None if desc is None else desc[None], shot[None],
-                            normal[None], [stack_draws([p]) for p in pose])
+                            normal[None], [PoseDraws(*(t[None] for t in p)) for p in pose])
             return PoseEstimate(*(f[0] for f in est))
 
         def run(*args):
@@ -239,12 +240,24 @@ def draw_instance(hw, mask: np.ndarray, cat_name: str, pipe: PipelineConfig, dev
                   generator: Optional[torch.Generator] = None, crop="auto") -> InstanceDraws:
     """Every random draw one instance needs, from `generator`; the voxel
     draws are sized for the dense-pass window of `crop` ("auto": the mask's
-    `auto_crop` tier)."""
-    h, w = window_shape(hw, auto_crop(mask) if crop == "auto" else crop)
-    perm, prio = draw_downsample(h * w, device, generator)
-    cat = get_category(cat_name)
-    pose = [draw_pose(cat, pipe, device, generator) for _ in range(pipe.restarts)]
-    return InstanceDraws(perm, prio, pose[0] if pipe.restarts == 1 else pose)
+    `auto_crop` tier). A `draws` span; made before a frame's dispatch, it
+    counts in that frame's record."""
+    with profiling.span("draws"):
+        h, w = window_shape(hw, auto_crop(mask) if crop == "auto" else crop)
+        perm, prio = draw_downsample(h * w, device, generator)
+        cat = get_category(cat_name)
+        pose = [draw_pose(cat, pipe, device, generator) for _ in range(pipe.restarts)]
+        return InstanceDraws(perm, prio, pose[0] if pipe.restarts == 1 else pose)
+
+
+def _upload(x: np.ndarray, dev) -> torch.Tensor:
+    """A host array on `dev`, as an `upload` span that counts the upload and
+    its bytes (pageable host memory)."""
+    with profiling.span("upload"):
+        out = torch.as_tensor(x, device=dev)
+    profiling.count("uploads")
+    profiling.count("upload_bytes", x.nbytes)
+    return out
 
 
 def _draws_on(d: InstanceDraws, dev) -> InstanceDraws:
@@ -270,8 +283,9 @@ def _ensemble(models: CategoryModels, cat, pipe: PipelineConfig, run_opt: bool, 
     stacked PoseDraws per restart: per restart one forward of each enabled
     branch MLP and one batched pose graph over the (instance, branch) rows."""
     if use_visual and desc is None:
-        desc = torch.zeros((pc.shape[0], pipe.n_points, models.dino.desc_transform.in_features),
-                           device=pc.device)
+        with profiling.stage("mlps", pc.device):
+            desc = torch.zeros((pc.shape[0], pipe.n_points, models.dino.desc_transform.in_features),
+                               device=pc.device)
     group = EnsembleInput(lambda pts, ti: models.dino(pts, desc, ti),
                           lambda pts, ti: models.shot(pts, shot, normal, ti), pc, valid, count, pose)
     return estimate_pose_ensembles(group, cat, pipe, run_opt, use_visual, use_geo)
@@ -288,9 +302,14 @@ def _pose_group(depth, masks, origins, perm, prio, pose, k_t, crop, models: Cate
     ((B, 2) on the device or numbers; None without `crop`), `perm`, `prio`
     and `pose` the group's stacked draws on the device (`_stacked`). Returns
     (FrameInputs, PoseEstimate), every field with a leading (B,) axis."""
-    fi = preprocess_frame(depth, masks, k_t, perm, prio, res=cat.res, n_max=pipe.n_points,
-                          shot_k=pipe.neighbor_k, crop=crop, origin=origins)
-    desc = desc_fn(fi.pixel_yx) if use_visual and desc_fn is not None else None
+    dev = masks.device
+    with profiling.stage("frontend", dev):
+        fi = preprocess_frame(depth, masks, k_t, perm, prio, res=cat.res, n_max=pipe.n_points,
+                              shot_k=pipe.neighbor_k, crop=crop, origin=origins)
+    desc = None
+    if use_visual and desc_fn is not None:
+        with profiling.stage("descriptors", dev):
+            desc = desc_fn(fi.pixel_yx)
     return fi, _ensemble(models, cat, pipe, run_opt, use_visual, use_geo, fi.pc, fi.valid, fi.count,
                          desc, fi.shot, fi.normal, pose)
 
@@ -306,9 +325,11 @@ def _frontend(depth, mask, k_t, perm, prio, origin, res: float, n_max: int, shot
     shapes. `origin` is the window's (2,) int32 origin on the device (None
     without `crop`). It runs as a group of one."""
     def fn(depth, mask, k_t, perm, prio, origin):
-        fi = preprocess_frame(depth, mask[None], k_t, perm[None], prio[None], res=res, n_max=n_max,
-                              shot_k=shot_k, crop=crop, origin=None if origin is None else origin[None],
-                              exact_knn=exact_knn)
+        with profiling.stage("frontend", depth.device):
+            fi = preprocess_frame(depth, mask[None], k_t, perm[None], prio[None], res=res,
+                                  n_max=n_max, shot_k=shot_k, crop=crop,
+                                  origin=None if origin is None else origin[None],
+                                  exact_knn=exact_knn)
         return FrameInputs(*(f[0] for f in fi))
 
     args = (depth, mask, k_t, perm, prio, origin)
@@ -351,26 +372,30 @@ def _instance_visual(rgb, mask: np.ndarray, mask_t, pixel_yx, dev, vit, dino_ext
     The body calls the eager `extractor_grid`, not the extractor, whose own
     call is a program: programs do not nest."""
     if dino_extractor is not None:
-        masked = np.where(mask[..., None], np.asarray(rgb), 0).astype(np.uint8)
-        crop_img, transform = resize_crop(masked, bbox=mask_bbox(mask), out_size=256)
-        args = (torch.as_tensor(crop_img, device=dev),
-                torch.as_tensor(np.linalg.inv(transform).astype(np.float32), device=dev), pixel_yx)
+        with profiling.span("host_crop"):
+            masked = np.where(mask[..., None], np.asarray(rgb), 0).astype(np.uint8)
+            crop_img, transform = resize_crop(masked, bbox=mask_bbox(mask), out_size=256)
+            inv_transform = np.linalg.inv(transform).astype(np.float32)
+        args = (_upload(crop_img, dev), _upload(inv_transform, dev), pixel_yx)
         backbone, stride, impl = dino_extractor.model, dino_extractor.stride, dino_extractor.interp_impl
         own = weakref.ref(backbone)   # the cache lives as long as the backbone, not longer
 
         def fn(crop, inv_t, pixel_yx):
-            grid = extractor_grid(own(), crop / 255.0, stride)
-            return interpolate_features(grid, _kp_to_crop(pixel_yx, inv_t), crop.shape[:2], impl=impl)
+            with profiling.stage("vit", crop.device):
+                grid = extractor_grid(own(), crop / 255.0, stride)
+                return interpolate_features(grid, _kp_to_crop(pixel_yx, inv_t), crop.shape[:2],
+                                            impl=impl)
 
         key = ("visual", "extractor", backbone.cfg, stride, impl, programs.weights(backbone))
     else:
-        args = (torch.as_tensor(np.asarray(rgb, np.uint8), device=dev), mask_t, pixel_yx)
+        args = (_upload(np.asarray(rgb, np.uint8), dev), mask_t, pixel_yx)
         backbone = vit
         own = weakref.ref(backbone)
 
         def fn(rgb_u8, mask, pixel_yx):
-            return bbox_crop_descriptors(own(), rgb_u8.to(torch.float32) / 255.0, mask, pixel_yx,
-                                         out_size=out_size, stride=stride)
+            with profiling.stage("vit", rgb_u8.device):
+                return bbox_crop_descriptors(own(), rgb_u8.to(torch.float32) / 255.0, mask, pixel_yx,
+                                             out_size=out_size, stride=stride)
 
         key = ("visual", "vit", backbone.cfg, stride, out_size, programs.weights(backbone))
     cache = _VISUALS.setdefault(backbone, {})
@@ -390,13 +415,13 @@ def _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe, genera
     if draws is None:
         draws = draw_instance(depth.shape, mask, cat_name, pipe, dev, generator, crop=crop)
     draws = _draws_on(draws, dev)
-    depth_t = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
-    mask_t = torch.as_tensor(mask, device=dev)
+    depth_t = _upload(np.asarray(depth, np.float32), dev)
+    mask_t = _upload(mask, dev)
     check_pinhole(np.asarray(intrinsics))
-    k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
+    k_t = _upload(np.asarray(intrinsics, np.float32), dev)
     origin = None
     if crop is not None:
-        origin = torch.as_tensor(np.asarray(crop_origin(mask, mask.shape, crop), np.int32), device=dev)
+        origin = _upload(np.asarray(crop_origin(mask, mask.shape, crop), np.int32), dev)
     fi = _frontend(depth_t, mask_t, k_t, draws.voxel_perm, draws.voxel_prio, origin, cat.res,
                    pipe.n_points, pipe.neighbor_k, crop)
     # an all-empty detection mask has no bbox to crop: the pose graph still
@@ -473,10 +498,12 @@ def estimate_instance(
 class PendingInstance(NamedTuple):
     """One dispatched instance, not yet fetched: 22 float32 values on the
     device (count, extent 3, rotation 9, translation 3, scale 3, scale norm,
-    loss, pick) and the category's voxel resolution for the extent guard."""
+    loss, pick), the category's voxel resolution for the extent guard, and
+    the id of the frame record it was dispatched in (`utils/profiling.py`)."""
 
     dev: torch.Tensor
     res: float
+    frame: Optional[int] = None
 
 
 def _pack(fi, est: PoseEstimate) -> torch.Tensor:
@@ -512,12 +539,15 @@ def dispatch_instance(
     """Queue one instance's whole pose graph; nothing is read back from the
     device (the crop window's origin comes from the host mask). Arguments as
     `estimate_instance`. A degenerate instance costs one wasted graph; it is
-    rejected in `fetch_instances`."""
-    dev = resolve_device(device)
-    cat, (fi, est) = _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe,
-                                     generator, vit, dev, draws, stride, out_size, run_opt,
-                                     use_visual, use_geo, crop, dino_extractor)
-    return PendingInstance(_pack(fi, est), cat.res)
+    rejected in `fetch_instances`. A `single` span."""
+    with profiling.span("single") as frame:
+        dev = resolve_device(device)
+        cat, (fi, est) = _instance_graph(rgb, depth, mask, intrinsics, models, cat_name, pipe,
+                                         generator, vit, dev, draws, stride, out_size, run_opt,
+                                         use_visual, use_geo, crop, dino_extractor)
+        with profiling.stage("finish", dev):
+            rows = _pack(fi, est)
+        return PendingInstance(rows, cat.res, frame)
 
 
 def _finalize_instance(res: float, row: np.ndarray):
@@ -555,12 +585,14 @@ def fetch_instances(pendings: Sequence[PendingInstance], return_picks: bool = Fa
 
 class PendingFrameGroup(NamedTuple):
     """The dispatched instances of one chunk of a (category, crop tier) group
-    of a frame: (batch, 22) rows as in `PendingInstance`, and the detection
-    index of each real row; the rows past them are padding."""
+    of a frame: (batch, 22) rows as in `PendingInstance`, the detection
+    index of each real row (the rows past them are padding), and the id of
+    the frame's record (`utils/profiling.py`)."""
 
     dev: torch.Tensor
     res: float
     idxs: Tuple[int, ...]
+    frame: Optional[int] = None
 
 
 # a backbone's ViT-stage programs, on the backbone (they read its weights where they lie)
@@ -597,8 +629,9 @@ def _vit_stage(backbone: DinoViT, stride: int, out_size: int, batches: tuple, rg
     own = weakref.ref(backbone)   # the cache lives as long as the backbone, not longer
 
     def fn(rgb_u8, masks):
-        grids, txys = bbox_crop_token_grid(own(), rgb_u8.to(torch.float32) / 255.0, masks,
-                                           out_size=out_size, stride=stride)
+        with profiling.stage("vit", rgb_u8.device):
+            grids, txys = bbox_crop_token_grid(own(), rgb_u8.to(torch.float32) / 255.0, masks,
+                                               out_size=out_size, stride=stride)
         parts, off = [], 0
         for b in batches:
             parts.append((grids[off:off + b], txys[off:off + b]))
@@ -650,7 +683,8 @@ def _group_program(models: CategoryModels, cat, pipe: PipelineConfig, run_opt: b
                 return sample_crop_descriptors(grids, pixel_yx, txys, out_size, impl=impl)
         fi, est = _pose_group(depth, masks, origins, perm, prio, pose, k_t, crop, models, cat, pipe,
                               run_opt, use_visual, use_geo, desc_fn)
-        return _pack(fi, est)
+        with profiling.stage("finish", depth.device):
+            return _pack(fi, est)
 
     key = ("frame", cat.name, pipe, run_opt, use_visual, use_geo, crop, stride, ext_key, batch,
            programs.weights(models.shot, models.dino))
@@ -700,73 +734,89 @@ def dispatch_frame(
     `draws` holds one InstanceDraws per detection, in detection order, each
     sized for that detection's `auto_crop` window; without it they are drawn
     in that order from `generator`.
+
+    The call is a frame's `dispatch` span (`utils/profiling.py`): it opens a
+    frame record, whose id the pendings carry to `fetch_frames`.
     """
-    dev = resolve_device(device)
-    use_visual = _visual_source(vit, dino_extractor, use_visual)
-    backbone, impl = vit, "gather"
-    if dino_extractor is not None:
-        backbone, impl = dino_extractor.model, dino_extractor.interp_impl
-        stride, out_size = dino_extractor.stride, dino_extractor.out_size
-    dets = [(name, np.asarray(m, bool)) for name, m in detections]
-    if draws is None:
-        draws = [draw_instance(depth.shape, m, name, pipe, dev, generator) for name, m in dets]
-    if len(draws) != len(dets):
-        raise ValueError(f"{len(draws)} draws for {len(dets)} detections")
-    buckets = tuple(sorted(int(b) for b in buckets))
-    if not buckets or buckets[0] < 1:
-        raise ValueError(f"buckets must be positive batch sizes, got {buckets}")
-    cap = buckets[-1]
-
-    groups: Dict[tuple, list] = {}
-    singles = []
-    for idx, (name, mask) in enumerate(dets):
-        tier = auto_crop(mask)
-        if tier is None:
-            singles.append((idx, dispatch_instance(
-                rgb, depth, mask, intrinsics, models[name], name, pipe, vit=vit, device=dev,
-                draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
-                use_visual=use_visual, use_geo=use_geo, crop=None, dino_extractor=dino_extractor)))
-        else:
-            groups.setdefault((name, tier), []).append(idx)
-
-    # chunks of at most `cap` instances, each padded to its bucket by repeating its last one
-    chunks = []   # (name, tier, real detection indices, the batch's detection indices)
-    for (name, tier), members in groups.items():
-        for lo in range(0, len(members), cap):
-            idxs = tuple(members[lo:lo + cap])
-            batch = next(b for b in buckets if b >= len(idxs))
-            chunks.append((name, tier, idxs, idxs + (idxs[-1],) * (batch - len(idxs))))
-
-    pendings: list = []
-    if chunks:
-        check_pinhole(np.asarray(intrinsics))
-        depth_t = torch.as_tensor(np.asarray(depth, np.float32), device=dev)
-        k_t = torch.as_tensor(np.asarray(intrinsics, np.float32), device=dev)
-        rows = [i for c in chunks for i in c[3]]
-        masks_t = torch.as_tensor(np.stack([dets[i][1] for i in rows]), device=dev)
-        origins_t = torch.as_tensor(np.asarray(
-            [crop_origin(dets[i][1], depth.shape, tier) for _, tier, _, batch in chunks for i in batch],
-            np.int32), device=dev)
-        starts = np.cumsum([0] + [len(c[3]) for c in chunks]).tolist()
+    with profiling.frame_span("dispatch") as frame:
+        dev = resolve_device(device)
+        use_visual = _visual_source(vit, dino_extractor, use_visual)
+        backbone, impl = vit, "gather"
+        if dino_extractor is not None:
+            backbone, impl = dino_extractor.model, dino_extractor.interp_impl
+            stride, out_size = dino_extractor.stride, dino_extractor.out_size
+        dets = [(name, np.asarray(m, bool)) for name, m in detections]
+        if draws is None:
+            draws = [draw_instance(depth.shape, m, name, pipe, dev, generator) for name, m in dets]
+        if len(draws) != len(dets):
+            raise ValueError(f"{len(draws)} draws for {len(dets)} detections")
+        buckets = tuple(sorted(int(b) for b in buckets))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"buckets must be positive batch sizes, got {buckets}")
+        cap = buckets[-1]
         visual_on = use_visual and backbone is not None
-        ext_key = (backbone.cfg, stride, out_size, impl) if visual_on else None
-        parts: Dict[int, tuple] = {}
-        if visual_on:
-            rgb_t = torch.as_tensor(np.asarray(rgb, np.uint8), device=dev)
-            for ids, sizes in _vit_packs(backbone, stride, out_size, [len(c[3]) for c in chunks], cap):
-                pack = torch.cat([masks_t[starts[c]:starts[c + 1]] for c in ids])
-                parts.update(zip(ids, _vit_stage(backbone, stride, out_size, sizes, rgb_t, pack)))
-        for c, (name, tier, idxs, batch) in enumerate(chunks):
-            cat = get_category(name)
-            lo, hi = starts[c], starts[c + 1]
-            grids, txys = parts.get(c, (None, None))
-            args = (depth_t, masks_t[lo:hi], origins_t[lo:hi], k_t,
-                    *_stacked([_draws_on(draws[i], dev) for i in batch]), grids, txys)
-            prog = _group_program(models[name], cat, pipe, run_opt, use_visual, use_geo, tier,
-                                  stride if visual_on else 0, ext_key, len(batch), args)
-            pendings.append(PendingFrameGroup(prog(*args), cat.res, idxs))
-    pendings.extend(singles)
-    return pendings
+
+        with profiling.span("plan"):
+            groups: Dict[tuple, list] = {}
+            singles = []
+            for idx, (name, mask) in enumerate(dets):
+                tier = auto_crop(mask)
+                if tier is None:
+                    singles.append(idx)
+                else:
+                    groups.setdefault((name, tier), []).append(idx)
+            # chunks of at most `cap` instances, each padded to its bucket by repeating its last one
+            chunks = []   # (name, tier, real detection indices, the batch's detection indices)
+            for (name, tier), members in groups.items():
+                for lo in range(0, len(members), cap):
+                    idxs = tuple(members[lo:lo + cap])
+                    batch = next(b for b in buckets if b >= len(idxs))
+                    chunks.append((name, tier, idxs, idxs + (idxs[-1],) * (batch - len(idxs))))
+            if chunks:
+                check_pinhole(np.asarray(intrinsics))
+                masks = np.stack([dets[i][1] for c in chunks for i in c[3]])
+                origins = np.asarray([crop_origin(dets[i][1], depth.shape, tier)
+                                      for _, tier, _, batch in chunks for i in batch], np.int32)
+                starts = np.cumsum([0] + [len(c[3]) for c in chunks]).tolist()
+                packs = (_vit_packs(backbone, stride, out_size, [len(c[3]) for c in chunks], cap)
+                         if visual_on else [])
+        profiling.count("instances", len(dets))
+        profiling.count("singles", len(singles))
+
+        single_pends = [(idx, dispatch_instance(
+            rgb, depth, dets[idx][1], intrinsics, models[dets[idx][0]], dets[idx][0], pipe, vit=vit,
+            device=dev, draws=draws[idx], stride=stride, out_size=out_size, run_opt=run_opt,
+            use_visual=use_visual, use_geo=use_geo, crop=None, dino_extractor=dino_extractor))
+            for idx in singles]
+
+        pendings: list = []
+        if chunks:
+            depth_t = _upload(np.asarray(depth, np.float32), dev)
+            k_t = _upload(np.asarray(intrinsics, np.float32), dev)
+            masks_t = _upload(masks, dev)
+            origins_t = _upload(origins, dev)
+            ext_key = (backbone.cfg, stride, out_size, impl) if visual_on else None
+            parts: Dict[int, tuple] = {}
+            if visual_on:
+                rgb_t = _upload(np.asarray(rgb, np.uint8), dev)
+                for ids, sizes in packs:
+                    with profiling.span("vit"):
+                        pack = torch.cat([masks_t[starts[c]:starts[c + 1]] for c in ids])
+                        parts.update(zip(ids, _vit_stage(backbone, stride, out_size, sizes, rgb_t,
+                                                         pack)))
+            for c, (name, tier, idxs, batch) in enumerate(chunks):
+                cat = get_category(name)
+                lo, hi = starts[c], starts[c + 1]
+                grids, txys = parts.get(c, (None, None))
+                with profiling.span("stack"):
+                    stacked = _stacked([_draws_on(draws[i], dev) for i in batch])
+                with profiling.span("group"):
+                    args = (depth_t, masks_t[lo:hi], origins_t[lo:hi], k_t, *stacked, grids, txys)
+                    prog = _group_program(models[name], cat, pipe, run_opt, use_visual, use_geo, tier,
+                                          stride if visual_on else 0, ext_key, len(batch), args)
+                    pendings.append(PendingFrameGroup(prog(*args), cat.res, idxs, frame))
+        pendings.extend(single_pends)
+        return pendings
 
 
 def fetch_frames(pendings, return_picks: bool = False):
@@ -776,19 +826,21 @@ def fetch_frames(pendings, return_picks: bool = False):
     {detection index -> winning branch}."""
     if not pendings:
         return ({}, {}) if return_picks else {}
-    keyed = []  # (detection index, res) per fetched row
-    for p in pendings:
-        if isinstance(p, PendingFrameGroup):
-            keyed.extend((idx, p.res) for idx in p.idxs)
-        else:
-            keyed.append((p[0], p[1].res))
-    # a chunk's padded rows come back with it and are dropped here
-    rows = _fetch([p.dev[:len(p.idxs)] if isinstance(p, PendingFrameGroup) else p[1].dev
-                   for p in pendings])
-    out = {idx: _finalize_instance(res, row) for (idx, res), row in zip(keyed, rows)}
-    if return_picks:
-        return out, {idx: int(row[21]) for (idx, _), row in zip(keyed, rows)}
-    return out
+    p0 = pendings[0]
+    with profiling.span("fetch", frame=p0.frame if isinstance(p0, PendingFrameGroup) else p0[1].frame):
+        keyed = []  # (detection index, res) per fetched row
+        for p in pendings:
+            if isinstance(p, PendingFrameGroup):
+                keyed.extend((idx, p.res) for idx in p.idxs)
+            else:
+                keyed.append((p[0], p[1].res))
+        # a chunk's padded rows come back with it and are dropped here
+        rows = _fetch([p.dev[:len(p.idxs)] if isinstance(p, PendingFrameGroup) else p[1].dev
+                       for p in pendings])
+        out = {idx: _finalize_instance(res, row) for (idx, res), row in zip(keyed, rows)}
+        if return_picks:
+            return out, {idx: int(row[21]) for (idx, _), row in zip(keyed, rows)}
+        return out
 
 
 # ---------------------------------------------------------------------------

@@ -47,6 +47,11 @@ their addresses.
 `weights(*modules)` is the address of every parameter and buffer of the
 modules: a program that reads weights is keyed on it.
 
+Spans and counters (`utils/profiling.py`): a call's copies into the static
+inputs (`copy_in`), its `graph.replay()` (`launch`), its output clones
+(`clone`) and a capture (`capture`) are spans; the frame record counts
+replays, captures and their host ms (`capture_ms`) and eager runs.
+
 Counters: the kernel wrappers count their launches in Python, and a replay
 runs no Python. A program notes what every counted attribute (`COUNTED`,
 `count_replays`) gained during its capture, when nothing ran on the device,
@@ -66,6 +71,7 @@ from torch.utils import _pytree as pytree
 
 from cppf2_torch.models.layers import QDense
 from cppf2_torch.ops import attention, hist16, sphere
+from cppf2_torch.utils import profiling
 
 # (object, attribute) of every counter a capture records and a replay credits
 COUNTED: List[Tuple[Any, str]] = [(attention._MHA, "launches"), (hist16._PEAK, "launches"),
@@ -176,6 +182,12 @@ def pool_handle(device):
     return _pools[idx]
 
 
+def _eager(tensors) -> bool:
+    """Whether a call with these input tensors runs its body eagerly: inside
+    `disable_capture()`, or with no input on a card."""
+    return not capture_enabled() or not any(x.device.type == "cuda" for x in tensors)
+
+
 def _signature(args) -> tuple:
     """What besides the caller's key tells two calls' programs apart: the
     nesting of `args`, each tensor's shape, dtype and device, and every
@@ -195,7 +207,7 @@ class Program:
         self.outputs = None
         self.scratch = [None]                  # K2's scratch, owned (hist16.owned_scratch)
         self.credits: List[Tuple[Any, str, Any]] = []
-        self.capture_ms = None                 # host time of the warm-up and the capture
+        self.capture_ms = None                 # host ms of the warm-up and the capture (frame record)
         self.replays = 0
         self.eager_runs = 0                    # calls that ran the body eagerly
 
@@ -218,25 +230,31 @@ class Program:
                                f"program's body calls eager functions, never another program")
         leaves, spec = pytree.tree_flatten(args)
         tensors = [x for x in leaves if torch.is_tensor(x)]
-        if not capture_enabled() or not any(x.device.type == "cuda" for x in tensors):
+        if _eager(tensors):
             self.eager_runs += 1
+            profiling.count("eager_runs")
             with self._body():
                 return self.fn(*args)
         if self.graph is None:
-            first = self._capture(leaves, spec, tensors)
+            with profiling.span("capture"):
+                first = self._capture(leaves, spec, tensors)
+            profiling.count("captures")
+            profiling.count("capture_ms", self.capture_ms)
             if self.stateful:
                 return first
         else:
-            for s, x in zip(self.static, tensors):
-                if s.shape != x.shape or s.dtype != x.dtype or s.device != x.device:
-                    raise RuntimeError(f"program {self.key!r}: an input of {tuple(x.shape)} "
-                                       f"{x.dtype} on {x.device} where it was captured with "
-                                       f"{tuple(s.shape)} {s.dtype} on {s.device}")
-                s.copy_(x)
-        try:
-            self.graph.replay()
-        except Exception as e:
-            raise RuntimeError(f"replay of program {self.key!r} failed: {e}") from e
+            with profiling.span("copy_in"):
+                for s, x in zip(self.static, tensors):
+                    if s.shape != x.shape or s.dtype != x.dtype or s.device != x.device:
+                        raise RuntimeError(f"program {self.key!r}: an input of {tuple(x.shape)} "
+                                           f"{x.dtype} on {x.device} where it was captured with "
+                                           f"{tuple(s.shape)} {s.dtype} on {s.device}")
+                    s.copy_(x)
+        with profiling.span("launch"):
+            try:
+                self.graph.replay()
+            except Exception as e:
+                raise RuntimeError(f"replay of program {self.key!r} failed: {e}") from e
         for obj, attr, gain in self.credits:
             v = getattr(obj, attr)
             if isinstance(v, list):
@@ -244,7 +262,9 @@ class Program:
             else:
                 setattr(obj, attr, v + gain)
         self.replays += 1
-        return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, self.outputs)
+        profiling.count("replays")
+        with profiling.span("clone"):
+            return pytree.tree_map(lambda x: x.clone() if torch.is_tensor(x) else x, self.outputs)
 
     def _capture(self, leaves, spec, tensors):
         """Warm up, capture into the shared pool, keep the graph; returns the

@@ -36,6 +36,7 @@ from cppf2_torch.infer.alignment import align_pose, yaw_sweep
 from cppf2_torch.models.cppf import TuplePredictions
 from cppf2_torch.ops.sampling import masked_tuple_choice
 from cppf2_torch.ops.voting import backvote_filter, sphere_vote_cone, take_rows, vote_center
+from cppf2_torch.utils.profiling import stage
 
 _EPS = 1e-7
 
@@ -130,7 +131,66 @@ def _pose_from_preds(
 ) -> BranchPose:
     """Everything downstream of the tuple MLPs, for B rows at once: logits
     (B, P, 6, bins), scales (B, P, 3), points (B, N, 3), point_valid (B, N),
-    count (B,), tuple_idx (B, P, tuple size) and Gumbel noise (B, P * 6, bins)."""
+    count (B,), tuple_idx (B, P, tuple size) and Gumbel noise (B, P * 6, bins).
+    Each step is a stage (`utils/profiling.py::stage`): targets, center_vote,
+    backvote, cone_vote, align, finish."""
+    dev = points.device
+    with stage("targets", dev):
+        pred_pairs, pred_pairs_scaled, t, pair_valid = _targets(
+            logits, scales, points, count, tuple_idx, gumbel, cat, pipe)
+    pair_idx = tuple_idx[..., :2]
+    with stage("center_vote", dev):
+        cv = vote_center(points, point_valid, t.tr, pair_idx, pair_valid, cat.res,
+                         levels=pipe.vote_levels, fine_samples=pipe.vote_fine_samples)
+    t_est = cv.center
+
+    with stage("backvote", dev):
+        bv = backvote_filter(points, t.tr, pair_idx, pair_valid, t_est,
+                             pipe.num_kept_pairs, pipe.imp_wt_margin)
+        ki = bv.kept_idx                                             # (B, K)
+        kept_pairs = take_rows(pair_idx, ki)
+        kept_w = take_rows(bv.pair_weight, ki)
+        inv_w = torch.where(kept_w > 0, 1.0 / torch.clamp(kept_w, min=_EPS), torch.zeros_like(kept_w))
+        axis_angles = torch.stack([take_rows(t.up_angle, ki), take_rows(t.right_angle, ki)], dim=1)
+        scaled_kept = take_rows(pred_pairs_scaled, ki)
+        pred_kept = take_rows(pred_pairs, ki)
+
+    with stage("cone_vote", dev):
+        top_dirs, _ = sphere_vote_cone(points, axis_angles, kept_pairs, inv_w, sphere_pts,
+                                       pipe.angle_tol_deg)
+        pred_up, pred_right = top_dirs[:, 0], top_dirs[:, 1]
+        pred_right = pred_right - torch.sum(pred_up * pred_right, dim=-1, keepdim=True) * pred_up
+        pred_right = pred_right / (norm(pred_right, keepdim=True) + 1e-9)
+
+        up_loc, right_loc = cat.up_axis_index, cat.right_axis_index
+        other_loc = ({0, 1, 2} - {up_loc, right_loc}).pop()
+        cols = [None, None, None]
+        cols[up_loc], cols[right_loc] = pred_up, pred_right
+        cols[other_loc] = torch.linalg.cross(cols[(other_loc + 1) % 3], cols[(other_loc + 2) % 3],
+                                             dim=-1)
+        r_est = torch.stack(cols, dim=-1)
+
+    if run_opt:
+        with stage("align", dev):
+            ar = align_pose(points, kept_pairs, kept_w, scaled_kept, r_est, t_est,
+                            cat.up_sym, cat.up_axis_index, pipe.opt_steps, pipe.opt_lr)
+        r_est, t_est = ar.rotation, ar.translation
+
+    with stage("finish", dev):
+        pred_scale = _median0(take_rows(scales, ki).transpose(0, 1))   # each row over its own pairs
+        do_sweep = cat.yaw_sweep if pipe.yaw_sweep is None else pipe.yaw_sweep
+        if do_sweep and not cat.up_sym:
+            r_est = yaw_sweep(points, kept_pairs, kept_w, scaled_kept, pred_kept, r_est, t_est,
+                              cat.up_axis_index)
+        kept_mask = kept_w > 0
+    return BranchPose(r_est, t_est, pred_scale, kept_pairs, kept_mask, pred_kept)
+
+
+def _targets(logits, scales, points, count, tuple_idx, gumbel, cat: CategoryConfig,
+             pipe: PipelineConfig):
+    """Bin sampling (argmax with Gumbel noise), the pair scale and the pair
+    targets of `_pose_from_preds`: (pred_pairs, pred_pairs_scaled,
+    PairTargets, pair_valid)."""
     dev = points.device
     up, right, front = _axis(cat.up, dev), _axis(cat.right, dev), _axis(cat.front, dev)
     nb = pipe.num_bins
@@ -174,47 +234,7 @@ def _pose_from_preds(
     t = pair_targets(pred_pairs_scaled[:, :, 0], pred_pairs_scaled[:, :, 1], up, right, front)
     if tr_pairs is not pred_pairs_scaled:
         t = t._replace(tr=pair_targets(tr_pairs[:, :, 0], tr_pairs[:, :, 1], up, right, front).tr)
-
-    pair_idx = tuple_idx[..., :2]
-    cv = vote_center(points, point_valid, t.tr, pair_idx, pair_valid, cat.res,
-                     levels=pipe.vote_levels, fine_samples=pipe.vote_fine_samples)
-    t_est = cv.center
-
-    bv = backvote_filter(points, t.tr, pair_idx, pair_valid, t_est,
-                         pipe.num_kept_pairs, pipe.imp_wt_margin)
-    ki = bv.kept_idx                                             # (B, K)
-    kept_pairs = take_rows(pair_idx, ki)
-    kept_w = take_rows(bv.pair_weight, ki)
-    inv_w = torch.where(kept_w > 0, 1.0 / torch.clamp(kept_w, min=_EPS), torch.zeros_like(kept_w))
-
-    axis_angles = torch.stack([take_rows(t.up_angle, ki), take_rows(t.right_angle, ki)], dim=1)
-    top_dirs, _ = sphere_vote_cone(points, axis_angles, kept_pairs, inv_w, sphere_pts,
-                                   pipe.angle_tol_deg)
-    pred_up, pred_right = top_dirs[:, 0], top_dirs[:, 1]
-    pred_right = pred_right - torch.sum(pred_up * pred_right, dim=-1, keepdim=True) * pred_up
-    pred_right = pred_right / (norm(pred_right, keepdim=True) + 1e-9)
-
-    up_loc, right_loc = cat.up_axis_index, cat.right_axis_index
-    other_loc = ({0, 1, 2} - {up_loc, right_loc}).pop()
-    cols = [None, None, None]
-    cols[up_loc], cols[right_loc] = pred_up, pred_right
-    cols[other_loc] = torch.linalg.cross(cols[(other_loc + 1) % 3], cols[(other_loc + 2) % 3], dim=-1)
-    r_est = torch.stack(cols, dim=-1)
-
-    pred_scale = _median0(take_rows(scales, ki).transpose(0, 1))   # each row over its own pairs
-    scaled_kept = take_rows(pred_pairs_scaled, ki)
-    pred_kept = take_rows(pred_pairs, ki)
-
-    if run_opt:
-        ar = align_pose(points, kept_pairs, kept_w, scaled_kept, r_est, t_est,
-                        cat.up_sym, cat.up_axis_index, pipe.opt_steps, pipe.opt_lr)
-        r_est, t_est = ar.rotation, ar.translation
-
-    do_sweep = cat.yaw_sweep if pipe.yaw_sweep is None else pipe.yaw_sweep
-    if do_sweep and not cat.up_sym:
-        r_est = yaw_sweep(points, kept_pairs, kept_w, scaled_kept, pred_kept, r_est, t_est,
-                          cat.up_axis_index)
-    return BranchPose(r_est, t_est, pred_scale, kept_pairs, kept_w > 0, pred_kept)
+    return pred_pairs, pred_pairs_scaled, t, pair_valid
 
 
 def _recon_loss_rt(points, rotation, translation, yard: BranchPose, scale_norm, up_sym: bool,
@@ -399,25 +419,28 @@ def estimate_pose_group(members: Union[GroupMember, Sequence[GroupMember]], cat:
     PoseEstimate whose every field has a leading (instances,) axis;
     `use_visual` says whether the first branch is the visual one (for
     `pick`)."""
-    if not isinstance(members, GroupMember):
-        members = GroupMember(*(torch.stack(f) for f in zip(*members)))
-    n_inst, n_br = members.logits.shape[:2]
-    dev = members.points.device
-    sphere_pts = _sphere(pipe.sphere_samples, dev)
-    # rows are instance-major: instance 0's branches, then instance 1's
-    rows = [x.repeat_interleave(n_br, dim=0) for x in members[:4]]
-    poses = _pose_from_preds(*(x.flatten(0, 1) for x in members[4:6]), *rows,
-                             members.gumbel.flatten(0, 1), cat, pipe, sphere_pts, run_opt)
-    poses = BranchPose(*(f.reshape(n_inst, n_br, *f.shape[1:]) for f in poses))
+    first = members if isinstance(members, GroupMember) else members[0]
+    dev = first.points.device
+    with stage("targets", dev):
+        if not isinstance(members, GroupMember):
+            members = GroupMember(*(torch.stack(f) for f in zip(*members)))
+        n_inst, n_br = members.logits.shape[:2]
+        sphere_pts = _sphere(pipe.sphere_samples, dev)
+        # rows are instance-major: instance 0's branches, then instance 1's
+        rows = [x.repeat_interleave(n_br, dim=0) for x in members[:4]]
+        preds = [x.flatten(0, 1) for x in (*members[4:6], members.gumbel)]
+    poses = _pose_from_preds(*preds[:2], *rows, preds[2], cat, pipe, sphere_pts, run_opt)
 
-    scale = poses.scale[:, 0]
-    scale_norm = norm(scale)
-    pick, loss = _arbitrate(members.points, poses, scale_norm, cat.up_sym, pipe.arbiter,
-                            pipe.arbiter_margin, cat.up_axis_index)
-    branch_id = pick if use_visual else pick + 1
-    which = torch.arange(n_inst, device=dev)
-    return PoseEstimate(poses.rotation[which, pick], poses.translation[which, pick], scale,
-                        scale_norm, loss, branch_id.to(torch.int32))
+    with stage("finish", dev):
+        poses = BranchPose(*(f.reshape(n_inst, n_br, *f.shape[1:]) for f in poses))
+        scale = poses.scale[:, 0]
+        scale_norm = norm(scale)
+        pick, loss = _arbitrate(members.points, poses, scale_norm, cat.up_sym, pipe.arbiter,
+                                pipe.arbiter_margin, cat.up_axis_index)
+        branch_id = pick if use_visual else pick + 1
+        which = torch.arange(n_inst, device=dev)
+        return PoseEstimate(poses.rotation[which, pick], poses.translation[which, pick], scale,
+                            scale_norm, loss, branch_id.to(torch.int32))
 
 
 def estimate_pose_ensembles(group: EnsembleInput, cat: CategoryConfig, pipe: PipelineConfig,
@@ -435,16 +458,20 @@ def estimate_pose_ensembles(group: EnsembleInput, cat: CategoryConfig, pipe: Pip
     if len(group.draws) != n_runs:
         raise ValueError(f"expected {n_runs} PoseDraws (pipe.restarts), got {len(group.draws)}")
     single = dataclasses.replace(pipe, restarts=1)
-    ests = [estimate_pose_group(
-        branch_outputs(group.dino_fn, group.shot_fn, group.points, group.point_valid, group.count,
-                       d, use_visual, use_geo),
-        cat, single, run_opt, use_visual) for d in group.draws]
+    dev = group.points.device
+    ests = []
+    for d in group.draws:
+        with stage("mlps", dev):
+            member = branch_outputs(group.dino_fn, group.shot_fn, group.points, group.point_valid,
+                                    group.count, d, use_visual, use_geo)
+        ests.append(estimate_pose_group(member, cat, single, run_opt, use_visual))
     if n_runs == 1:
         return ests[0]
-    i = torch.argmin(torch.stack([e.loss for e in ests]), dim=0)
-    which = torch.arange(group.points.shape[0], device=i.device)
-    return PoseEstimate(*(torch.stack([getattr(e, f) for e in ests])[i, which]
-                          for f in PoseEstimate._fields))
+    with stage("finish", dev):
+        i = torch.argmin(torch.stack([e.loss for e in ests]), dim=0)
+        which = torch.arange(group.points.shape[0], device=i.device)
+        return PoseEstimate(*(torch.stack([getattr(e, f) for e in ests])[i, which]
+                              for f in PoseEstimate._fields))
 
 
 def _group_of_one(fn: Optional[BranchFn]) -> Optional[BranchFn]:

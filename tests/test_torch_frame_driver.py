@@ -24,6 +24,7 @@ from cppf2_torch.infer.pipeline import BranchDraws, PoseDraws
 from cppf2_torch.models import dinov2 as tdino
 from cppf2_torch.models import porting as tport
 from cppf2_torch.models.porting import load_vit
+from cppf2_torch.utils import profiling
 from cppf2_tpu.config import CATEGORIES as J_CATEGORIES
 from cppf2_tpu.config import PipelineConfig as JPipe
 from cppf2_tpu.eval import driver as jdriver
@@ -424,3 +425,59 @@ def test_dispatch_frame_with_extractor_runs_its_backbone(frame_reference):
         rgb, depth2, big, K, tmodels["bowl"], "bowl", pipe, device="cpu", draws=d, crop=None,
         dino_extractor=text, run_opt=False)])[0]
     np.testing.assert_array_equal(got[0], want[0])
+
+
+def _flush_pending():
+    """A frame of nothing, which takes what earlier calls left outside a frame."""
+    with profiling.frame_span("dispatch"):
+        pass
+
+
+def test_a_frame_is_one_record_that_its_fetch_joins(frame_reference):
+    """One `dispatch_frame` and `fetch_frames`: one frame record, `dispatch`
+    its root, a draw made before it counted in it, the uploads of the groups
+    (depth, K, masks, origins, rgb) and of the single (depth, mask, K)
+    counted with their bytes, and the fetch in the same record."""
+    rgb, depth, dets, _, tvit, tmodels, draws = frame_reference
+    pipe = TPipe(**PIPE)
+    _flush_pending()
+    prev = profiling.tracing(True)
+    try:
+        tdriver.draw_instance((H, W), dets[0][1], "mug", pipe, "cpu", torch.Generator().manual_seed(0))
+        pends = tdriver.dispatch_frame(rgb, depth, dets, K, tmodels, pipe, vit=tvit, device="cpu",
+                                       draws=draws, stride=STRIDE, out_size=OUT)
+        n = len(profiling.frames())
+        tdriver.fetch_frames(pends)
+    finally:
+        profiling.tracing(prev)
+    recs = profiling.frames()
+    rec = recs[-1]
+    assert len(recs) == n and rec.traced
+    assert {p.frame if hasattr(p, "idxs") else p[1].frame for p in pends} == {rec.id}
+    assert {k: v[0] for k, v in rec.spans.items()} == {
+        "draws": 1, "dispatch": 1, "plan": 1, "single": 1, "upload": 8, "vit": 1, "stack": 2,
+        "group": 2, "fetch": 1}
+    assert rec.counters == {"instances": 4, "singles": 1, "uploads": 8, "eager_runs": 5,
+                            "upload_bytes": 2 * depth.nbytes + 2 * K.nbytes + 4 * H * W + 3 * 2 * 4
+                            + rgb.nbytes}
+    parents = {(name, parent) for name, parent, _, _ in rec.intervals}
+    assert parents == {("draws", None), ("dispatch", None), ("fetch", None), ("plan", "dispatch"),
+                       ("single", "dispatch"), ("upload", "single"), ("upload", "dispatch"),
+                       ("vit", "dispatch"), ("stack", "dispatch"), ("group", "dispatch")}
+    root = next(i for i in rec.intervals if i[0] == "dispatch")
+    assert rec.start_ns <= root[2] <= root[3] <= rec.end_ns
+
+
+@pytest.mark.parametrize("visual", [True, False], ids=["visual", "geometric"])
+def test_the_stages_of_a_frame_in_order(frame_reference, visual):
+    """`stage_log()` around a frame: the single (the empty mask: zero
+    descriptors on the visual route), the ViT stage, then each group's
+    stages; `descriptors` only where the chunk has a visual stage."""
+    rgb, depth, dets, _, tvit, tmodels, draws = frame_reference
+    pose = ["targets", "targets", "center_vote", "backvote", "cone_vote", "align", "finish", "finish"]
+    with profiling.stage_log() as log:
+        tdriver.dispatch_frame(rgb, depth, dets, K, tmodels, TPipe(**PIPE), vit=tvit, device="cpu",
+                               draws=draws, stride=STRIDE, out_size=OUT, use_visual=visual)
+    single = ["frontend", *(["mlps"] if visual else []), "mlps", *pose, "finish"]
+    group = ["frontend", *(["descriptors"] if visual else []), "mlps", *pose, "finish"]
+    assert log == single + (["vit"] if visual else []) + group * 2

@@ -384,3 +384,90 @@ def test_program_bodies_make_no_host_reads(five_reference, monkeypatch):
     assert {name for name, _ in bodies} == {"vit", "frame", "frontend", "pose", "visual",
                                             "extractor", "rows"}
     assert all(not seen for _, seen in bodies), bodies
+
+
+def test_a_capture_counts_in_the_frame_record_with_its_host_ms(monkeypatch):
+    """A call that captures is a `capture` span and adds a capture and its
+    host ms to the open frame's counters; every call that replays adds a
+    replay, as `copy_in`, `launch` and `clone` spans. The card's capture and
+    graph are stood in for (this machine has no card)."""
+    from types import SimpleNamespace
+
+    from cppf2_torch.utils import profiling
+
+    def capture(self, leaves, spec, tensors):
+        self.static = [x.clone() for x in tensors]
+        self.graph = SimpleNamespace(replay=lambda: None)
+        self.outputs = self.fn(*self.static)
+        self.capture_ms = 12.5
+
+    monkeypatch.setattr(programs, "_eager", lambda tensors: False)
+    monkeypatch.setattr(programs.Program, "_capture", capture)
+    x = torch.arange(4.0)
+    prog = programs.program({}, ("double",), lambda t: t * 2, (x,))
+    with profiling.frame_span("dispatch"):   # takes what earlier calls left outside a frame
+        pass
+    with profiling.frame_span("dispatch"):
+        first = prog(x)
+        again = prog(x + 1)
+    rec = profiling.frames()[-1]
+    assert torch.equal(first, x * 2) and torch.equal(again, x * 2)   # the stand-in graph does nothing
+    assert rec.counters == {"captures": 1, "capture_ms": 12.5, "replays": 2}
+    assert {k: v[0] for k, v in rec.spans.items()} == {"dispatch": 1, "capture": 1, "copy_in": 1,
+                                                       "launch": 2, "clone": 2}
+    assert prog.replays == 2 and prog.eager_runs == 0
+
+
+def test_an_eager_run_counts_in_the_frame_record():
+    from cppf2_torch.utils import profiling
+
+    x = torch.arange(4.0)
+    prog = programs.program({}, ("double",), lambda t: t * 2, (x,))
+    with profiling.frame_span("dispatch"):   # takes what earlier calls left outside a frame
+        pass
+    with profiling.frame_span("dispatch"):
+        prog(x)
+    assert profiling.frames()[-1].counters == {"eager_runs": 1}
+
+
+def test_stages_launch_nothing_on_the_cpu_and_do_not_nest(monkeypatch):
+    """`stage` launches its marker and `stage_mark_end` only for a CUDA
+    device (the launch stood in for here), raises when nested, names both
+    stages, and is released after the raise."""
+    from cppf2_torch.utils import profiling
+
+    launched = []
+    monkeypatch.setattr(profiling, "_mark", lambda which, dev: launched.append((which, dev.type)))
+    with profiling.stage_log() as log:
+        with profiling.stage("align", "cpu"):
+            pass
+        assert launched == []
+        with profiling.stage("align", torch.device("cuda")):
+            pass
+        align = profiling.STAGES.index("align")
+        assert launched == [(align, "cuda"), (len(profiling.STAGES), "cuda")]
+        with pytest.raises(RuntimeError, match="stage 'vit' opened inside stage 'targets'"):
+            with profiling.stage("targets", "cpu"):
+                with profiling.stage("vit", "cpu"):
+                    pass
+        with profiling.stage("finish", "cpu"):
+            pass
+    assert log == ["align", "align", "targets", "finish"]
+    with pytest.raises(ValueError):
+        profiling.stage("nowhere", "cpu")
+
+
+def test_the_marker_kernels_follow_the_stages_in_order():
+    """`csrc/stage.cu` defines one `stage_mark_<stage>` kernel per stage, in
+    `profiling.STAGES`' order (the launch entry takes a stage's index), then
+    `stage_mark_end`; no name is one the kernel rooflines look for."""
+    import re
+    from pathlib import Path
+
+    from cppf2_torch.utils import profiling
+
+    src = (Path(programs.__file__).resolve().parents[1] / "csrc" / "stage.cu").read_text()
+    body = src[src.index("#define STAGES(X)"):src.index("#define DEFINE_MARKER")]
+    names = re.findall(r"X\((\w+)\)", body)
+    assert names == [*profiling.STAGES, "end"]
+    assert not any(k in n for n in names for k in ("mha_fwd_kernel", "hist16_kernel"))
