@@ -32,8 +32,9 @@ training programs' eager baseline). Phases 11 to 16 run the captured programs:
      sphere, 100 alignment steps, ViT-L/14 at stride 8 with seeded random
      weights, bf16 branches with the shipped mug weights. The launch counts
      are zeroed just before it and read just after: 24 K1 launches (one ViT
-     forward) and 4 K2 launches (4 levels, both branches as the two rows of
-     each launch). It runs again with
+     forward), 4 K2 launches (4 levels, both branches as the two rows of
+     each launch) and 1 K4 launch (the alignment, both branches as its two
+     rows). It runs again with
      every kernel swapped for its plain version and the same draws, and the
      two poses must agree. Then the e2e time per instance, the stage
      breakdown and the device-busy share. Then the fused level
@@ -564,6 +565,7 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     import torch
 
     from cppf2_torch.eval import driver
+    from cppf2_torch.infer import alignment, pipeline
     from cppf2_torch.models.dinov2 import DinoViT
     from cppf2_torch.ops import attention, hist16
 
@@ -590,12 +592,13 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     # the ones through the fused entry: on this path all of them, one a level
     # for both branches (B = 2 rows)
     launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
-                "hist16_level_peak": hist16.hist16_level_peak.launches}
+                "hist16_level_peak": hist16.hist16_level_peak.launches,
+                "align_pose": alignment.align_pose.launches}
     say(f"[slice] first call {first_ms:.1f} ms, launches {launches}")
     if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels,
-                    "hist16_level_peak": pipe.vote_levels}:
-        raise AssertionError(f"launch counts {launches}: expected 24 K1 and 4 K2 (two rows each), "
-                             f"all fused levels")
+                    "hist16_level_peak": pipe.vote_levels, "align_pose": 1}:
+        raise AssertionError(f"launch counts {launches}: expected 24 K1, 4 K2 (two rows each, all "
+                             f"fused levels) and 1 K4 (both branches as its two rows)")
 
     r = est.rotation.double().cpu().numpy()
     vals = [est.rotation, est.translation, est.scale, est.scale_norm, est.loss]
@@ -615,16 +618,17 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
         kernel_times.append((time.perf_counter() - t0) * 1e3)
 
     # the same draws with every kernel swapped for its plain version
-    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak
+    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak, pipeline.align_pose
     attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
     hist16.hist16_level_peak = hist16.hist16_level_peak_plain
+    pipeline.align_pose = alignment.align_pose_plain
     try:
         plain = once()
         t0 = time.perf_counter()
         once()
         plain_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak = saved
+        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak, pipeline.align_pose = saved
     rp = plain.rotation.double().cpu().numpy()
     ang = math.degrees(math.acos(max(-1.0, min(1.0, (np.trace(r.T @ rp) - 1) / 2))))
     dt = float(torch.max(torch.abs(est.translation - plain.translation)))
@@ -1004,6 +1008,73 @@ def check_sphere(dev, votes, sph, tol):
     return rows
 
 
+ALIGN_FLOPS = 45          # f32 operations a point a step: d, canon, sign, M (FMA as two), S
+ALIGN_BYTES = 68          # bytes a pair read once: 2 gathered points, 2 indices, pred, weight
+
+
+def check_align(dev):
+    """K4, the alignment's Adam loop, against the plain loop at the main
+    path's shapes: B = 2 (an instance's two branches) and 16 (a group of
+    eight), 5,000 kept pairs, 100 steps. On predictions moved 10 m away (a
+    loss without kinks on the path) every row within 1e-2 deg and mm of the
+    plain loop run in float64 on the CPU (where a row's signs cancel, the
+    float32 loop's own rounding moves its Adam steps). On
+    realistic ones the L1 loss's kinks amplify last bits, so the gaps are
+    printed beside the plain loop's own between the card and the CPU, and
+    held to the benchmark check's 0.3 deg and 1 mm, and on the float64 loss
+    reached (the kernel's mean no more than 0.1% above the plain loop's)."""
+    import torch
+
+    from cppf2_torch.infer import alignment
+
+    rows = []
+    for b in (2, 16):
+        k, steps = 5000, 100
+        args = [x.to(dev) for x in alignment._synthetic_rows(np.random.default_rng(40 + b), b, k)]
+        smooth = [x.to(dev) for x in alignment._synthetic_rows(np.random.default_rng(40 + b), b, k,
+                                                                offset=10.0)]
+        smooth64 = [x.cpu().double() if x.is_floating_point() else x.cpu() for x in smooth]
+        short = alignment._pose_gaps(alignment.align_pose(*smooth, False, 1, steps, 1e-2),
+                                     alignment.align_pose_plain(*smooth64, False, 1, steps, 1e-2))
+        if max(float(x.max()) for x in short) >= 1e-2:   # float32 over a path of about a metre
+            raise AssertionError(f"align_pose B={b}: without kinks {short} from the plain loop")
+        got = alignment.align_pose(*args, False, 1, steps, 1e-2)
+        again = alignment.align_pose(*args, False, 1, steps, 1e-2)
+        want = alignment.align_pose_plain(*args, False, 1, steps, 1e-2)
+        on_cpu = alignment.align_pose_plain(*(x.cpu() for x in args), False, 1, steps, 1e-2)
+        torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip(got, again)):
+            raise AssertionError(f"align_pose B={b}: two calls differ")
+        deg, mm = alignment._pose_gaps(got, want)
+        plain_deg, plain_mm = alignment._pose_gaps(want, on_cpu)
+        loss_k, loss_p = (alignment._row_losses64(args, r, False) for r in (got, want))
+        if float(deg.max()) >= 0.3 or float(mm.max()) >= 1.0 or \
+                float(loss_k.mean()) > 1.001 * float(loss_p.mean()):
+            raise AssertionError(f"align_pose B={b}: {deg.tolist()} deg, {mm.tolist()} mm from the "
+                                 f"plain loop, loss {float(loss_k.mean())} against {float(loss_p.mean())}")
+        ms, dev_ms = timed(lambda: alignment.align_pose(*args, False, 1, steps, 1e-2))
+        plain_ms = time_ms(lambda: alignment.align_pose_plain(*args, False, 1, steps, 1e-2),
+                           iters=2, warmup=1, repeats=1)
+        flops = b * 2 * k * (ALIGN_FLOPS * steps + 12)
+        bound_ms = max(flops / (2 * PEAK_F32_INSTR), b * k * ALIGN_BYTES / PEAK_BYTES) * 1e3
+        above_bound(f"align_pose B={b}", bound_ms, ms=ms, device_ms=dev_ms)
+        c, per_block, staged = alignment.cluster_plan(b, k, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        say(f"[K4 align_pose] B={b} K={k} steps={steps}: {c} blocks a row, {per_block} points a "
+            f"block (staged {staged}); against the plain loop on the card: without kinks "
+            f"{float(short[0].max()):.2g} deg / {float(short[1].max()):.2g} mm, realistic "
+            f"{float(deg.max()):.4f} deg / {float(mm.max()):.4f} mm (median {float(deg.median()):.4f} "
+            f"/ {float(mm.median()):.4f}; the plain loop card against CPU {float(plain_deg.max()):.4f} "
+            f"/ {float(plain_mm.max()):.4f}); float64 loss reached {float(loss_k.mean()):.7f} against "
+            f"{float(loss_p.mean()):.7f}; kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms on the "
+            f"device alone ({dev_ms / steps * 1e3:.2f} us a step)  plain {plain_ms:.3f} ms  bound "
+            f"{bound_ms:.5f} ms (operations; the chain of {steps} cluster-wide reductions bounds it)")
+        rows.append(dict(b=b, k=k, deg=float(deg.max()), mm=float(mm.max()),
+                         plain_deg=float(plain_deg.max()), plain_mm=float(plain_mm.max()), ms=ms,
+                         device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, cluster=c))
+    return rows
+
+
 FRAME_CATS = ["bottle", "bowl", "can", "mug"]
 
 
@@ -1068,10 +1139,12 @@ def zero_counts():
     """The launch counters, on the wrappers themselves (`_MHA`, `_PEAK`,
     `_LEVEL`), where they stay while a module's name is swapped and where
     the programs credit their replays."""
+    from cppf2_torch.infer import alignment
     from cppf2_torch.ops import attention, hist16, sphere
 
     attention._MHA.launches = sphere.sphere_accumulate.launches = 0
     hist16._PEAK.launches = hist16._LEVEL.launches = 0
+    alignment.align_pose.launches = 0
 
 
 def read_counts():
@@ -4229,6 +4302,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from cppf2_torch import resolve_device
+    from cppf2_torch.infer import alignment
     from cppf2_torch.ops import _build, attention, hist16, sphere
 
     dev = resolve_device("cuda")
@@ -4252,6 +4326,7 @@ def main() -> int:
     install_tallies()
     k2 = check_hist16(dev)
     k1 = check_mha(dev)
+    k4 = check_align(dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4382,6 +4457,14 @@ def main() -> int:
              ms=k3_main["ms"], plain_ms=k3_main["plain_ms"], bound_ms=k3_main["bound_ms"],
              bound_by="operations", library_ms=k3_main["library_ms"],
              device_ms=k3_main["device_ms"]),
+        # K4 replaces no TPU kernel (the JAX package's Adam loop is XLA's
+        # lax.fori_loop); B = 2 is an instance's two branches, `by_rows` holds
+        # B = 16 too; launches: the slice's, one for both branches
+        dict(name="align_pose", route="cuda", source=alignment.SOURCE, replaces=alignment.REPLACES,
+             launches=launches["align_pose"], max_deg=max(r["deg"] for r in k4),
+             max_mm=max(r["mm"] for r in k4), ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"],
+             bound_ms=k4[0]["bound_ms"], bound_by="operations", library_ms=None,
+             device_ms=k4[0]["device_ms"], by_rows=k4),
     ]
     say(f"[slice] e2e_ms_per_instance {e2e_ms:.1f}")
     say(f"[eval] evaluate_real275_parallel ms_per_instance {eval_ms:.1f}, without model loading "
