@@ -41,7 +41,8 @@ import torch
 from perfbench import check, flops, spec, stats, trace
 from perfbench.reference.frontend import auto_crop
 from perfbench.scenes.generate import REAL275_INTRINSICS, frame_set
-from perfbench.system import System, Taps, rows_of
+from perfbench.system import System, Taps, rows_of, vit_config
+from perfbench.weights import visual_branch_tree
 
 
 def _sync(dev):
@@ -165,8 +166,7 @@ def _window(system: System, frames, mix: Dict, gen, seconds: float, count: Optio
 def _bounds(system: System, cfg: Dict, taps: Taps):
     """The least device time of the window's K1 and K2 calls, from shapes."""
     v = cfg["vit"]
-    grid = cfg["crop"] // cfg["stride"]
-    tokens = grid * grid + 1
+    tokens = spec.backbone(spec.arch(v)).tokens(v, cfg["crop"] // cfg["stride"])
     k1 = sum(v["depth"] * flops.k1_seconds(b, v["num_heads"], tokens, v["embed_dim"] // v["num_heads"])
              for b in taps.vit_calls)
     pipe = system.pipe
@@ -176,18 +176,21 @@ def _bounds(system: System, cfg: Dict, taps: Taps):
     return k1, k2, tokens
 
 
-def _model_flops(cfg: Dict, items, tokens: int, pipe) -> float:
+def _model_flops(cfg: Dict, items, tokens: int, pipe, seed: int) -> float:
+    """Forward FLOPs of the backbone over each item's crop and of both branch
+    MLPs, the visual branch as wide as the backbone (`visual_branch_tree`)."""
     from perfbench.reference.checkpoints import load_params_msgpack
 
     v = cfg["vit"]
-    per_vit = flops.vit_flops(tokens, v["embed_dim"], v["depth"])
+    per_vit = spec.backbone(spec.arch(v)).flops(v, tokens)
     cache = {}
     total = 0.0
     for cat, _ in items:
         if cat not in cache:
-            trees = [load_params_msgpack(os.path.join(cfg["branches"], b, cat, "params.msgpack"))
-                     for b in ("shot", "dino")]
-            cache[cat] = flops.branch_flops(*trees, pipe.n_points, pipe.num_pairs)
+            shot, dino = (load_params_msgpack(os.path.join(cfg["branches"], b, cat, "params.msgpack"))
+                          for b in ("shot", "dino"))
+            dino = visual_branch_tree(dino, v["embed_dim"], seed)
+            cache[cat] = flops.branch_flops(shot, dino, pipe.n_points, pipe.num_pairs)
         total += per_vit + cache[cat]
     return total
 
@@ -240,6 +243,10 @@ def run_cell(cell_name: str, cfg: Dict, mix: Dict, limits: Dict, metrics_e2e: Li
     """One run; returns the result line's object."""
     dev = torch.device(device)
     t0 = t_process
+    # a vit group that the program or the backbone's reference cannot build as
+    # it states fails here, before set-up, and never runs as another model
+    vit_config(cfg["vit"])
+    spec.backbone(spec.arch(cfg["vit"])).leaves(cfg["vit"])
     frames = frame_set(mix, seed, dev)
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -301,7 +308,8 @@ def run_cell(cell_name: str, cfg: Dict, mix: Dict, limits: Dict, metrics_e2e: Li
                               dispatch_ms=host.dispatch_ms, replays=replays_host,
                               host_frames=host.frames, traced_dispatch_ms=rec.dispatch_ms,
                               vit_crops=sum(taps.vit_calls), k1_bound_s=k1, k2_bound_s=k2,
-                              model_flops=_model_flops(cfg, rec.model_items, tokens, system.pipe))
+                              model_flops=_model_flops(cfg, rec.model_items, tokens, system.pipe,
+                                                        seed))
         for m in metrics_layer:
             value = spec.reader(m["name"])(ctx)
             if value is not None:

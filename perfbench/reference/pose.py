@@ -12,8 +12,10 @@ noisy-pair filter, cone votes, alignment, arbitration). It returns the 22
 values the driver packs for an instance and the ViT's token grid.
 
 Its weights are its own: the branches read with its own msgpack reader from
-the configuration's checkpoint root, the ViT drawn again from the seed
-(`perfbench/weights.py`).
+the configuration's checkpoint root (the visual branch's input as wide as the
+backbone, `weights.visual_branch_tree`), the ViT drawn again from the seed
+(`perfbench/weights.py`). The ViT module is the configuration's backbone
+file's (`perfbench/backbones/<arch>.py::reference`).
 """
 
 from __future__ import annotations
@@ -24,16 +26,17 @@ from typing import Dict, NamedTuple
 import numpy as np
 import torch
 
+from perfbench import spec
 from perfbench.reference import precision
 from perfbench.reference.checkpoints import load_params_msgpack
 from perfbench.reference.config import CATEGORIES, PipelineConfig
 from perfbench.reference.cppf import DinoBranch, ShotBranch
-from perfbench.reference.dinov2 import (DinoViT, ViTConfig, bbox_crop_token_grid, extractor_grid,
-                                        interpolate_features, sample_crop_descriptors)
+from perfbench.reference.dinov2 import (bbox_crop_token_grid, extractor_grid, interpolate_features,
+                                        sample_crop_descriptors)
 from perfbench.reference.frontend import auto_crop, crop_origin, mask_bbox, preprocess_frame, resize_crop
 from perfbench.reference.pipeline import EnsembleInput, PoseDraws, estimate_pose_ensembles, stack_draws
 from perfbench.reference.porting import load_branch
-from perfbench.weights import load_vit, vit_tensors
+from perfbench.weights import load_vit, visual_branch_tree, vit_tensors
 
 
 class Result(NamedTuple):
@@ -46,11 +49,11 @@ class Result(NamedTuple):
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _branches(root: str, name: str, dtype, device):
+def _branches(root: str, name: str, width: int, seed: int, dtype, device):
     cat = CATEGORIES[name]
     shot = ShotBranch(tuple_size=cat.tuple_size, compute_dtype=dtype)
-    tree = load_params_msgpack(os.path.join(root, "dino", name, "params.msgpack"))
-    width = tree.get("params", tree)["desc_transform"]["kernel"].shape[0]
+    tree = visual_branch_tree(load_params_msgpack(os.path.join(root, "dino", name, "params.msgpack")),
+                              width, seed)
     dino = DinoBranch(tuple_size=cat.tuple_size, desc_dim=width, compute_dtype=dtype)
     load_branch(shot, load_params_msgpack(os.path.join(root, "shot", name, "params.msgpack")))
     load_branch(dino, tree)
@@ -64,23 +67,16 @@ class Reference:
         self.cfg = cfg
         self.pipe = PipelineConfig(**cfg["pipeline"])
         v = cfg["vit"]
-        prec = cfg["precision"]
-        self.branch_dtype = _DTYPES[prec["branches"]]
-        with torch.device(self.dev):
-            self.vit = DinoViT(ViTConfig(patch_size=v["patch_size"], embed_dim=v["embed_dim"],
-                                         depth=v["depth"], num_heads=v["num_heads"],
-                                         mlp_ratio=v["mlp_ratio"], pretrain_grid=v["pretrain_grid"],
-                                         compute_dtype=prec["vit"], attn_impl="hbm"))
+        self.seed = seed
+        self.branch_dtype = _DTYPES[cfg["precision"]["branches"]]
+        self.vit = spec.backbone(spec.arch(v)).reference(v, cfg["precision"], self.dev)
         load_vit(self.vit, {k: t.float() for k, t in vit_tensors(v, seed, self.dev).items()})
-        with torch.no_grad():   # the embeddings are stored in the compute dtype, as they are served
-            for p in (self.vit.cls_token, self.vit.pos_embed):
-                p.data = p.data.to(_DTYPES[prec["vit"]])
-        self.vit.eval()
         self.branches: Dict[str, tuple] = {}
 
     def _models(self, name):
         if name not in self.branches:
-            self.branches[name] = _branches(self.cfg["branches"], name, self.branch_dtype, self.dev)
+            self.branches[name] = _branches(self.cfg["branches"], name, self.cfg["vit"]["embed_dim"],
+                                            self.seed, self.branch_dtype, self.dev)
         return self.branches[name]
 
     def _visual(self, rgb: np.ndarray, mask: np.ndarray, mask_t, pixel_yx, tiered: bool):

@@ -4,8 +4,18 @@ A configuration is the file its entry names; a traffic mix is
 `perfbench/traffic/<traffic>.json`; a per-layer metric is
 `perfbench/metrics/<metric>.py` with a `read(ctx)` function (a split such as
 `<metric>.eval` without a file of its own reads `<metric>.py`); the limits of a
-cell's output check are `perfbench/limits/<cell>.json`. A later cell or
+cell's output check are `perfbench/limits/<cell>.json`; a backbone
+architecture is `perfbench/backbones/<arch>.py`, named by the `arch` key of a
+configuration's `vit` group (`dinov2` where it has none). A later cell or
 metric is added by adding such files and entries, never by editing one.
+
+A new backbone architecture adds its backbone file (`leaves(vit)`, the drawn
+weights' names, shapes and kinds; `tokens(vit, grid)`, the tokens one crop
+sends through K1; `flops(vit, tokens)`, one crop's forward FLOPs;
+`reference(vit, precision, device)`, the plain reference's module), its plain
+reference under `perfbench/reference/`, its configuration, its cell and the
+cell's limits. The program's side needs the port's `ViTConfig` to have a
+field for every other key of the `vit` group.
 """
 
 from __future__ import annotations
@@ -63,6 +73,25 @@ def reader(metric: str, here: Path = HERE) -> Callable:
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod.read
+
+
+def arch(vit: Dict) -> str:
+    """The backbone architecture a configuration's `vit` group names."""
+    return vit.get("arch", "dinov2")
+
+
+def backbone(name: str, here: Path = HERE):
+    """The module `backbones/<name>.py`, with its `leaves`, `tokens`, `flops`
+    and `reference` functions."""
+    path = here / "backbones" / f"{name}.py"
+    if not path.exists():
+        known = sorted(p.stem for p in (here / "backbones").glob("*.py"))
+        raise FileNotFoundError(f"no backbone {name!r}: {path} is missing (known: {known})")
+    mod_name = "perfbench_backbone_" + "".join(c if c.isalnum() else "_" for c in name)
+    spec = importlib.util.spec_from_file_location(mod_name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def metrics_of(bench: Dict, cell_name: str, kind: str) -> List[Dict]:

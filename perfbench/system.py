@@ -3,7 +3,9 @@ configuration file says.
 
 This is the one module of the harness that imports the program. It builds
 the kernels, loads the branch models from the configuration's checkpoint
-root, makes the ViT from the seed (`perfbench/weights.py`), and exposes the
+root (the visual branch's input width widened to the backbone's where the
+two differ, `weights.visual_branch_tree`), makes the ViT from the seed
+(`perfbench/weights.py`) as the whole `vit` group states it, and exposes the
 timed path: the draws of a frame (`driver.draw_instance` in detection order,
 from a torch.Generator seeded from `--seed`, as `evaluate_real275` makes
 them), `driver.dispatch_frame` and `driver.fetch_frames`. `Taps` wraps the
@@ -14,22 +16,43 @@ run, and the outputs of the frames the check samples.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
+import os
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
-from perfbench.weights import load_vit, vit_tensors
+from perfbench.weights import load_vit, visual_branch_tree, vit_tensors
+
+
+def vit_config(vit: Dict):
+    """The port's `ViTConfig` from every key of a configuration's `vit` group
+    but `arch`. A key the port's `ViTConfig` has no field for is refused:
+    the backbone is built as the configuration states it, or not at all."""
+    from cppf2_torch.models.dinov2 import ViTConfig
+
+    given = {k: v for k, v in vit.items() if k != "arch"}
+    unknown = sorted(set(given) - {f.name for f in dataclasses.fields(ViTConfig)})
+    if unknown:
+        raise ValueError(f"the port's ViTConfig has no field {unknown}: the configuration's "
+                         f"vit group cannot be built as it states")
+    return ViTConfig(**given)
 
 
 class System:
     def __init__(self, cfg: Dict, seed: int, device):
-        from cppf2_torch.config import PipelineConfig
+        from cppf2_torch.config import CATEGORIES, PipelineConfig
         from cppf2_torch.device import resolve_device
         from cppf2_torch.eval import driver
-        from cppf2_torch.models.dinov2 import DinoFeatureExtractor, DinoViT, ViTConfig
+        from cppf2_torch.models.checkpoints import load_params_msgpack
+        from cppf2_torch.models.cppf import DinoBranch
+        from cppf2_torch.models.dinov2 import DinoFeatureExtractor, DinoViT
+        from cppf2_torch.models.porting import load_branch
 
+        v = cfg["vit"]
+        vcfg = vit_config(v)
         self.driver = driver
         self.dev = resolve_device(device)
         if self.dev.type == "cuda":
@@ -42,12 +65,16 @@ class System:
         if cfg["precision"] != {"vit": "bfloat16", "branches": "bfloat16", "pose_graph": "float32"}:
             raise ValueError(f"the frame driver serves the ViT and the branches in bfloat16 and the "
                              f"pose graph in float32, not {cfg['precision']}")
-        v = cfg["vit"]
-        vcfg = ViTConfig(patch_size=v["patch_size"], embed_dim=v["embed_dim"], depth=v["depth"],
-                         num_heads=v["num_heads"], mlp_ratio=v["mlp_ratio"],
-                         pretrain_grid=v["pretrain_grid"])
         self.models = driver.load_category_models(cfg["branches"], cfg["categories"],
                                                   compute_dtype=torch.bfloat16, device=self.dev)
+        for name in cfg["categories"]:
+            tree = load_params_msgpack(os.path.join(cfg["branches"], "dino", name, "params.msgpack"))
+            wide = visual_branch_tree(tree, vcfg.embed_dim, seed)
+            if wide is not tree:
+                dino = DinoBranch(tuple_size=CATEGORIES[name].tuple_size,
+                                  compute_dtype=torch.bfloat16, desc_dim=vcfg.embed_dim)
+                self.models[name] = driver.CategoryModels(self.models[name].shot,
+                                                          load_branch(dino, wide).to(self.dev).eval())
         tensors = vit_tensors(v, seed, self.dev)
         if cfg["route"] == "vit":
             with torch.device(self.dev):

@@ -156,3 +156,18 @@ def test_a_fault_of_the_singles_route_alone_is_not_correct(singles_cell, monkeyp
     out = _run(singles_cell, monkeypatch, SINGLES_CELL)
     assert out["correct"] is False, out["checked"]
     assert out["checked"]["off_route_share"]["value"] == 1.0
+
+
+@pytest.fixture(scope="module")
+def vits_cell(cell):
+    """The clutter cell at the small size with the ViT at ViT-S/14's widths
+    (384 wide, 6 heads), narrower than the checkpoints' visual branch."""
+    bench, cfg, mix, limits, frames = cell
+    cfg = copy.deepcopy(cfg)
+    cfg["vit"].update(embed_dim=384, num_heads=6)
+    return bench, cfg, mix, limits, frames
+
+
+def test_a_sound_run_at_another_backbone_width_is_correct(vits_cell, monkeypatch):
+    out = _run(vits_cell, monkeypatch)
+    assert out["correct"] is True, out["checked"]

@@ -1,6 +1,6 @@
 """What the benchmark imports: nothing of JAX, flax or the JAX package on its
 run path (top-level names compared whole), and nothing of the program in the
-plain reference."""
+plain reference or in the backbone files."""
 
 import ast
 import subprocess
@@ -37,7 +37,17 @@ def test_the_reference_loads_nothing_of_the_program():
     assert not top & (FORBIDDEN | {"cppf2_torch"})
 
 
-@pytest.mark.parametrize("path", sorted((HERE / "reference").glob("*.py")), ids=lambda p: p.name)
+def test_the_backbones_load_nothing_of_the_program():
+    names = sorted(p.stem for p in (HERE / "backbones").glob("*.py"))
+    assert "dinov2" in names
+    top = _loaded("from perfbench import spec\n" + "\n".join(
+        f"spec.backbone({n!r}).reference" for n in names))
+    assert not top & (FORBIDDEN | {"cppf2_torch"})
+
+
+@pytest.mark.parametrize("path", sorted((HERE / "reference").glob("*.py"))
+                         + sorted((HERE / "backbones").glob("*.py")),
+                         ids=lambda p: p.name if p.parent.name == "reference" else f"backbones/{p.name}")
 def test_no_reference_source_imports_the_program(path):
     for node in ast.walk(ast.parse(path.read_text())):
         names = []

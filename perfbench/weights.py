@@ -1,12 +1,14 @@
-"""The ViT's weights, made on the device from the seed.
+"""The ViT's weights, made on the device from the seed, and the visual
+branch's input width.
 
 DINOv2's released weights are not in the repository, and weights do not
 change the work a forward pass does. So the benchmark draws every leaf of a
 ViT at the configuration's published widths from one `torch.Generator` on the
 device, in two large calls: the matrices in bfloat16 (the type they are
-served in), the vectors in float32. The program under test and the plain
-reference each load the same tensors by name from `vit_tensors`, called
-with the same seed on the same device.
+served in), the vectors in float32. The leaves are those the configuration's
+backbone file lists (`perfbench/backbones/<arch>.py::leaves`). The program
+under test and the plain reference each load the same tensors by name from
+`vit_tensors`, called with the same seed on the same device.
 
 The scales follow a trained ViT's orders of magnitude, so that every block
 moves the residual stream: matrices N(0, 1 / fan_in), layer scales
@@ -17,32 +19,14 @@ embeddings 0.02 N(0, 1).
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Tuple
+from typing import Dict
 
 import torch
 
+from perfbench import spec
+
 _SALT = 0x5EED_0F_D1
-
-
-def vit_leaves(vit: Dict) -> List[Tuple[str, Tuple[int, ...], str]]:
-    """(name, shape, kind) of every leaf of a DINOv2 ViT with the widths of
-    `vit` (the configuration's "vit" group), named as the modules name
-    them. kind: "matrix", "embed", "gain", "bias" or "layerscale"."""
-    d, p, g = vit["embed_dim"], vit["patch_size"], vit["pretrain_grid"]
-    hidden = int(d * vit["mlp_ratio"])
-    out = [("patch_embed.weight", (d, p * p * 3), "matrix"), ("patch_embed.bias", (d,), "bias"),
-           ("cls_token", (1, d), "embed"), ("pos_embed", (1 + g * g, d), "embed")]
-    for i in range(vit["depth"]):
-        b = f"blocks.{i}."
-        out += [(b + "norm1.weight", (d,), "gain"), (b + "norm1.bias", (d,), "bias"),
-                (b + "norm2.weight", (d,), "gain"), (b + "norm2.bias", (d,), "bias"),
-                (b + "attn.qkv.weight", (3 * d, d), "matrix"), (b + "attn.qkv.bias", (3 * d,), "bias"),
-                (b + "attn.proj.weight", (d, d), "matrix"), (b + "attn.proj.bias", (d,), "bias"),
-                (b + "mlp_fc1.weight", (hidden, d), "matrix"), (b + "mlp_fc1.bias", (hidden,), "bias"),
-                (b + "mlp_fc2.weight", (d, hidden), "matrix"), (b + "mlp_fc2.bias", (d,), "bias"),
-                (b + "ls1", (d,), "layerscale"), (b + "ls2", (d,), "layerscale")]
-    out += [("norm.weight", (d,), "gain"), ("norm.bias", (d,), "bias")]
-    return out
+_BRANCH_SALT = 0xDE5C_0F_D1
 
 
 def vit_tensors(vit: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
@@ -50,7 +34,7 @@ def vit_tensors(vit: Dict, seed: int, device) -> Dict[str, torch.Tensor]:
     embeddings in bfloat16, vectors in float32."""
     dev = torch.device(device)
     gen = torch.Generator(device=dev).manual_seed((int(seed) ^ _SALT) % (1 << 63))
-    leaves = vit_leaves(vit)
+    leaves = spec.backbone(spec.arch(vit)).leaves(vit)
     wide = [(n, s, k) for n, s, k in leaves if k in ("matrix", "embed")]
     narrow = [(n, s, k) for n, s, k in leaves if k not in ("matrix", "embed")]
     big = torch.randn(sum(math.prod(s) for _, s, _ in wide), generator=gen, device=dev,
@@ -89,3 +73,23 @@ def load_vit(module: torch.nn.Module, tensors: Dict[str, torch.Tensor]) -> torch
                 raise ValueError(f"{name}: module {tuple(own[name].shape)}, drawn {tuple(t.shape)}")
             own[name].copy_(t)
     return module
+
+
+def visual_branch_tree(tree: Dict, width: int, seed: int) -> Dict:
+    """A visual branch's parameter tree that takes `width`-wide descriptors.
+
+    Where the checkpoint's `desc_transform` kernel (d_in, d_out) already
+    takes `width`, `tree` itself. Else a copy in which that one kernel is a
+    (width, d_out) float32 draw from N(0, 1 / width), from a CPU
+    `torch.Generator` seeded from `seed`; its bias and every other leaf stay
+    the checkpoint's. The program, the reference and the model FLOPs all
+    take their visual branch from here."""
+    params = tree.get("params", tree)
+    kernel = params["desc_transform"]["kernel"]
+    if kernel.shape[0] == width:
+        return tree
+    gen = torch.Generator().manual_seed((int(seed) ^ _BRANCH_SALT) % (1 << 63))
+    draw = torch.randn((width, kernel.shape[1]), generator=gen, dtype=torch.float32)
+    wide = dict(params, desc_transform=dict(params["desc_transform"],
+                                            kernel=draw.mul_(math.sqrt(1.0 / width)).numpy()))
+    return dict(tree, params=wide) if "params" in tree else wide
