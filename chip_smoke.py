@@ -27,6 +27,12 @@ training programs' eager baseline). Phases 11 to 16 run the captured programs:
        that returns zeros fails);
        strided (h, T, 64) views of a (T, 3 * 1024) tensor equal the
        contiguous call;
+       K5 swiglu_gate at (R, 2 x 4096) bf16 for R = 1029, 5 x 1029 and
+       8 x 1029 (one ViT-g/14-reg crop at stride 8, a pack of five, of
+       eight): within one bf16 ulp of `gate_plain`, bound 6 bytes an element;
+       a misaligned input refused; the launches of one replay of a ViT-g/14
+       with registers stage program (five crops, counters zeroed just before
+       it): 40 K1 and 40 K5;
   3. the slice at full width: `estimate_instance` for one mug on a 480x640
      synthetic frame (REAL275 K), 8192 points, 50,000 pairs, 1-degree
      sphere, 100 alignment steps, ViT-L/14 at stride 8 with seeded random
@@ -253,7 +259,9 @@ what one replay of phase 12's eight-mug frame launches, and
 `serving_replay_launches`, what one replay of each of phase 13's programs
 credits; K1 carries `train_replay_launches`, the launches of phase 14's
 replayed "dino" render trainer; K1 and K2 carry `accuracy_launches`, phase
-15's ensemble run; K2 carries `study_launches`, phase 16's three studies),
+15's ensemble run; K2 carries `study_launches`, phase 16's three studies;
+K5's row holds one ViT-g/14-reg crop's 1029 rows, the packs of five and eight
+as `by_rows`, and the launches of phase 2's ViT-g/14-reg stage replay),
 then the card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -1073,6 +1081,119 @@ def check_align(dev):
                          plain_deg=float(plain_deg.max()), plain_mm=float(plain_mm.max()), ms=ms,
                          device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms, cluster=c))
     return rows
+
+
+def bf16_ulps(got, want):
+    """Per element, how many bf16 steps apart two bf16 tensors are (+0 and
+    -0 the same value)."""
+    import torch
+
+    def ordered(x):
+        v = x.view(torch.int16).int()
+        return torch.where(v < 0, -(v & 0x7FFF), v)
+
+    return (ordered(got) - ordered(want)).abs()
+
+
+def vitg_stage_launches(dev, crops=5, hw=(480, 640), stride=8, out_size=256):
+    """The K1 and K5 launches of one replay of the frame driver's ViT stage
+    program (`driver._vit_stage`) on DINOv2 ViT-g/14 with registers at its
+    published widths (seeded random weights, bf16), `crops` crops of one
+    frame, the counters zeroed just before the replay."""
+    import torch
+
+    from cppf2_torch.eval import driver
+    from cppf2_torch.models.dinov2 import DinoViT, ViTConfig
+    from cppf2_torch.ops import attention, swiglu
+
+    cfg = ViTConfig(embed_dim=1536, depth=40, num_heads=24, ffn="swiglu", num_registers=4)
+    with torch.device(dev):
+        vit = DinoViT(cfg).eval()
+    vit.init_random(torch.Generator(device=dev).manual_seed(5)).cast_for_inference()
+    rng = np.random.default_rng(5)
+    rgb = torch.from_numpy(rng.integers(0, 256, size=(*hw, 3)).astype(np.uint8)).to(dev)
+    masks = torch.zeros((crops, *hw), dtype=torch.bool, device=dev)
+    for i in range(crops):
+        y, x = 60 + 30 * i, 80 + 70 * i
+        masks[i, y:y + 120, x:x + 90] = True
+    with torch.no_grad():
+        driver._vit_stage(vit, stride, out_size, (crops,), rgb, masks)   # captures the program
+        torch.cuda.synchronize()
+        attention._MHA.launches = swiglu._GATE.launches = 0
+        driver._vit_stage(vit, stride, out_size, (crops,), rgb, masks)
+        torch.cuda.synchronize()
+    launches = {"mha": attention._MHA.launches, "swiglu_gate": swiglu._GATE.launches}
+    del vit
+    torch.cuda.empty_cache()
+    if launches != {"mha": cfg.depth, "swiglu_gate": cfg.depth}:
+        raise AssertionError(f"ViT-g/14-reg stage replay: launches {launches}, expected "
+                             f"{cfg.depth} K1 and {cfg.depth} K5 (one each a block)")
+    return launches
+
+
+def check_swiglu(dev):
+    """K5, the SwiGLU gate, against `gate_plain` on the card at the main
+    path's shape: (R, 2 x 4096) bf16 from w12, R = 1029 (one ViT-g/14-reg
+    crop at stride 8: 1024 patches, the class token, 4 registers), 5 x 1029
+    and 8 x 1029 (a pack of five and of eight crops). Every element within
+    one bf16 ulp (both compute in float32; the card's `expf` and PyTorch's
+    may part in the last float32 bit, which can move the rounding to bf16 by
+    one step). Times back to back through the wrapper, on the device alone,
+    and of the plain version, beside the bound: 6 bytes an element at the
+    HBM's bandwidth. The timed calls take their inputs in turn from copies
+    that together hold twice the L2 cache or more, so each reads its input
+    from HBM (on one input, repeated, a crop's 17 MB stay in the 50 MB L2 and
+    read above HBM's bandwidth). A misaligned input is refused. Then the launches of a
+    ViT-g/14-reg stage replay (`vitg_stage_launches`). Returns (rows,
+    launches)."""
+    import torch
+
+    from cppf2_torch.ops import swiglu
+
+    h, rows = 4096, []
+    gen = torch.Generator(device=dev).manual_seed(20)
+    for r in (1029, 5 * 1029, 8 * 1029):
+        x = (4 * torch.randn((r, 2 * h), generator=gen, device=dev)).to(torch.bfloat16)
+        before = swiglu._GATE.launches
+        got = swiglu.gate(x)
+        torch.cuda.synchronize()
+        if swiglu._GATE.launches != before + 1:
+            raise AssertionError(f"swiglu_gate R={r}: {swiglu._GATE.launches - before} launches")
+        want = swiglu.gate_plain(x)
+        apart = bf16_ulps(got, want)
+        ulps, off = int(apart.max()), float((apart > 0).float().mean())
+        if got.shape != (r, h) or ulps > 1:
+            raise AssertionError(f"swiglu_gate R={r}: shape {tuple(got.shape)}, {ulps} bf16 ulps "
+                                 f"from gate_plain")
+        l2 = getattr(torch.cuda.get_device_properties(dev), "L2_cache_size", 50 << 20)
+        copies = [x] + [x.roll(i, 0) for i in range(1, max(2, math.ceil(2 * l2 / x.nbytes)))]
+        turn = iter(range(1 << 62))
+
+        def next_input():
+            return copies[next(turn) % len(copies)]
+
+        ms, dev_ms = timed(lambda: swiglu.gate(next_input()))
+        plain_ms = time_ms(lambda: swiglu.gate_plain(next_input()))
+        bound_ms = r * h * 6 / PEAK_BYTES * 1e3
+        above_bound(f"swiglu_gate R={r}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K5 swiglu_gate] ({r}, 2 x {h}) bf16: max {ulps} bf16 ulp from gate_plain "
+            f"({100 * off:.3f}% of elements one ulp off); kernel {ms:.4f} ms back to back, "
+            f"{dev_ms:.4f} ms on the device alone ({100 * bound_ms / dev_ms:.1f}% of the bound)  "
+            f"plain {plain_ms:.4f} ms  bound {bound_ms:.5f} ms (bytes: 6 an element; inputs "
+            f"taken in turn from {len(copies)} copies against an L2 of {l2 >> 20} MiB)")
+        rows.append(dict(rows=r, h=h, ulps=ulps, off_share=off, ms=ms, device_ms=dev_ms,
+                         plain_ms=plain_ms, bound_ms=bound_ms))
+        del x, got, want, apart, copies
+    skewed = torch.empty(2 * 2 * h + 1, dtype=torch.bfloat16, device=dev)[1:].view(2, 2 * h)
+    try:
+        swiglu.gate(skewed)
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("swiglu_gate: an input not 16-byte aligned was not refused")
+    launches = vitg_stage_launches(dev)
+    say(f"[K5 swiglu_gate] one ViT-g/14-reg stage replay of 5 crops: launches {launches}")
+    return rows, launches
 
 
 FRAME_CATS = ["bottle", "bowl", "can", "mug"]
@@ -4303,7 +4424,7 @@ def main() -> int:
         return 2
     from cppf2_torch import resolve_device
     from cppf2_torch.infer import alignment
-    from cppf2_torch.ops import _build, attention, hist16, sphere
+    from cppf2_torch.ops import _build, attention, hist16, sphere, swiglu
 
     dev = resolve_device("cuda")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -4327,6 +4448,7 @@ def main() -> int:
     k2 = check_hist16(dev)
     k1 = check_mha(dev)
     k4 = check_align(dev)
+    k5, k5_launches = check_swiglu(dev)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4465,6 +4587,15 @@ def main() -> int:
              max_mm=max(r["mm"] for r in k4), ms=k4[0]["ms"], plain_ms=k4[0]["plain_ms"],
              bound_ms=k4[0]["bound_ms"], bound_by="operations", library_ms=None,
              device_ms=k4[0]["device_ms"], by_rows=k4),
+        # K5 replaces no TPU kernel (the JAX package's ViT has GELU blocks
+        # only); the row's times are one ViT-g/14-reg crop's (1029 rows),
+        # `by_rows` holds packs of five and eight; launches: one replay of a
+        # ViT-g/14-reg stage program of five crops, one a block
+        dict(name="swiglu_gate", route="cuda", source=swiglu.SOURCE, replaces=swiglu.REPLACES,
+             launches=k5_launches["swiglu_gate"], shape=[k5[0]["rows"], 2 * k5[0]["h"]],
+             max_bf16_ulps=max(r["ulps"] for r in k5), ms=k5[0]["ms"], plain_ms=k5[0]["plain_ms"],
+             bound_ms=k5[0]["bound_ms"], bound_by="bytes", library_ms=None,
+             device_ms=k5[0]["device_ms"], by_rows=k5),
     ]
     say(f"[slice] e2e_ms_per_instance {e2e_ms:.1f}")
     say(f"[eval] evaluate_real275_parallel ms_per_instance {eval_ms:.1f}, without model loading "

@@ -51,6 +51,12 @@ Randomness is injected: one `InstanceDraws` per instance, given or drawn
 from a torch.Generator in detection order, so a result does not depend on how
 the instances were grouped. A padded row repeats its chunk's last instance:
 its mask, crop origin and draws.
+
+Each ViT stage and instance visual stage counts into the frame record what
+its forward runs (`_count_vit`): `vit_tokens`, the tokens of every crop
+(padded crops, the class token and the registers included), and
+`gate_elems`, the elements the SwiGLU gate (K5) processes over every block
+(0 for a GELU backbone).
 """
 
 from __future__ import annotations
@@ -99,6 +105,7 @@ from cppf2_torch.models.dinov2 import (
     bbox_crop_descriptors,
     bbox_crop_token_grid,
     extractor_grid,
+    forward_counts,
     interpolate_features,
     load_backbone,
     load_dinov2_params,
@@ -357,6 +364,14 @@ def _visual_source(vit, dino_extractor, use_visual):
 _VISUALS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+def _count_vit(backbone: DinoViT, crops: int, grid: int) -> None:
+    """Count a forward over `crops` crops of grid x grid patches into the
+    open frame record: its tokens and its gate elements."""
+    tokens, gate_elems = forward_counts(backbone.cfg, crops, grid, grid)
+    profiling.count("vit_tokens", tokens)
+    profiling.count("gate_elems", gate_elems)
+
+
 def _instance_visual(rgb, mask: np.ndarray, mask_t, pixel_yx, dev, vit, dino_extractor, stride: int,
                      out_size: int) -> torch.Tensor:
     """One instance's (N, D) descriptors at its cloud's pixels, the visual
@@ -387,6 +402,7 @@ def _instance_visual(rgb, mask: np.ndarray, mask_t, pixel_yx, dev, vit, dino_ext
                                             impl=impl)
 
         key = ("visual", "extractor", backbone.cfg, stride, impl, programs.weights(backbone))
+        _count_vit(backbone, 1, crop_img.shape[0] // stride)
     else:
         args = (_upload(np.asarray(rgb, np.uint8), dev), mask_t, pixel_yx)
         backbone = vit
@@ -398,6 +414,7 @@ def _instance_visual(rgb, mask: np.ndarray, mask_t, pixel_yx, dev, vit, dino_ext
                                              out_size=out_size, stride=stride)
 
         key = ("visual", "vit", backbone.cfg, stride, out_size, programs.weights(backbone))
+        _count_vit(backbone, 1, out_size // stride)
     cache = _VISUALS.setdefault(backbone, {})
     return programs.program(cache, key, fn, args)(*args)
 
@@ -638,6 +655,7 @@ def _vit_stage(backbone: DinoViT, stride: int, out_size: int, batches: tuple, rg
             off += b
         return tuple(parts)
 
+    _count_vit(backbone, sum(batches), out_size // stride)
     cache = _VIT_STAGES.setdefault(backbone, {})
     key = ("vit", backbone.cfg, stride, out_size, batches, programs.weights(backbone))
     return programs.program(cache, key, fn, (rgb_u8, masks))(rgb_u8, masks)

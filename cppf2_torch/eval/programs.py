@@ -70,13 +70,13 @@ import torch
 from torch.utils import _pytree as pytree
 
 from cppf2_torch.models.layers import QDense
-from cppf2_torch.ops import attention, hist16, sphere
+from cppf2_torch.ops import attention, hist16, sphere, swiglu
 from cppf2_torch.utils import profiling
 
 # (object, attribute) of every counter a capture records and a replay credits
 COUNTED: List[Tuple[Any, str]] = [(attention._MHA, "launches"), (hist16._PEAK, "launches"),
                                   (hist16._LEVEL, "launches"), (sphere.sphere_accumulate, "launches"),
-                                  (QDense, "launches")]
+                                  (QDense, "launches"), (swiglu._GATE, "launches")]
 _disabled = 0
 _pools: Dict[int, Any] = {}   # device index -> the graph memory pool its programs share
 _anchors: Dict[int, Any] = {}  # device index -> the graph that keeps that pool in use

@@ -31,6 +31,16 @@ the route autograd can follow (training the backbone, `train/visual.py`);
 `models/layers.py`); `quantize_vit_params` / `DinoViT.quantize_` turn their
 float weights into int8 codes, which `DinoFeatureExtractor` and
 `load_backbone` do once at load. Attention stays bf16 and on K1.
+
+`ViTConfig.ffn="swiglu"` and `num_registers` build DINOv2's ViT-g/14 with
+registers (facebookresearch/dinov2 `hubconf.py::dinov2_vitg14_reg`; T.
+Darcet et al., arXiv:2309.16588): the feed-forward is `w3(silu(a) * b)` with
+(a, b) the two halves of `w12(x)`, a first (the release's
+`SwiGLUFFNFused`), its gate kernel K5 (`ops/swiglu.py`) on the "kernel"
+route; R register tokens sit between the class token and the patches,
+without a position embedding, and leave the output with the class token.
+The JAX package has no such block: its seeded init tree and the int8 route
+refuse it.
 """
 
 from __future__ import annotations
@@ -51,7 +61,7 @@ from cppf2_torch.core.geometry import norm
 from cppf2_torch.device import device_constant
 from cppf2_torch.models import jax_random
 from cppf2_torch.models.layers import Dense, QDense, lecun_normal_, quantize_kernel
-from cppf2_torch.ops import attention
+from cppf2_torch.ops import attention, swiglu
 from cppf2_torch.ops.voting import take_rows
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
@@ -80,11 +90,50 @@ class ViTConfig:
     # proj, mlp_fc1 and mlp_fc2 are `QDense` (W8A8 once their weights are
     # quantized); attention stays bf16.
     quant: str = "none"
+    # "gelu": fc2(gelu_tanh(fc1(x))), 4x wide. "swiglu": w3(silu(a) * b) with
+    # (a, b) = w12(x) split in half, each half `swiglu_hidden` wide.
+    ffn: str = "gelu"
+    # register tokens between the class token and the patches (no position embedding)
+    num_registers: int = 0
+
+    def __post_init__(self):
+        if self.ffn not in ("gelu", "swiglu"):
+            raise ValueError(f"unknown ffn {self.ffn!r} (expected 'gelu' or 'swiglu')")
+        if self.num_registers < 0:
+            raise ValueError(f"num_registers must be 0 or more, got {self.num_registers}")
+        if self.quant == "int8":
+            require_jax_block(self, "quant='int8'")
 
 
 VIT_L14 = ViTConfig()
 VIT_S14 = ViTConfig(embed_dim=384, depth=12, num_heads=6)
 VIT_B14 = ViTConfig(embed_dim=768, depth=12, num_heads=12)
+
+
+def require_jax_block(cfg: ViTConfig, what: str) -> None:
+    """Refuse, naming the field, a config the JAX package's ViT (and so the
+    int8 route and the seeded init tree) cannot build: a SwiGLU block or
+    register tokens."""
+    for field, given in (("ffn", cfg.ffn != "gelu"), ("num_registers", cfg.num_registers != 0)):
+        if given:
+            raise ValueError(f"{what} builds the GELU block without registers only, not "
+                             f"{field}={getattr(cfg, field)!r}: the JAX package has no such block")
+
+
+def swiglu_hidden(cfg: ViTConfig) -> int:
+    """Each half of a SwiGLU block's w12, as the release's `SwiGLUFFNFused`
+    sizes it: two thirds of the `mlp_ratio`-wide hidden layer, rounded up to
+    a multiple of 8 (4096 at ViT-g's 1536)."""
+    return (int(int(cfg.embed_dim * cfg.mlp_ratio) * 2 / 3) + 7) // 8 * 8
+
+
+def forward_counts(cfg: ViTConfig, images: int, grid_h: int, grid_w: int) -> Tuple[int, int]:
+    """(tokens, gate elements) of one forward over `images` images of
+    grid_h x grid_w patches: the tokens each block runs (patches, the class
+    token and the registers), and the elements K5 gates over all the blocks
+    (0 for the GELU block)."""
+    tokens = images * (grid_h * grid_w + 1 + cfg.num_registers)
+    return tokens, cfg.depth * tokens * swiglu_hidden(cfg) if cfg.ffn == "swiglu" else 0
 
 
 class LayerNorm(nn.Module):
@@ -188,15 +237,26 @@ class Block(nn.Module):
         self.norm1 = LayerNorm(d)
         self.norm2 = LayerNorm(d)
         self.attn = Attention(cfg)
+        self.cfg = cfg
         linear = _linear(cfg)
-        self.mlp_fc1 = linear(d, int(d * cfg.mlp_ratio), dt)
-        self.mlp_fc2 = linear(int(d * cfg.mlp_ratio), d, dt)
+        if cfg.ffn == "swiglu":
+            hidden = swiglu_hidden(cfg)
+            self.mlp_w12 = linear(d, 2 * hidden, dt)
+            self.mlp_w3 = linear(hidden, d, dt)
+        else:
+            self.mlp_fc1 = linear(d, int(d * cfg.mlp_ratio), dt)
+            self.mlp_fc2 = linear(int(d * cfg.mlp_ratio), d, dt)
         self.ls1 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
         self.ls2 = nn.Parameter(torch.full((d,), cfg.layerscale_init))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.ls1 * self.attn(self.norm1(x)).float()
-        h = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="tanh"))
+        if self.cfg.ffn == "swiglu":
+            # K5 on the inference route; the plain formula, which autograd follows, elsewhere
+            gate = swiglu.gate if self.cfg.attn_impl == "kernel" else swiglu.gate_plain
+            h = self.mlp_w3(gate(self.mlp_w12(self.norm2(x))))
+        else:
+            h = self.mlp_fc2(F.gelu(self.mlp_fc1(self.norm2(x)), approximate="tanh"))
         return x + self.ls2 * h.float()
 
 
@@ -235,6 +295,8 @@ class DinoViT(nn.Module):
         p, d = cfg.patch_size, cfg.embed_dim
         self.patch_embed = Dense(p * p * 3, d, _DTYPES[cfg.compute_dtype])
         self.cls_token = nn.Parameter(torch.zeros(1, d))
+        if cfg.num_registers:
+            self.register_tokens = nn.Parameter(torch.zeros(cfg.num_registers, d))
         self.pos_embed = nn.Parameter(torch.zeros(1 + cfg.pretrain_grid ** 2, d))
         self.blocks = nn.ModuleList([Block(cfg) for _ in range(cfg.depth)])
         self.norm = LayerNorm(d)
@@ -247,7 +309,8 @@ class DinoViT(nn.Module):
         `generator`, the same distributions drawn from it (flax's
         `lecun_normal` kernels, a normal truncated at two standard deviations
         with variance 1 / fan_in; zero biases; N(0, 0.02) position
-        embedding)."""
+        embedding and registers). A seed refuses a SwiGLU block or registers,
+        which the JAX package's tree does not hold."""
         if (generator is None) == (seed is None):
             raise ValueError("pass a generator or a seed")
         if seed is not None:
@@ -261,6 +324,9 @@ class DinoViT(nn.Module):
                     m.bias.zero_()
             self.pos_embed.copy_(0.02 * torch.randn(self.pos_embed.shape, generator=generator,
                                                     device=self.pos_embed.device))
+            if self.cfg.num_registers:
+                self.register_tokens.copy_(0.02 * torch.randn(
+                    self.register_tokens.shape, generator=generator, device=self.pos_embed.device))
         return self
 
     def quantize_(self) -> "DinoViT":
@@ -268,6 +334,7 @@ class DinoViT(nn.Module):
         mlp_fc2 (`QDense.quantize_`), in place; needs quant="int8". Call it
         on the float32 weights, before `cast_for_inference`, as the JAX
         extractor quantizes before it casts."""
+        require_jax_block(self.cfg, "quantize_")
         if self.cfg.quant != "int8":
             raise ValueError("quantize_ needs a ViTConfig with quant='int8'")
         for b in self.blocks:
@@ -278,14 +345,15 @@ class DinoViT(nn.Module):
     def cast_for_inference(self) -> "DinoViT":
         """Store matrices in the compute dtype, as the JAX extractor does
         (`DinoFeatureExtractor._cast`): Dense weights, the patch embed, the
-        class token and the position embedding; vectors stay float32, and
-        int8 weights stay int8."""
+        class token, the registers and the position embedding; vectors stay
+        float32, and int8 weights stay int8."""
         dt = _DTYPES[self.cfg.compute_dtype]
         with torch.no_grad():
             for m in self.modules():
                 if isinstance(m, Dense) and m.weight.dtype != torch.int8:
                     m.weight.data = m.weight.data.to(dt)
-            for prm in (self.cls_token, self.pos_embed):
+            regs = (self.register_tokens,) if self.cfg.num_registers else ()
+            for prm in (self.cls_token, *regs, self.pos_embed):
                 prm.data = prm.data.to(dt)
         return self
 
@@ -313,11 +381,13 @@ class DinoViT(nn.Module):
             *lead, gh * gw, p * p * 3)
         x = self.patch_embed(patches) + self._pos_patch(gh, gw)
         cls = (self.cls_token + self.pos_embed[:1]).expand(*lead, 1, c.embed_dim)
-        tokens = torch.cat([cls, x], dim=-2).float()
+        regs = ([self.register_tokens.expand(*lead, c.num_registers, c.embed_dim)]
+                if c.num_registers else [])
+        tokens = torch.cat([cls, *regs, x], dim=-2).float()
         for blk in self.blocks:
             tokens = blk(tokens)
         tokens = self.norm(tokens)
-        return tokens[..., 1:, :].reshape(*lead, gh, gw, c.embed_dim)
+        return tokens[..., 1 + c.num_registers:, :].reshape(*lead, gh, gw, c.embed_dim)
 
 
 # ---------------------------------------------------------------------------
@@ -551,6 +621,7 @@ def quantize_vit_params(variables, cfg: ViTConfig = VIT_L14):
     leaf is copied as it is. `cfg` is taken for the JAX signature's sake."""
     import copy
 
+    require_jax_block(cfg, "quantize_vit_params")
     variables = copy.deepcopy(variables)
     blk = (variables["params"] if "params" in variables else variables)["blocks"]
     for dense in (blk["attn"]["qkv"], blk["attn"]["proj"], blk["mlp_fc1"], blk["mlp_fc2"]):
@@ -681,7 +752,11 @@ def port_torch_state_dict(sd, cfg: ViTConfig = VIT_L14):
     norm2, mlp.fc1, mlp.fc2, ls2.gamma}`, `norm`, `cls_token`, `pos_embed`)
     as the JAX package's parameter tree, which `DinoFeatureExtractor(params=)`
     and `models/porting.py::load_vit` take: float32 numpy leaves, the blocks
-    stacked on a depth axis.
+    stacked on a depth axis. A SwiGLU config reads `mlp.w12` and `mlp.w3`
+    in place of `mlp.fc1` and `mlp.fc2` (as `mlp_w12` / `mlp_w3`, w12's
+    output columns in the release's order: the silu half first), and a
+    config with registers reads `register_tokens` ((1, R, D) in the
+    release, (R, D) in the tree).
 
     The patch embedding is a (D, 3, p, p) convolution; the tree keeps it as
     (p, p, 3, D), which `load_vit` flattens to a Dense over patches in
@@ -698,7 +773,9 @@ def port_torch_state_dict(sd, cfg: ViTConfig = VIT_L14):
     def dense(name):
         return {"kernel": stack(f"{name}.weight", transpose=True), "bias": stack(f"{name}.bias")}
 
-    return {"params": {
+    mlp = ({"mlp_w12": dense("mlp.w12"), "mlp_w3": dense("mlp.w3")} if cfg.ffn == "swiglu"
+           else {"mlp_fc1": dense("mlp.fc1"), "mlp_fc2": dense("mlp.fc2")})
+    params = {
         "patch_embed": {"kernel": a(sd["patch_embed.proj.weight"]).transpose(2, 3, 1, 0),
                         "bias": a(sd["patch_embed.proj.bias"])},
         "cls_token": a(sd["cls_token"]).reshape(1, cfg.embed_dim),
@@ -709,11 +786,13 @@ def port_torch_state_dict(sd, cfg: ViTConfig = VIT_L14):
             "ls1": stack("ls1.gamma"),
             "ls2": stack("ls2.gamma"),
             "attn": {"qkv": dense("attn.qkv"), "proj": dense("attn.proj")},
-            "mlp_fc1": dense("mlp.fc1"),
-            "mlp_fc2": dense("mlp.fc2"),
+            **mlp,
         },
         "norm": {"scale": a(sd["norm.weight"]), "bias": a(sd["norm.bias"])},
-    }}
+    }
+    if cfg.num_registers:
+        params["register_tokens"] = a(sd["register_tokens"]).reshape(cfg.num_registers, cfg.embed_dim)
+    return {"params": params}
 
 
 def load_dinov2_params(path: str, cfg: ViTConfig = VIT_L14):
@@ -762,6 +841,9 @@ def save_backbone(prefix: str, model: DinoViT, stride: int = 8, out_size: int = 
         "pretrain_grid": cfg.pretrain_grid,
         "stride": stride, "out_size": out_size,
     }
+    # written only where they part from the JAX package's block, whose loader they refuse
+    meta.update({k: getattr(cfg, k) for k in ("ffn", "num_registers")
+                 if getattr(cfg, k) != getattr(VIT_L14, k)})
     with open(prefix + ".json", "w") as f:
         json.dump(meta, f, indent=1)
     return prefix + ".msgpack"

@@ -227,7 +227,12 @@ def vit_init_leaves(cfg, k: Key) -> Dict:
     """Leaf makers (device -> tensor) of the JAX package's `DinoViT(cfg)`
     init tree from key `k`, in the tree's layout (blocks stacked on a depth
     axis). Block i draws from split(k, depth)[i] under the "blocks" path;
-    its Dense kernels sit at counter (the scope's parameter count) + 1."""
+    its Dense kernels sit at counter (the scope's parameter count) + 1. The
+    JAX package's ViT has GELU blocks and no registers: a config with either
+    is refused, by name."""
+    from cppf2_torch.models.dinov2 import require_jax_block
+
+    require_jax_block(cfg, "the JAX package's seeded init tree")
     p, d = cfg.patch_size, cfg.embed_dim
     hidden = int(d * cfg.mlp_ratio)
     n_dense = 3 if cfg.quant == "int8" else 2   # kernel, bias (and qscale)

@@ -90,14 +90,22 @@ def load_branch(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     return module
 
 
+def _mlp_names(cfg) -> tuple:
+    """A ViT block's feed-forward linears, as the module and the tree name them."""
+    return ("mlp_w12", "mlp_w3") if cfg.ffn == "swiglu" else ("mlp_fc1", "mlp_fc2")
+
+
 def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
     """Copy a DinoViT parameter tree (blocks stacked on a depth axis) into
-    the port's `DinoViT` in place."""
+    the port's `DinoViT` in place. A SwiGLU block's linears are `mlp_w12`
+    and `mlp_w3`, and a ViT with registers has `register_tokens` (R, D)."""
     p = _params(tree)
     d = module.cfg.embed_dim
     _set(module.patch_embed.weight, _leaf(p["patch_embed"]["kernel"]).reshape(-1, d).T)
     _set(module.patch_embed.bias, p["patch_embed"]["bias"])
     _set(module.cls_token, p["cls_token"])
+    if module.cfg.num_registers:
+        _set(module.register_tokens, p["register_tokens"])
     _set(module.pos_embed, p["pos_embed"])
     _set(module.norm.weight, p["norm"]["scale"])
     _set(module.norm.bias, p["norm"]["bias"])
@@ -113,7 +121,7 @@ def load_vit(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:
         _set(b.ls1, at(blk["ls1"]))
         _set(b.ls2, at(blk["ls2"]))
         for lin, src in ((b.attn.qkv, blk["attn"]["qkv"]), (b.attn.proj, blk["attn"]["proj"]),
-                         (b.mlp_fc1, blk["mlp_fc1"]), (b.mlp_fc2, blk["mlp_fc2"])):
+                         *((getattr(b, n), blk[n]) for n in _mlp_names(module.cfg))):
             _qdense(lin, {k: v[i] if isinstance(v, torch.Tensor) else np.asarray(v)[i]
                           for k, v in src.items()})
     return module
@@ -236,7 +244,7 @@ def vit_to_tree(module: nn.Module) -> Dict[str, Any]:
     def ln(get):
         return {"scale": stack(lambda b: _np(get(b).weight)), "bias": stack(lambda b: _np(get(b).bias))}
 
-    return {"params": {
+    params = {
         "patch_embed": {"kernel": _np(module.patch_embed.weight).T.reshape(p, p, 3, d).copy(),
                         "bias": _np(module.patch_embed.bias)},
         "cls_token": _np(module.cls_token),
@@ -246,9 +254,12 @@ def vit_to_tree(module: nn.Module) -> Dict[str, Any]:
             "norm1": ln(lambda b: b.norm1), "norm2": ln(lambda b: b.norm2),
             "ls1": stack(lambda b: _np(b.ls1)), "ls2": stack(lambda b: _np(b.ls2)),
             "attn": {"qkv": dense(lambda b: b.attn.qkv), "proj": dense(lambda b: b.attn.proj)},
-            "mlp_fc1": dense(lambda b: b.mlp_fc1), "mlp_fc2": dense(lambda b: b.mlp_fc2),
+            **{n: dense(lambda b, n=n: getattr(b, n)) for n in _mlp_names(c)},
         },
-    }}
+    }
+    if c.num_registers:
+        params["register_tokens"] = _np(module.register_tokens)
+    return {"params": params}
 
 
 def load_tree(module: nn.Module, tree: Dict[str, Any]) -> nn.Module:

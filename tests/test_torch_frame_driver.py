@@ -437,7 +437,8 @@ def test_a_frame_is_one_record_that_its_fetch_joins(frame_reference):
     """One `dispatch_frame` and `fetch_frames`: one frame record, `dispatch`
     its root, a draw made before it counted in it, the uploads of the groups
     (depth, K, masks, origins, rgb) and of the single (depth, mask, K)
-    counted with their bytes, and the fetch in the same record."""
+    counted with their bytes, the ViT stage's tokens and gate elements, and
+    the fetch in the same record."""
     rgb, depth, dets, _, tvit, tmodels, draws = frame_reference
     pipe = TPipe(**PIPE)
     _flush_pending()
@@ -459,7 +460,10 @@ def test_a_frame_is_one_record_that_its_fetch_joins(frame_reference):
         "group": 2, "fetch": 1}
     assert rec.counters == {"instances": 4, "singles": 1, "uploads": 8, "eager_runs": 5,
                             "upload_bytes": 2 * depth.nbytes + 2 * K.nbytes + 4 * H * W + 3 * 2 * 4
-                            + rgb.nbytes}
+                            + rgb.nbytes,
+                            # the ViT stage's three crops of 4 x 4 patches and a class token;
+                            # the GELU backbone gates nothing
+                            "vit_tokens": 3 * (4 * 4 + 1), "gate_elems": 0}
     parents = {(name, parent) for name, parent, _, _ in rec.intervals}
     assert parents == {("draws", None), ("dispatch", None), ("fetch", None), ("plan", "dispatch"),
                        ("single", "dispatch"), ("upload", "single"), ("upload", "dispatch"),
