@@ -33,14 +33,21 @@ training programs' eager baseline). Phases 11 to 16 run the captured programs:
        a misaligned input refused; the launches of one replay of a ViT-g/14
        with registers stage program (five crops, counters zeroed just before
        it): 40 K1 and 40 K5;
+       K6 knn_select on the frontend's (B, 8192) clouds of synthetic sphere
+       caps (some past the voxel budget, some padded), k = 48, B = 1 and 8:
+       every row's indices equal the plain route's (torch.topk over the
+       block of keys) and `knn_select_plain`'s, one launch a call; the card's
+       K = 3 product counted against the fma chain the kernel makes; bound
+       11 f32 instructions a key; the whole kNN call against the plain route
+       it replaced, on the device alone;
   3. the slice at full width: `estimate_instance` for one mug on a 480x640
      synthetic frame (REAL275 K), 8192 points, 50,000 pairs, 1-degree
      sphere, 100 alignment steps, ViT-L/14 at stride 8 with seeded random
      weights, bf16 branches with the shipped mug weights. The launch counts
      are zeroed just before it and read just after: 24 K1 launches (one ViT
      forward), 4 K2 launches (4 levels, both branches as the two rows of
-     each launch) and 1 K4 launch (the alignment, both branches as its two
-     rows). It runs again with
+     each launch), 1 K4 launch (the alignment, both branches as its two
+     rows) and 1 K6 launch (the frontend's kNN). It runs again with
      every kernel swapped for its plain version and the same draws, and the
      two poses must agree. Then the e2e time per instance, the stage
      breakdown and the device-busy share. Then the fused level
@@ -173,7 +180,8 @@ training programs' eager baseline). Phases 11 to 16 run the captured programs:
      draws, then that frame twice through the eager route: the replayed
      rows equal the eager ones to the bit (or, where two eager runs differ,
      R 1 degree, T 3 mm, the same picks), the launches of a replay equal
-     what its programs credit (24 K1 a ViT pack, 4 K2 a chunk), the padded
+     what its programs credit (24 K1 a ViT pack, 4 K2 a chunk, K6 one a
+     frontend program), the padded
      row is dropped at fetch; per frame the first dispatch's ms, the
      replay's e2e and host ms per `dispatch_frame` call, the eager ms, the
      busy share, the programs captured and replayed, the eager peak memory
@@ -261,7 +269,10 @@ credits; K1 carries `train_replay_launches`, the launches of phase 14's
 replayed "dino" render trainer; K1 and K2 carry `accuracy_launches`, phase
 15's ensemble run; K2 carries `study_launches`, phase 16's three studies;
 K5's row holds one ViT-g/14-reg crop's 1029 rows, the packs of five and eight
-as `by_rows`, and the launches of phase 2's ViT-g/14-reg stage replay),
+as `by_rows`, and the launches of phase 2's ViT-g/14-reg stage replay; K6's
+row holds a bucket-8 group's (8, 8192, 48), the single instance in `by_rows`,
+the slice's launches and, as `replay_launches`, one replay of phase 12's
+first frame, one a frontend program),
 then the card's name and power limit. The last line:
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}.
 """
@@ -575,7 +586,7 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     from cppf2_torch.eval import driver
     from cppf2_torch.infer import alignment, pipeline
     from cppf2_torch.models.dinov2 import DinoViT
-    from cppf2_torch.ops import attention, hist16
+    from cppf2_torch.ops import attention, hist16, neighbors
 
     rgb, depth, mask = make_frame(np.random.default_rng(0), *frame_hw)
     ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
@@ -601,12 +612,14 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     # for both branches (B = 2 rows)
     launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
                 "hist16_level_peak": hist16.hist16_level_peak.launches,
-                "align_pose": alignment.align_pose.launches}
+                "align_pose": alignment.align_pose.launches,
+                "knn_select": neighbors._SELECT.launches}
     say(f"[slice] first call {first_ms:.1f} ms, launches {launches}")
     if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels,
-                    "hist16_level_peak": pipe.vote_levels, "align_pose": 1}:
+                    "hist16_level_peak": pipe.vote_levels, "align_pose": 1, "knn_select": 1}:
         raise AssertionError(f"launch counts {launches}: expected 24 K1, 4 K2 (two rows each, all "
-                             f"fused levels) and 1 K4 (both branches as its two rows)")
+                             f"fused levels), 1 K4 (both branches as its two rows) and 1 K6 (the "
+                             f"frontend's kNN)")
 
     r = est.rotation.double().cpu().numpy()
     vals = [est.rotation, est.translation, est.scale, est.scale_norm, est.loss]
@@ -626,17 +639,20 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
         kernel_times.append((time.perf_counter() - t0) * 1e3)
 
     # the same draws with every kernel swapped for its plain version
-    saved = attention.mha, hist16.hist16_peak, hist16.hist16_level_peak, pipeline.align_pose
+    saved = (attention.mha, hist16.hist16_peak, hist16.hist16_level_peak, pipeline.align_pose,
+             neighbors.knn_select)
     attention.mha, hist16.hist16_peak = attention.mha_plain, hist16.hist16_peak_plain
     hist16.hist16_level_peak = hist16.hist16_level_peak_plain
     pipeline.align_pose = alignment.align_pose_plain
+    neighbors.knn_select = neighbors.knn_select_plain
     try:
         plain = once()
         t0 = time.perf_counter()
         once()
         plain_ms = (time.perf_counter() - t0) * 1e3
     finally:
-        attention.mha, hist16.hist16_peak, hist16.hist16_level_peak, pipeline.align_pose = saved
+        (attention.mha, hist16.hist16_peak, hist16.hist16_level_peak, pipeline.align_pose,
+         neighbors.knn_select) = saved
     rp = plain.rotation.double().cpu().numpy()
     ang = math.degrees(math.acos(max(-1.0, min(1.0, (np.trace(r.T @ rp) - 1) / 2))))
     dt = float(torch.max(torch.abs(est.translation - plain.translation)))
@@ -1196,6 +1212,105 @@ def check_swiglu(dev):
     return rows, launches
 
 
+KNN_INSTR = 11   # f32 instructions a (query, column) key of K6: the key's 10 and its compare
+KNN_RADII = (0.11, 0.04, 0.07, 0.09, 0.05, 0.12, 0.06, 0.08)   # the sphere caps of check_knn's frames
+
+
+def knn_clouds(dev, pipe, b):
+    """The frontend's (b, 8192) clouds and validity, and its kNN radius:
+    sphere caps of `KNN_RADII` through `preprocess_frame`, the large ones
+    past the 8192-voxel budget and the small ones padded with invalid
+    points, as the group programs see a group's instances."""
+    import torch
+
+    from cppf2_torch.config import get_category
+    from cppf2_torch.eval import driver
+    from cppf2_torch.infer.frontend import auto_crop, preprocess_frame
+
+    res = get_category("mug").res
+    pcs, valids = [], []
+    for i, radius in enumerate(KNN_RADII[:b]):
+        _, depth, mask = make_frame(np.random.default_rng(80 + i), radius=radius,
+                                    center=(0.05 - 0.01 * i, -0.02, 0.75 + 0.02 * i))
+        draws = driver.draw_instance(depth.shape, mask, "mug", pipe, dev,
+                                     torch.Generator(device=dev).manual_seed(80 + i))
+        fi = preprocess_frame(torch.as_tensor(depth, device=dev), torch.as_tensor(mask, device=dev),
+                              torch.as_tensor(REAL275_K, device=dev), draws.voxel_perm,
+                              draws.voxel_prio, res=res, n_max=pipe.n_points,
+                              shot_k=pipe.neighbor_k, crop=auto_crop(mask))
+        pcs.append(fi.pc)
+        valids.append(fi.valid)
+    return torch.stack(pcs), torch.stack(valids), res * 10
+
+
+def check_knn(dev, pipe):
+    """K6, the frontend's kNN selection, against the plain route on the card
+    at the served shapes: (B, 8192) frontend clouds (`knn_clouds`), k =
+    `neighbor_k` (48), B = 1 (a single, an instance of a group of one) and 8
+    (a bucket-8 group). Every row's indices equal the plain route's
+    (`torch.topk` over the block of keys) and `knn_select_plain`'s exactly;
+    the card's K = 3 float32 product (cuBLAS, TF32 off) against the fma
+    chain the kernel makes, over 1,024 queries of an instance. Times: K6 back
+    to back through the wrapper and on the device alone, `knn_select_plain`,
+    the whole `knn_radius_neighbors` (parking, K6, the offsets' gathers) and
+    the plain route it replaced, on the device alone; the bound: 11 f32
+    instructions a key (or the cloud's and the indices' bytes). Returns
+    rows."""
+    import torch
+
+    from cppf2_torch.ops import neighbors
+
+    clouds, valid, radius = knn_clouds(dev, pipe, 8)
+    k = pipe.neighbor_k
+    q = clouds[:1, :1024]
+    cross_off = int((torch.matmul(q, clouds[:1].transpose(1, 2))
+                     != neighbors._cross_fma(q, clouds[:1])).sum())
+    rows = []
+    for b in (1, 8):
+        points, ok = clouds[:b], valid[:b]
+
+        def parked():
+            pts = torch.where(ok[..., None], points, torch.full((), 1e6, device=dev))
+            return pts, neighbors._sum_sq_fma(pts)
+
+        pts, sq = parked()
+        before = neighbors._SELECT.launches
+        got = neighbors.knn_select(pts, sq, radius, k)
+        torch.cuda.synchronize()
+        launches = neighbors._SELECT.launches - before
+        want = neighbors._plain_neighbors(pts, sq, radius, k, False)[0]
+        rows_off = int((got != want).any(-1).sum())
+        plain_off = int((got != neighbors.knn_select_plain(pts, sq, radius, k)).any(-1).sum())
+        short = float((neighbors.knn_radius_neighbors(points, ok, radius, k).valid.sum(-1)
+                       < k)[ok].float().mean())
+        if launches != 1 or rows_off or plain_off:
+            raise AssertionError(f"knn_select B={b}: {launches} launches, {rows_off} rows off the "
+                                 f"plain route, {plain_off} off knn_select_plain (the card's "
+                                 f"K = 3 product off the fma chain at {cross_off} keys)")
+        ms, dev_ms = timed(lambda: neighbors.knn_select(pts, sq, radius, k))
+        plain_ms = time_ms(lambda: neighbors.knn_select_plain(pts, sq, radius, k), iters=2,
+                           warmup=1, repeats=1)
+        call_dev_ms = device_ms(lambda: neighbors.knn_radius_neighbors(points, ok, radius, k))
+        route_dev_ms = device_ms(lambda: neighbors._plain_neighbors(*parked(), radius, k, False),
+                                 iters=5)
+        n = pts.shape[1]
+        bound_ms = max(b * n * n * KNN_INSTR / PEAK_F32_INSTR,
+                       b * n * (16 + 8 * k) / PEAK_BYTES) * 1e3
+        above_bound(f"knn_select B={b}", bound_ms, ms=ms, device_ms=dev_ms)
+        say(f"[K6 knn_select] ({b}, {n}, k={k}): indices equal the plain route's and "
+            f"knn_select_plain's in every row ({100 * short:.1f}% of valid rows short of k in "
+            f"radius); the card's K = 3 product off the fma chain at {cross_off} of "
+            f"{q.shape[1] * n} keys; kernel {ms:.4f} ms back to back, {dev_ms:.4f} ms on the device "
+            f"alone ({100 * bound_ms / dev_ms:.1f}% of the bound)  plain {plain_ms:.3f} ms  bound "
+            f"{bound_ms:.5f} ms (operations: {KNN_INSTR} f32 instructions a key); the whole kNN "
+            f"{call_dev_ms:.4f} device ms against the plain route's {route_dev_ms:.4f}")
+        rows.append(dict(b=b, n=n, k=k, rows_off=rows_off, cross_off=cross_off, short_share=short,
+                         ms=ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                         call_device_ms=call_dev_ms, route_device_ms=route_dev_ms,
+                         launches=launches))
+    return rows
+
+
 FRAME_CATS = ["bottle", "bowl", "can", "mug"]
 
 
@@ -1261,11 +1376,11 @@ def zero_counts():
     `_LEVEL`), where they stay while a module's name is swapped and where
     the programs credit their replays."""
     from cppf2_torch.infer import alignment
-    from cppf2_torch.ops import attention, hist16, sphere
+    from cppf2_torch.ops import attention, hist16, neighbors, sphere
 
     attention._MHA.launches = sphere.sphere_accumulate.launches = 0
     hist16._PEAK.launches = hist16._LEVEL.launches = 0
-    alignment.align_pose.launches = 0
+    alignment.align_pose.launches = neighbors._SELECT.launches = 0
 
 
 def read_counts():
@@ -3247,7 +3362,7 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
 
     from cppf2_torch.eval import driver, programs
     from cppf2_torch.models.dinov2 import DinoViT
-    from cppf2_torch.ops import attention, hist16
+    from cppf2_torch.ops import attention, hist16, neighbors
 
     ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
     models = driver.load_category_models(ckpts, sorted({c for cats in CAPTURE_LAYOUTS for c in cats}),
@@ -3297,6 +3412,7 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
             zero_counts()
             replays.append(run(again))
         counts = read_counts()
+        k6 = neighbors._SELECT.launches
         pends, got, host_ms, _ = replays[-1]
         replay_ms = statistics.median(r[3] for r in replays)
         if census().keys() != before.keys() | new.keys():
@@ -3305,6 +3421,9 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
         credited = {"mha": sum(p.credited(attention._MHA) for p in used),
                     "hist16_peak": sum(p.credited(hist16._PEAK) for p in used)}
         chunks = [(len(p.idxs), p.dev.shape[0]) for p in pends]
+        if k6 < 1 or k6 != sum(p.credited(neighbors._SELECT) for p in used):
+            raise AssertionError(f"{name}: {k6} K6 launches in a replay, credited by the programs "
+                                 f"{sum(p.credited(neighbors._SELECT) for p in used)}, chunks {chunks}")
         if counts["mha"] != credited["mha"] or counts["hist16_peak"] != credited["hist16_peak"] \
                 or counts["hist16_peak"] != pipe.vote_levels * len(chunks):
             raise AssertionError(f"{name}: launches of a replay {counts}, credited by the programs "
@@ -3331,7 +3450,7 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
         frame = dict(name=name, chunks=chunks, capture_ms=capture_ms, replay_ms=replay_ms,
                      host_ms=host_ms, eager_ms=statistics.median([eager[3], eager2[3]]),
                      busy_ms=busy, programs=len(new), used=len(used), k1=counts["mha"],
-                     k2=counts["hist16_peak"],
+                     k2=counts["hist16_peak"], k6=k6,
                      rows_diff=same, eager_noise=noise, r_deg=ang, t_mm=dt * 1e3,
                      eager_peak_mb=eager_peak, pool_mb=pool_mib(pool),
                      capture_each_ms={p.key[0][0]: round(p.capture_ms, 1) for p in new.values()})
@@ -4424,7 +4543,7 @@ def main() -> int:
         return 2
     from cppf2_torch import resolve_device
     from cppf2_torch.infer import alignment
-    from cppf2_torch.ops import _build, attention, hist16, sphere, swiglu
+    from cppf2_torch.ops import _build, attention, hist16, neighbors, sphere, swiglu
 
     dev = resolve_device("cuda")
     if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
@@ -4449,6 +4568,7 @@ def main() -> int:
     k1 = check_mha(dev)
     k4 = check_align(dev)
     k5, k5_launches = check_swiglu(dev)
+    k6 = check_knn(dev, pipe)
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
@@ -4596,6 +4716,18 @@ def main() -> int:
              max_bf16_ulps=max(r["ulps"] for r in k5), ms=k5[0]["ms"], plain_ms=k5[0]["plain_ms"],
              bound_ms=k5[0]["bound_ms"], bound_by="bytes", library_ms=None,
              device_ms=k5[0]["device_ms"], by_rows=k5),
+        # K6 replaces no TPU kernel (the JAX package leaves the kNN selection
+        # to XLA's approx_min_k); the row's times are a bucket-8 group's
+        # (8, 8192) clouds at k = 48, `by_rows` holds a single instance too;
+        # launches: the slice's (one frontend), and one replay of phase 12's
+        # first frame (one a frontend program)
+        dict(name="knn_select", route="cuda", source=neighbors.SOURCE, replaces=neighbors.REPLACES,
+             launches=launches["knn_select"], replay_launches=captured["frames"][0]["k6"],
+             shape=[k6[-1]["b"], k6[-1]["n"], k6[-1]["k"]],
+             rows_off=max(r["rows_off"] for r in k6), ms=k6[-1]["ms"],
+             plain_ms=k6[-1]["plain_ms"], bound_ms=k6[-1]["bound_ms"], bound_by="operations",
+             library_ms=None, device_ms=k6[-1]["device_ms"],
+             route_device_ms=k6[-1]["route_device_ms"], by_rows=k6),
     ]
     say(f"[slice] e2e_ms_per_instance {e2e_ms:.1f}")
     say(f"[eval] evaluate_real275_parallel ms_per_instance {eval_ms:.1f}, without model loading "

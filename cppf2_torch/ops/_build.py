@@ -23,7 +23,7 @@ from typing import Dict, Iterable, Sequence, Tuple
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("attention", "hist16", "sphere", "stage", "align", "swiglu")
+KERNELS = ("attention", "hist16", "sphere", "stage", "align", "swiglu", "knn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
