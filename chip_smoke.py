@@ -607,13 +607,11 @@ def run_slice(dev, pipe, vit_cfg, frame_hw=(480, 640)):
     t0 = time.perf_counter()
     est = once()
     first_ms = (time.perf_counter() - t0) * 1e3
-    # hist16_peak.launches counts every K2 launch, hist16_level_peak.launches
-    # the ones through the fused entry: on this path all of them, one a level
-    # for both branches (B = 2 rows)
-    launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
-                "hist16_level_peak": hist16.hist16_level_peak.launches,
-                "align_pose": alignment.align_pose.launches,
-                "knn_select": neighbors._SELECT.launches}
+    # every K2 launch, and the ones through the fused entry: on this path all
+    # of them, one a level for both branches (B = 2 rows)
+    launches = {"mha": launches_of("attention"), "hist16_peak": launches_of("hist16"),
+                "hist16_level_peak": launches_of("hist16", "cppf2_hist16_level_peak"),
+                "align_pose": launches_of("align"), "knn_select": launches_of("knn")}
     say(f"[slice] first call {first_ms:.1f} ms, launches {launches}")
     if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels,
                     "hist16_level_peak": pipe.vote_levels, "align_pose": 1, "knn_select": 1}:
@@ -831,9 +829,9 @@ def check_hist16_batched(dev):
         err = 0.0
         for level, (sub, n_smp, arc) in enumerate(shapes):
             args, tie_cells = batched_level_inputs(dev, n_rows, sub, n_smp, arc, seed=100 * n_rows + level)
-            before = hist16.hist16_level_peak.launches
+            before = launches_of("hist16", "cppf2_hist16_level_peak")
             got_c, got_n = hist16.hist16_level_peak(*args)
-            if hist16.hist16_level_peak.launches != before + 1:
+            if launches_of("hist16", "cppf2_hist16_level_peak") != before + 1:
                 raise AssertionError(f"B={n_rows} level {level}: more than one launch")
             want_c, want_n = hist16.hist16_level_peak_plain(*args)
             torch.cuda.synchronize()
@@ -1120,7 +1118,6 @@ def vitg_stage_launches(dev, crops=5, hw=(480, 640), stride=8, out_size=256):
 
     from cppf2_torch.eval import driver
     from cppf2_torch.models.dinov2 import DinoViT, ViTConfig
-    from cppf2_torch.ops import attention, swiglu
 
     cfg = ViTConfig(embed_dim=1536, depth=40, num_heads=24, ffn="swiglu", num_registers=4)
     with torch.device(dev):
@@ -1135,10 +1132,10 @@ def vitg_stage_launches(dev, crops=5, hw=(480, 640), stride=8, out_size=256):
     with torch.no_grad():
         driver._vit_stage(vit, stride, out_size, (crops,), rgb, masks)   # captures the program
         torch.cuda.synchronize()
-        attention._MHA.launches = swiglu._GATE.launches = 0
+        zero_counts()
         driver._vit_stage(vit, stride, out_size, (crops,), rgb, masks)
         torch.cuda.synchronize()
-    launches = {"mha": attention._MHA.launches, "swiglu_gate": swiglu._GATE.launches}
+    launches = {"mha": launches_of("attention"), "swiglu_gate": launches_of("swiglu")}
     del vit
     torch.cuda.empty_cache()
     if launches != {"mha": cfg.depth, "swiglu_gate": cfg.depth}:
@@ -1170,11 +1167,11 @@ def check_swiglu(dev):
     gen = torch.Generator(device=dev).manual_seed(20)
     for r in (1029, 5 * 1029, 8 * 1029):
         x = (4 * torch.randn((r, 2 * h), generator=gen, device=dev)).to(torch.bfloat16)
-        before = swiglu._GATE.launches
+        before = launches_of("swiglu")
         got = swiglu.gate(x)
         torch.cuda.synchronize()
-        if swiglu._GATE.launches != before + 1:
-            raise AssertionError(f"swiglu_gate R={r}: {swiglu._GATE.launches - before} launches")
+        if launches_of("swiglu") != before + 1:
+            raise AssertionError(f"swiglu_gate R={r}: {launches_of('swiglu') - before} launches")
         want = swiglu.gate_plain(x)
         apart = bf16_ulps(got, want)
         ulps, off = int(apart.max()), float((apart > 0).float().mean())
@@ -1274,10 +1271,10 @@ def check_knn(dev, pipe):
             return pts, neighbors._sum_sq_fma(pts)
 
         pts, sq = parked()
-        before = neighbors._SELECT.launches
+        before = launches_of("knn")
         got = neighbors.knn_select(pts, sq, radius, k)
         torch.cuda.synchronize()
-        launches = neighbors._SELECT.launches - before
+        launches = launches_of("knn") - before
         want = neighbors._plain_neighbors(pts, sq, radius, k, False)[0]
         rows_off = int((got != want).any(-1).sum())
         plain_off = int((got != neighbors.knn_select_plain(pts, sq, radius, k)).any(-1).sum())
@@ -1371,23 +1368,28 @@ def write_real275_frame(root, h=480, w=640, name="scene_1_0000", seed=4, shift=0
     return os.path.join(root, "detections"), os.path.join(root, "images")
 
 
-def zero_counts():
-    """The launch counters, on the wrappers themselves (`_MHA`, `_PEAK`,
-    `_LEVEL`), where they stay while a module's name is swapped and where
-    the programs credit their replays."""
-    from cppf2_torch.infer import alignment
-    from cppf2_torch.ops import attention, hist16, neighbors, sphere
+ZERO = {}   # the launch table (`_build.snapshot()`) when `zero_counts` last ran
 
-    attention._MHA.launches = sphere.sphere_accumulate.launches = 0
-    hist16._PEAK.launches = hist16._LEVEL.launches = 0
-    alignment.align_pose.launches = neighbors._SELECT.launches = 0
+
+def zero_counts():
+    """Count launches from here on (`launches_of`, `read_counts`)."""
+    from cppf2_torch.ops import _build
+
+    ZERO.clear()
+    ZERO.update(_build.snapshot())
+
+
+def launches_of(kernel, entry=None):
+    """Launches of `kernel`, or of its one `entry`, since `zero_counts`, as
+    the launch table counts them (replays credited)."""
+    from cppf2_torch.ops import _build
+
+    return _build.total(_build.since(ZERO), kernel, entry)
 
 
 def read_counts():
-    from cppf2_torch.ops import attention, hist16, sphere
-
-    return {"mha": attention._MHA.launches, "hist16_peak": hist16._PEAK.launches,
-            "sphere_accumulate": sphere.sphere_accumulate.launches}
+    return {"mha": launches_of("attention"), "hist16_peak": launches_of("hist16"),
+            "sphere_accumulate": launches_of("sphere")}
 
 
 def run_multi_device(dev, pipe, tmp, backend="nccl", n_pairs=5000):
@@ -1506,9 +1508,9 @@ def check_mha_batched(dev, single):
         q, k, v = (x.reshape(b, 1025, 16, 64).transpose(1, 2) for x in torch.split(qkv, 1024, dim=-1))
         if not all(attention._tma_readable(x) and not x.is_contiguous() for x in (q, k, v)):
             raise AssertionError("the batched projection's views are not read in place")
-        before = attention.mha.launches
+        before = launches_of("attention")
         out = attention.mha(q, k, v)
-        if attention.mha.launches != before + 1:
+        if launches_of("attention") != before + 1:
             raise AssertionError("a batch of images took more than one launch")
         plain = torch.stack([attention.mha_plain(q[i], k[i], v[i]) for i in range(b)])
         each = torch.stack([attention.mha(q[i], k[i], v[i]) for i in range(b)])
@@ -2119,7 +2121,6 @@ def check_extractor(dev, vit_cfg, hw, samples, n_points, out_size=256):
     from cppf2_torch.config import get_category
     from cppf2_torch.data.synthetic import SyntheticFrameGenerator
     from cppf2_torch.models.dinov2 import DinoFeatureExtractor
-    from cppf2_torch.ops import attention
     from cppf2_torch.train.driver import _frame_crop_kp
 
     gen = SyntheticFrameGenerator(get_category("mug"), n_max=n_points, height=hw[0], width=hw[1],
@@ -2131,9 +2132,9 @@ def check_extractor(dev, vit_cfg, hw, samples, n_points, out_size=256):
                                     device=dev.type).init_random(torch.Generator(device=dev).manual_seed(0))
 
     ext = extractor()
-    before = attention.mha.launches
+    before = launches_of("attention")
     ext(crop, kp)
-    calls = attention.mha.launches - before
+    calls = launches_of("attention") - before
     k1_route, plain = (extractor(attn_impl=a, layerscale_init=1.0) for a in ("kernel", "hbm"))
     got, want = k1_route(crop, kp), plain(crop, kp)
     err = float(torch.max(torch.abs(got - want)))
@@ -2486,8 +2487,8 @@ def run_demo(dev, tmp, vit_cfg=None, n_frames=3, pipe_args=()):
     out_k = os.path.join(root, "out_kernel")
     zero_counts()
     calls, _, run_s = run(out_k)
-    launches = {"mha": attention.mha.launches, "hist16_peak": hist16.hist16_peak.launches,
-                "hist16_level_peak": hist16.hist16_level_peak.launches}
+    launches = {"mha": launches_of("attention"), "hist16_peak": launches_of("hist16"),
+                "hist16_level_peak": launches_of("hist16", "cppf2_hist16_level_peak")}
     # both branches of a frame's one instance are the two rows of each level's launch
     want_launches = {"mha": vit_cfg.depth * n_frames, "hist16_peak": pipe.vote_levels * n_frames,
                      "hist16_level_peak": pipe.vote_levels * n_frames}
@@ -2591,7 +2592,6 @@ def check_int8_extractor(dev, vit_cfg, out_size=256, n_pts=8192):
     import torch
 
     from cppf2_torch.models.dinov2 import DinoFeatureExtractor
-    from cppf2_torch.models.layers import QDense
     from cppf2_torch.ops import attention
 
     rng = np.random.default_rng(0)
@@ -2607,13 +2607,11 @@ def check_int8_extractor(dev, vit_cfg, out_size=256, n_pts=8192):
     int8 = extractor(quant="int8")
     quant_s = time.perf_counter() - t0
     shapes = []
-    QDense.launches = 0
-    before = attention.mha.launches
+    before = launches_of("attention"), launches_of("qdense")
     with recorded(attention, "mha", lambda a, k, out: shapes.append(tuple(a[0].shape))):
         got = int8(img, kp)
         torch.cuda.synchronize()
-    k1 = attention.mha.launches - before
-    qd = QDense.launches
+    k1, qd = launches_of("attention") - before[0], launches_of("qdense") - before[1]
     if (qd, k1) != (4 * vit_cfg.depth, vit_cfg.depth) or set(shapes) != {(16, 4097, 64)}:
         raise AssertionError(f"int8 extractor: {qd} int8 linears and {k1} K1 launches at "
                              f"{sorted(set(shapes))}; expected 96 and 24 at (16, 4097, 64)")
@@ -2691,7 +2689,6 @@ def check_int8_instance(dev, pipe, vit_cfg, frame_hw=(480, 640)):
 
     from cppf2_torch.eval import driver
     from cppf2_torch.models.dinov2 import DinoFeatureExtractor
-    from cppf2_torch.models.layers import QDense
     from cppf2_torch.ops import attention, hist16
 
     rgb, depth, mask = make_frame(np.random.default_rng(0), *frame_hw)
@@ -2712,11 +2709,9 @@ def check_int8_instance(dev, pipe, vit_cfg, frame_hw=(480, 640)):
         torch.cuda.synchronize()
         return est
 
-    QDense.launches = 0
-    counts0 = read_counts()
+    zero_counts()
     est = once(vits["int8"])
-    launches = {k: v - counts0[k] for k, v in read_counts().items()}
-    launches["qdense"] = QDense.launches
+    launches = read_counts() | {"qdense": launches_of("qdense")}
     if launches != {"mha": vit_cfg.depth, "hist16_peak": pipe.vote_levels, "sphere_accumulate": 0,
                     "qdense": 4 * vit_cfg.depth}:
         raise AssertionError(f"int8 instance launches {launches}")
@@ -2795,11 +2790,11 @@ def check_variants(dev, pipe, ext, frame_hw=(480, 640), out_size=256):
     model = ext["bf16"].model
     with torch.no_grad():
         shapes = []
-        before = attention.mha.launches
+        before = launches_of("attention")
         with recorded(attention, "mha", lambda a, k, o: shapes.append(tuple(a[0].shape))):
             got = masked_window_descriptors(model, rgb_t, mask_t, fi.pixel_yx[:n], window,
                                             crop=out_size, stride=4)
-        k1 = attention.mha.launches - before
+        k1 = launches_of("attention") - before
         saved = attention.mha
         attention.mha = attention.mha_plain
         try:
@@ -2965,13 +2960,11 @@ def run_int8_variants(dev, pipe, records, vit_cfg=None, frame_hw=(480, 640)):
     import torch
 
     from cppf2_torch.models.dinov2 import VIT_L14
-    from cppf2_torch.models.layers import QDense
 
     vit_cfg = vit_cfg or VIT_L14
     with torch.no_grad():
         # the phase's int8 paths: the extractor and the instance, counts zeroed just before
         zero_counts()
-        QDense.launches = 0
         ext = check_int8_extractor(dev, vit_cfg)
         launches, e2e_ms, desc_ms, poses = check_int8_instance(dev, pipe, vit_cfg, frame_hw)
         int8_launches = {"mha": ext["k1"] + launches["mha"], "hist16_peak": launches["hist16_peak"],
@@ -3362,7 +3355,6 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
 
     from cppf2_torch.eval import driver, programs
     from cppf2_torch.models.dinov2 import DinoViT
-    from cppf2_torch.ops import attention, hist16, neighbors
 
     ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
     models = driver.load_category_models(ckpts, sorted({c for cats in CAPTURE_LAYOUTS for c in cats}),
@@ -3412,18 +3404,18 @@ def run_captured_programs(dev, pipe, vit_cfg, hw=(480, 640), stride=8, out_size=
             zero_counts()
             replays.append(run(again))
         counts = read_counts()
-        k6 = neighbors._SELECT.launches
+        k6 = launches_of("knn")
         pends, got, host_ms, _ = replays[-1]
         replay_ms = statistics.median(r[3] for r in replays)
         if census().keys() != before.keys() | new.keys():
             raise AssertionError(f"{name}: the replay frame made programs of its own")
         used = [p for k, p in census().items() if p.replays > seen[k]]
-        credited = {"mha": sum(p.credited(attention._MHA) for p in used),
-                    "hist16_peak": sum(p.credited(hist16._PEAK) for p in used)}
+        credited = {"mha": sum(p.credited("attention") for p in used),
+                    "hist16_peak": sum(p.credited("hist16") for p in used)}
         chunks = [(len(p.idxs), p.dev.shape[0]) for p in pends]
-        if k6 < 1 or k6 != sum(p.credited(neighbors._SELECT) for p in used):
+        if k6 < 1 or k6 != sum(p.credited("knn") for p in used):
             raise AssertionError(f"{name}: {k6} K6 launches in a replay, credited by the programs "
-                                 f"{sum(p.credited(neighbors._SELECT) for p in used)}, chunks {chunks}")
+                                 f"{sum(p.credited('knn') for p in used)}, chunks {chunks}")
         if counts["mha"] != credited["mha"] or counts["hist16_peak"] != credited["hist16_peak"] \
                 or counts["hist16_peak"] != pipe.vote_levels * len(chunks):
             raise AssertionError(f"{name}: launches of a replay {counts}, credited by the programs "
@@ -3562,8 +3554,6 @@ def run_serving_programs(dev, pipe, vit_cfg, eval_inputs, tmp, hw=(480, 640), ba
 
     from cppf2_torch.eval import driver, parallel_eval, programs
     from cppf2_torch.models.dinov2 import DinoFeatureExtractor
-    from cppf2_torch.models.layers import QDense
-    from cppf2_torch.ops import attention, hist16
 
     ckpts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "ckpts_r3")
     models = driver.load_category_models(ckpts, ["bowl", "can", "mug"], torch.bfloat16, dev)
@@ -3793,9 +3783,8 @@ def run_serving_programs(dev, pipe, vit_cfg, eval_inputs, tmp, hw=(480, 640), ba
     for label, e in (("bf16", ext), ("int8", ext8)):
         e(img, kp)   # the capture
         zero_counts()
-        QDense.launches = 0
         got = e(img, kp)
-        credits = dict(k1=attention._MHA.launches, qdense=QDense.launches)
+        credits = dict(k1=launches_of("attention"), qdense=launches_of("qdense"))
         want_q = 4 * vit_cfg.depth if label == "int8" else 0
         if credits != dict(k1=vit_cfg.depth, qdense=want_q):
             raise AssertionError(f"extractor {label}: launches credited per replay {credits}")
@@ -3953,7 +3942,6 @@ def check_step_programs(dev, mesh, records, steps=20, n_points=2048, tuples=1000
     from cppf2_torch.eval import programs
     from cppf2_torch.models.cppf import DinoBranch, ShotBranch
     from cppf2_torch.models.dinov2 import VIT_S14, DinoViT
-    from cppf2_torch.ops import attention
 
     e2e_vit = dataclasses.replace(e2e_vit or dataclasses.replace(VIT_S14, pretrain_grid=out_size // 8),
                                   attn_impl="hbm")
@@ -4004,9 +3992,11 @@ def check_step_programs(dev, mesh, records, steps=20, n_points=2048, tuples=1000
         replay = run(rs, rstep)
         launched = read_counts()
         progs = list(rstep.programs.values())
-        if len(progs) != 1 or progs[0].replays != steps - 1 or progs[0].credits:
+        if len(progs) != 1 or progs[0].replays != steps - 1 or progs[0].credits \
+                or progs[0].tallies:
             raise AssertionError(f"{branch}: step programs {len(progs)}, replays "
-                                 f"{[p.replays for p in progs]}, credits {[p.credits for p in progs]} "
+                                 f"{[p.replays for p in progs]}, credits "
+                                 f"{[(p.credits, p.tallies) for p in progs]} "
                                  f"(expected one program, replayed after its first step, crediting "
                                  f"no kernel)")
         if any(launched.values()):
@@ -4061,7 +4051,7 @@ def check_step_programs(dev, mesh, records, steps=20, n_points=2048, tuples=1000
                            plain_ms=plain_ms,
                            capture_ms=progs[0].capture_ms, diff=same, eager_noise=noise,
                            plain_loss_rel=loss_rel, plain_param_diff=param_diff, lr=got_lr,
-                           k1=attention._MHA.launches)
+                           k1=launches_of("attention"))
         say(f"[train programs] {branch} step ({n_points} points, {tuples} tuples, batch 1): {steps} "
             f"steps replayed (one program, first call {progs[0].capture_ms:.1f} ms with its capture) "
             f"vs eager: losses and parameters max |diff| {same:.3g} (two eager runs {noise:.3g}); "
@@ -4086,7 +4076,6 @@ def check_render_trainer(dev, mesh, tmp, records, vit_cfg, eager_ms, hw=(480, 64
     from cppf2_torch.data.records import RecordReader
     from cppf2_torch.models.cppf import DinoBranch
     from cppf2_torch.models import dinov2
-    from cppf2_torch.ops import attention
     from cppf2_torch.train import checkpoints
     from cppf2_torch.train.driver import train_category
 
@@ -4108,9 +4097,9 @@ def check_render_trainer(dev, mesh, tmp, records, vit_cfg, eager_ms, hw=(480, 64
     launched = read_counts()
     want = vit_cfg.depth * (pool + steps)
     if launched != {"mha": want, "hist16_peak": 0, "sphere_accumulate": 0} or \
-            prog.replays - replays0 != pool + steps or prog.credited(attention._MHA) != vit_cfg.depth:
+            prog.replays - replays0 != pool + steps or prog.credited("attention") != vit_cfg.depth:
         raise AssertionError(f"dino: launches {launched}, extractor replays {prog.replays - replays0}, "
-                             f"credited {prog.credited(attention._MHA)} (expected {want} K1, one replay "
+                             f"credited {prog.credited('attention')} (expected {want} K1, one replay "
                              f"crediting {vit_cfg.depth} for each of {pool} pool frames and {steps} "
                              f"refreshes)")
     with open(os.path.join(out, "metrics.jsonl")) as f:
@@ -4271,16 +4260,16 @@ def run_accuracy(dev, tmp, frames=4, plain_frames=2):
         raise AssertionError(f"{eager} eager runs of a program in the ensemble run")
     # every launch of the run is a warm-up's or a replay's of one of its
     # programs; a program's first call warms up, captures and replays
-    for obj, name in ((attention._MHA, "mha"), (hist16._PEAK, "hist16_peak")):
-        want = sum(p.credited(obj) * (n + made) for p, n, made in runs)
+    for kernel, name in (("attention", "mha"), ("hist16", "hist16_peak")):
+        want = sum(p.credited(kernel) * (n + made) for p, n, made in runs)
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches, the programs account for {want}")
-    k1 = [(p.credited(attention._MHA), n) for p, n, _ in runs if p.credited(attention._MHA)]
+    k1 = [(p.credited("attention"), n) for p, n, _ in runs if p.credited("attention")]
     if k1 != [(24, len(cats) * frames)]:
         raise AssertionError(f"K1 (launches a replay, replays): {k1}, want one extractor program "
                              f"of 24 replayed {len(cats) * frames} times")
     # can: the ensemble; mug: the ensemble and each branch alone
-    k2 = [(p.credited(hist16._PEAK), n) for p, n, _ in runs if p.credited(hist16._PEAK)]
+    k2 = [(p.credited("hist16"), n) for p, n, _ in runs if p.credited("hist16")]
     if k2 != [(12, frames)] * 4:
         raise AssertionError(f"K2 (launches a replay, replays): {k2}, want 4 ensemble programs of "
                              f"12 replayed {frames} times")
@@ -4419,15 +4408,15 @@ def run_studies(dev, tmp, frames=STUDY_FRAMES):
     eager = sum(p.eager_runs - e0 for p, _, e0, _ in used.values())
     if eager:
         raise AssertionError(f"{eager} eager runs of a program in the studies")
-    for obj, name in ((attention._MHA, "mha"), (hist16._PEAK, "hist16_peak")):
-        want = sum(p.credited(obj) * (r + made) for p, r, made in runs)
+    for kernel, name in (("attention", "mha"), ("hist16", "hist16_peak")):
+        want = sum(p.credited(kernel) * (r + made) for p, r, made in runs)
         if counts[name] != want:
             raise AssertionError(f"{name}: {counts[name]} launches, the programs account for {want}")
     if counts["mha"]:
         raise AssertionError(f"the studies launched K1 {counts['mha']} times")
     # config_validation: a bf16 and an f32 program, each for approx and exact;
     # budget_study: one a budget; dtype_check: one a dtype
-    k2 = sorted((p.credited(hist16._PEAK), r) for p, r, _ in runs if p.credited(hist16._PEAK))
+    k2 = sorted((p.credited("hist16"), r) for p, r, _ in runs if p.credited("hist16"))
     if k2 != sorted([(4, 2 * frames)] * 2 + [(4, frames)] * 4):
         raise AssertionError(f"K2 (launches a replay, replays): {k2}, want 6 pose programs of 4")
     made = sum(m for _, _, m in runs)

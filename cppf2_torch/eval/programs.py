@@ -52,11 +52,12 @@ inputs (`copy_in`), its `graph.replay()` (`launch`), its output clones
 (`clone`) and a capture (`capture`) are spans; the frame record counts
 replays, captures and their host ms (`capture_ms`) and eager runs.
 
-Counters: the kernel wrappers count their launches in Python, and a replay
-runs no Python. A program notes what every counted attribute (`COUNTED`,
-`count_replays`) gained during its capture, when nothing ran on the device,
-takes that back, and adds it again at each replay: an integer its gain, a
-list the items appended to it.
+Counters: the kernel wrappers count their launches in Python, in the launch
+table (`ops/_build.py`), and a replay runs no Python. A program notes what
+the table gained during its capture, when nothing ran on the device, takes
+that back, and adds it again at each replay. It does the same for every
+attribute a caller registers with `count_replays`: an integer its gain, a list
+the items appended to it.
 """
 
 from __future__ import annotations
@@ -64,20 +65,15 @@ from __future__ import annotations
 import contextlib
 import itertools
 import time
-from typing import Any, Callable, Dict, List, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch.utils import _pytree as pytree
 
-from cppf2_torch.models.layers import QDense
-from cppf2_torch.ops import attention, hist16, neighbors, sphere, swiglu
+from cppf2_torch.ops import _build, hist16
 from cppf2_torch.utils import profiling
 
-# (object, attribute) of every counter a capture records and a replay credits
-COUNTED: List[Tuple[Any, str]] = [(attention._MHA, "launches"), (hist16._PEAK, "launches"),
-                                  (hist16._LEVEL, "launches"), (sphere.sphere_accumulate, "launches"),
-                                  (QDense, "launches"), (swiglu._GATE, "launches"),
-                                  (neighbors._SELECT, "launches")]
+_tallies: List[Tuple[Any, str]] = []   # (object, attribute) that `count_replays` registered
 _disabled = 0
 _pools: Dict[int, Any] = {}   # device index -> the graph memory pool its programs share
 _anchors: Dict[int, Any] = {}  # device index -> the graph that keeps that pool in use
@@ -140,18 +136,25 @@ def trained(optimizer) -> tuple:
 def count_replays(obj, attr: str) -> None:
     """Count `obj.<attr>` (an int, or a list that grows) in the captures made
     from now on, and credit it at their replays."""
-    if not any(o is obj and a == attr for o, a in COUNTED):
-        COUNTED.append((obj, attr))
+    if not any(o is obj and a == attr for o, a in _tallies):
+        _tallies.append((obj, attr))
 
 
-def _counts() -> List[int]:
-    return [len(v) if isinstance(v, list) else v for v in (getattr(o, a) for o, a in COUNTED)]
+def _counts():
+    """The launch table and the registered tallies as they stand."""
+    return _build.snapshot(), [len(v) if isinstance(v, list) else v
+                               for v in (getattr(o, a) for o, a in _tallies)]
 
 
-def _take_back(before: List[int]) -> List[Tuple[Any, str, Any]]:
-    """Undo what the counters gained since `before`; returns the gains."""
+def _take_back(before) -> Tuple[Dict[Tuple[str, str], int], List[Tuple[Any, str, Any]]]:
+    """Undo what the launch table and the tallies gained since `before`
+    (`_counts()`); returns the gains."""
+    table0, tallies0 = before
+    gained = _build.since(table0)
+    for (kernel, entry), n in gained.items():
+        _build.count(kernel, entry, -n)
     gains = []
-    for (obj, attr), n0 in zip(list(COUNTED), before):
+    for (obj, attr), n0 in zip(list(_tallies), tallies0):
         v = getattr(obj, attr)
         if isinstance(v, list):
             gains.append((obj, attr, v[n0:]))
@@ -159,7 +162,7 @@ def _take_back(before: List[int]) -> List[Tuple[Any, str, Any]]:
         else:
             gains.append((obj, attr, v - n0))
             setattr(obj, attr, n0)
-    return [g for g in gains if g[2]]
+    return gained, [g for g in gains if g[2]]
 
 
 def pool_handle(device):
@@ -207,7 +210,8 @@ class Program:
         self.static: List[torch.Tensor] = []   # the input tensors the graph reads
         self.outputs = None
         self.scratch = [None]                  # K2's scratch, owned (hist16.owned_scratch)
-        self.credits: List[Tuple[Any, str, Any]] = []
+        self.credits: Dict[Tuple[str, str], int] = {}   # launches one replay adds to the table
+        self.tallies: List[Tuple[Any, str, Any]] = []   # what one replay adds to the tallies
         self.capture_ms = None                 # host ms of the warm-up and the capture (frame record)
         self.replays = 0
         self.eager_runs = 0                    # calls that ran the body eagerly
@@ -221,9 +225,21 @@ class Program:
         finally:
             _running.pop()
 
-    def credited(self, obj) -> int:
-        """What one replay adds to the counter on `obj` (launches, or items)."""
-        return sum(g if isinstance(g, int) else len(g) for o, _, g in self.credits if o is obj)
+    def credited(self, kernel: str, entry: Optional[str] = None) -> int:
+        """The launches of `kernel`, or of its one `entry`, that one replay
+        adds to the launch table."""
+        return _build.total(self.credits, kernel, entry)
+
+    def _credit(self) -> None:
+        """Add what one replay launches and tallies, as its capture found."""
+        for (kernel, entry), n in self.credits.items():
+            _build.count(kernel, entry, n)
+        for obj, attr, gain in self.tallies:
+            v = getattr(obj, attr)
+            if isinstance(v, list):
+                v.extend(gain)
+            else:
+                setattr(obj, attr, v + gain)
 
     def __call__(self, *args):
         if _running:
@@ -256,12 +272,7 @@ class Program:
                 self.graph.replay()
             except Exception as e:
                 raise RuntimeError(f"replay of program {self.key!r} failed: {e}") from e
-        for obj, attr, gain in self.credits:
-            v = getattr(obj, attr)
-            if isinstance(v, list):
-                v.extend(gain)
-            else:
-                setattr(obj, attr, v + gain)
+        self._credit()
         self.replays += 1
         profiling.count("replays")
         with profiling.span("clone"):
@@ -300,7 +311,7 @@ class Program:
         except Exception as e:
             _take_back(before)
             raise RuntimeError(f"capture of program {self.key!r} failed: {e}") from e
-        self.credits = _take_back(before)
+        self.credits, self.tallies = _take_back(before)
         self.graph, self.outputs = graph, out
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         return first

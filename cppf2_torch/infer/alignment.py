@@ -36,6 +36,7 @@ import torch
 
 from cppf2_torch.core.geometry import norm, quat_to_matrix
 from cppf2_torch.device import device_constant
+from cppf2_torch.ops import _build
 from cppf2_torch.ops.voting import _one_row, take_rows
 
 _B1, _B2, _ADAM_EPS = 0.9, 0.999, 1e-8
@@ -85,15 +86,10 @@ def align_pose(
                          up_sym, up_axis, steps, lr)
 
 
-align_pose.launches = 0
-
-
 def cluster_plan(rows: int, n_pairs: int, sms: int) -> Tuple[int, int, bool]:
     """(blocks a row, points a block, staged) of the kernel's launch for
     `rows` rows of `n_pairs` kept pairs on a card of `sms` SMs, as
     `csrc/align.cu` plans it (needs the built kernel)."""
-    from cppf2_torch.ops import _build
-
     fn = _build.function("align", "cppf2_align_plan", [ctypes.c_int] * 3 + [ctypes.c_void_p])
     out = (ctypes.c_int * 3)()
     _build.check(fn(rows, n_pairs, sms, ctypes.cast(out, ctypes.c_void_p)), "cluster_plan")
@@ -124,8 +120,6 @@ def _check_kernel_inputs(points, pair_idx, pair_weight, pred_pairs_scaled, rotat
 def _align_kernel(points, pair_idx, pair_weight, pred_pairs_scaled, rotation, translation, up_sym,
                   up_axis, steps, lr) -> AlignResult:
     """One launch of `csrc/align.cu` for all rows on `points`' device."""
-    from cppf2_torch.ops import _build
-
     _check_kernel_inputs(points, pair_idx, pair_weight, pred_pairs_scaled, rotation, translation)
     if not 0 <= int(up_axis) <= 2 or int(steps) < 0:
         raise ValueError(f"up_axis {up_axis}, steps {steps}")
@@ -138,15 +132,11 @@ def _align_kernel(points, pair_idx, pair_weight, pred_pairs_scaled, rotation, tr
     trans = torch.empty((b, 3), dtype=torch.float32, device=dev)
     loss = torch.empty((b,), dtype=torch.float32, device=dev)
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    fn = _build.function("align", "cppf2_align_pose",
-                         [ptr, i32] + [ptr] * 5 + [i32] * 3 + [ctypes.c_float, i32, i32]
-                         + [ptr] * 4)
     p, pi, pw, pp, r0, t0 = (x.data_ptr() for x in ins)
-    err = _build.launch(fn, dev, p, n, pi, pw, pp, r0, t0, b, k, int(steps), float(lr),
-                        int(bool(up_sym)), int(up_axis), rot.data_ptr(), trans.data_ptr(),
-                        loss.data_ptr())
-    _build.check(err, "align_pose")
-    align_pose.launches += 1
+    _build.launch("align", "cppf2_align_pose",
+                  [ptr, i32] + [ptr] * 5 + [i32] * 3 + [ctypes.c_float, i32, i32] + [ptr] * 4,
+                  dev, p, n, pi, pw, pp, r0, t0, b, k, int(steps), float(lr), int(bool(up_sym)),
+                  int(up_axis), rot.data_ptr(), trans.data_ptr(), loss.data_ptr())
     return AlignResult(rot, trans, loss)
 
 

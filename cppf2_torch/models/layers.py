@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from cppf2_torch.ops import _build
+
 # standard deviation of a standard normal truncated to [-2, 2]
 TRUNC_NORMAL_STD = 0.87962566103423978
 
@@ -77,10 +79,9 @@ class QDense(Dense):
     XLA's CPU fusion contracts `* qscale + bias` into one fused multiply-add;
     the port emulates it in float64 (the product of two float32 values is
     exact there, so only a sum at an exact float32 midpoint can round
-    otherwise). Every call of the int8 route adds one to `QDense.launches`.
+    otherwise). Every call of the int8 route adds one to the launch table
+    (`ops/_build.py`) under "qdense".
     """
-
-    launches = 0
 
     def __init__(self, d_in: int, d_out: int, compute_dtype=torch.float32):
         super().__init__(d_in, d_out, compute_dtype)
@@ -109,7 +110,7 @@ class QDense(Dense):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.weight.dtype != torch.int8:
             return super().forward(x)
-        QDense.launches += 1
+        _build.count("qdense", "int8_mm")
         ax = torch.clamp(torch.amax(torch.abs(x), dim=-1, keepdim=True).float() * _INV_127,
                          min=1e-12)
         xq = torch.clamp(torch.round(x.float() / ax), -127, 127).to(torch.int8)

@@ -6,7 +6,18 @@ is then loaded with ctypes. The hash covers the source and the flags, so an
 edited source never loads a stale library. `build()` starts one nvcc per
 missing library, all at once, and waits for them together.
 
-Nothing here runs at import: the CPU tests import every module, and this
+A kernel is found by its file: `KERNELS` is the stems of `csrc/*.cu`. Its
+wrapper launches each entry through `launch`, which binds the C function,
+launches it on the device's current stream, raises naming the kernel on an
+error code and adds one to the launch table, keyed by (kernel, entry): the
+`.cu` stem and the C symbol. `launched` reads a kernel's total or one entry's
+count (`total` reads it from any such table); `snapshot` and `since` give
+what the table gained over a stretch of work, which is how a captured
+program (`eval/programs.py`) credits its replays. A counted route with no
+`.cu` of its own (`QDense`'s int8 matmul) adds to the table with `count`
+under a name of its own.
+
+Nothing here builds at import: the CPU tests import every module, and this
 machine may have no nvcc.
 """
 
@@ -18,17 +29,18 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import Dict, Iterable, Sequence, Tuple
+from typing import Dict, Iterable, Optional, Sequence, Tuple
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("attention", "hist16", "sphere", "stage", "align", "swiglu", "knn")
+KERNELS = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _functions: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
+_launches: Dict[Tuple[str, str], int] = {}   # (kernel, entry) -> launches in this process
 
 
 def _nvcc() -> str:
@@ -94,18 +106,51 @@ def function(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
     return fn
 
 
-def launch(fn, dev, *args) -> int:
-    """Call the C function `fn(*args, stream)` with `dev` as the current
-    device and its current stream; returns the function's error code. The
-    device is switched only when it is not the current one already: the
-    switch costs more host time than a small kernel runs."""
+def launch(kernel: str, entry: str, argtypes: Sequence, dev, *args) -> None:
+    """Launch `entry(*args, stream)` of kernel `kernel` (`argtypes` as for
+    `function`, the stream's last) on `dev`'s current stream, with `dev` the
+    current device; raise naming the kernel if it returns an error code, and
+    count the launch. The device is switched only when it is not the current
+    one already: the switch costs more host time than a small kernel runs."""
     import torch
 
+    fn = function(kernel, entry, argtypes)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     if idx == torch.cuda.current_device():
-        return fn(*args, raw_stream(idx))
-    with torch.cuda.device(idx):
-        return fn(*args, raw_stream(idx))
+        err = fn(*args, raw_stream(idx))
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args, raw_stream(idx))
+    check(err, f"{kernel} {entry}")
+    count(kernel, entry)
+
+
+def count(kernel: str, entry: str, n: int = 1) -> None:
+    """Add `n` launches of `entry` of `kernel` to the launch table."""
+    key = (kernel, entry)
+    _launches[key] = _launches.get(key, 0) + n
+
+
+def launched(kernel: str, entry: Optional[str] = None) -> int:
+    """Launches of `kernel` in this process (replays credited), or of its one
+    `entry`."""
+    return total(_launches, kernel, entry)
+
+
+def total(table: Dict[Tuple[str, str], int], kernel: str, entry: Optional[str] = None) -> int:
+    """`kernel`'s count in `table` (the launch table, a `snapshot`, a
+    difference), or its one `entry`'s."""
+    return sum(n for (k, e), n in table.items() if k == kernel and entry in (None, e))
+
+
+def snapshot() -> Dict[Tuple[str, str], int]:
+    """The launch table as it stands."""
+    return dict(_launches)
+
+
+def since(before: Dict[Tuple[str, str], int]) -> Dict[Tuple[str, str], int]:
+    """What each (kernel, entry) gained since `snapshot()` gave `before`."""
+    return {key: n - before.get(key, 0) for key, n in _launches.items() if n != before.get(key, 0)}
 
 
 def raw_stream(idx: int) -> int:

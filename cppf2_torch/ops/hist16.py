@@ -34,9 +34,9 @@ rows, and a launch on another stream than the last synchronizes the device,
 neither of which a CUDA graph may do.
 
 Both entries launch the kernel for CUDA tensors and use their plain version
-only for CPU tensors; there is no fallback between the two. Every launch,
-through either entry, adds one to `hist16_peak.launches` (the count of K2
-launches); `hist16_level_peak.launches` counts the fused ones alone.
+only for CPU tensors; there is no fallback between the two. The launch
+table (`_build.launched`) counts every K2 launch under "hist16" and the fused
+ones alone under its entry "cppf2_hist16_level_peak".
 """
 
 from __future__ import annotations
@@ -46,6 +46,8 @@ import ctypes
 from typing import Dict, List, Optional, Tuple
 
 import torch
+
+from cppf2_torch.ops import _build
 
 SOURCE = "cppf2_torch/csrc/hist16.cu"
 REPLACES = "cppf2_tpu/ops/pallas_kernels.py:69"  # the TPU kernel's pallas_call
@@ -125,9 +127,6 @@ def _launch(symbol: str, argtypes, dev: torch.device, rows: int, *args) -> torch
     the last one first waits for the device. Inside `owned_scratch` the
     holder's scratch is used instead. A launch that fails drops the scratch,
     so that the next one starts from zeros."""
-    from cppf2_torch.ops import _build
-
-    fn = _build.function("hist16", symbol, list(argtypes) + [ctypes.c_void_p] * 3)
     idx = torch.cuda.current_device() if dev.index is None else dev.index
     if _owned is not None:
         scratch = _owned[0]
@@ -147,14 +146,15 @@ def _launch(symbol: str, argtypes, dev: torch.device, rows: int, *args) -> torch
                                      stream]
         scratch = entry[0]
     out = torch.empty((rows, 4), dtype=torch.float32, device=dev)
-    err = _build.launch(fn, dev, *args, scratch.data_ptr(), out.data_ptr())
-    if err != 0:
+    try:
+        _build.launch("hist16", symbol, list(argtypes) + [ctypes.c_void_p] * 3, dev, *args,
+                      scratch.data_ptr(), out.data_ptr())
+    except RuntimeError:
         if _owned is not None:
             _owned[0] = None
         else:
             del _scratch[idx]
-    _build.check(err, symbol)
-    _PEAK.launches += 1
+        raise
     return out
 
 
@@ -174,10 +174,6 @@ def hist16_peak(cand: torch.Tensor, ok: torch.Tensor, lo: torch.Tensor,
                   cand.device, 1, cand.data_ptr(), ok_u8.data_ptr(), cand.shape[0], lo.data_ptr(),
                   cell.data_ptr())[0]
     return out[:3], out[3]
-
-
-hist16_peak.launches = 0
-_PEAK = hist16_peak   # the counters stay on these functions when a caller swaps the module's names
 
 
 def level_candidates(c, x0, y0, odist, ok, samples, theta_star=None, span=None):
@@ -282,11 +278,6 @@ def hist16_level_peak(c: torch.Tensor, x0: torch.Tensor, y0: torch.Tensor, odist
                   [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2,
                   c.device, rows, *ptrs, rows, c.shape[-2], samples.shape[-1], lo.data_ptr(),
                   cell.data_ptr())
-    _LEVEL.launches += 1
     if c.dim() == 2:
         out = out[0]
     return out[..., :3], out[..., 3]
-
-
-hist16_level_peak.launches = 0
-_LEVEL = hist16_level_peak

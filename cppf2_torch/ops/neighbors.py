@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from cppf2_torch.core.geometry import norm
+from cppf2_torch.ops import _build
 from cppf2_torch.ops.voting import take_rows
 
 
@@ -142,25 +143,15 @@ def knn_select(pts: torch.Tensor, sq: torch.Tensor, radius: float, k: int) -> to
     _check_select(pts, sq, k)
     if pts.device.type != "cuda":
         raise ValueError(f"unsupported device {pts.device}: the kNN kernel runs on a CUDA card")
-    from cppf2_torch.ops import _build
-
-    fn = _build.function("knn", "cppf2_knn_select",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-                          ctypes.c_void_p])
     pts, sq = pts.contiguous(), sq.contiguous()
     b, n = pts.shape[:2]
     r2, scale = _key_scale(n, radius)
     out = torch.empty((b, n, k), dtype=torch.int64, device=pts.device)
-    err = _build.launch(fn, pts.device, pts.data_ptr(), sq.data_ptr(), out.data_ptr(), b, n, k,
-                        r2, scale)
-    _build.check(err, "knn select")
-    _SELECT.launches += 1
+    _build.launch("knn", "cppf2_knn_select",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float] * 2
+                  + [ctypes.c_void_p], pts.device,
+                  pts.data_ptr(), sq.data_ptr(), out.data_ptr(), b, n, k, r2, scale)
     return out
-
-
-knn_select.launches = 0
-_SELECT = knn_select   # the counter stays on this function when a caller swaps the module's name
 
 
 def _plain_neighbors(pts: torch.Tensor, sq: torch.Tensor, radius: float, k: int, exact: bool):

@@ -29,6 +29,8 @@ import math
 
 import torch
 
+from cppf2_torch.ops import _build
+
 SOURCE = "cppf2_torch/csrc/sphere.cu"
 REPLACES = "cppf2_tpu/ops/pallas_kernels.py:122"  # the TPU kernel's pallas_call
 KERNEL_CHUNK = 1024    # votes per block of the kernel's first pass
@@ -91,28 +93,16 @@ def sphere_accumulate(dirs: torch.Tensor, weights: torch.Tensor, sphere: torch.T
         return sphere_accumulate_plain(dirs, weights, sphere, angle_tol_deg)
     if dirs.device.type != "cuda":
         raise ValueError(f"unsupported device {dirs.device}")
-    from cppf2_torch.ops import _build
-
-    lib = _build.load("sphere")
-    fn = lib.cppf2_sphere_accumulate
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     b, v, _ = dirs.shape
     s = sphere.shape[0]
     dirs, weights, sphere = dirs.contiguous(), weights.contiguous(), sphere.contiguous()
     n_chunks = -(-v // KERNEL_CHUNK)
     partial = torch.empty((b, n_chunks, s), dtype=torch.float32, device=dirs.device)
     counts = torch.empty((b, s), dtype=torch.float32, device=dirs.device)
-    stream = torch.cuda.current_stream(dirs.device).cuda_stream
-    with torch.cuda.device(dirs.device):
-        err = fn(dirs.data_ptr(), weights.data_ptr(), sphere.data_ptr(), b, v, s,
-                 threshold(angle_tol_deg), KERNEL_CHUNK, n_chunks, partial.data_ptr(),
-                 counts.data_ptr(), stream)
-    _build.check(err, "sphere_accumulate")
-    sphere_accumulate.launches += 1
+    _build.launch("sphere", "cppf2_sphere_accumulate",
+                  [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_float]
+                  + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3, dirs.device,
+                  dirs.data_ptr(), weights.data_ptr(), sphere.data_ptr(), b, v, s,
+                  threshold(angle_tol_deg), KERNEL_CHUNK, n_chunks, partial.data_ptr(),
+                  counts.data_ptr())
     return counts
-
-
-sphere_accumulate.launches = 0

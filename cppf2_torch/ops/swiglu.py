@@ -30,6 +30,8 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from cppf2_torch.ops import _build
+
 SOURCE = "cppf2_torch/csrc/swiglu.cu"
 REPLACES = None   # no TPU kernel: the JAX package's ViT has no gated block
 
@@ -59,23 +61,14 @@ def gate(x: torch.Tensor) -> torch.Tensor:
         return gate_plain(x)
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
-    from cppf2_torch.ops import _build
-
-    fn = _build.function("swiglu", "cppf2_swiglu_gate",
-                         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
-                          ctypes.c_int, ctypes.c_void_p])
     x = x.contiguous()
     h = x.shape[-1] // 2
     if (h * x.element_size()) % 16 or x.data_ptr() % 16:
         raise ValueError(f"the gate kernel takes halves of whole 16-byte vectors at 16-byte "
                          f"aligned addresses, got h = {h} of {x.dtype} at {x.data_ptr():#x}")
     out = torch.empty((*x.shape[:-1], h), dtype=x.dtype, device=x.device)
-    err = _build.launch(fn, x.device, x.data_ptr(), out.data_ptr(), x.numel() // (2 * h), h,
-                        int(x.dtype == torch.float32))
-    _build.check(err, "swiglu gate")
-    _GATE.launches += 1
+    _build.launch("swiglu", "cppf2_swiglu_gate",
+                  [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p], x.device, x.data_ptr(), out.data_ptr(),
+                  x.numel() // (2 * h), h, int(x.dtype == torch.float32))
     return out
-
-
-gate.launches = 0
-_GATE = gate   # the counter stays on this function when a caller swaps the module's name

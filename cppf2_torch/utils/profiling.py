@@ -49,6 +49,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
+from cppf2_torch.ops import _build
+
 
 def _sync() -> None:
     """Wait for the device's queued work (nothing to wait for without a card)."""
@@ -310,10 +312,7 @@ def stage_log():
 def _mark(which: int, dev: torch.device) -> None:
     """Launch marker kernel `which` (its index in `STAGES`, or `_END`) on
     `dev`'s current stream."""
-    from cppf2_torch.ops import _build
-
-    fn = _build.function("stage", "cppf2_stage_mark", [ctypes.c_int, ctypes.c_void_p])
-    _build.check(_build.launch(fn, dev, which), f"stage marker {which}")
+    _build.launch("stage", "cppf2_stage_mark", [ctypes.c_int, ctypes.c_void_p], dev, which)
 
 
 class stage:

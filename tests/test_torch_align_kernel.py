@@ -3,11 +3,13 @@
 On the CPU: `_align_grads_plain`, the kernel's 12 sums and chain rule in
 plain PyTorch, against autograd's gradient of the plain loop's loss, the
 wrapper's input checks, and the gaps and losses the checks read. On a CUDA
-card (marked `gpu`, skipped elsewhere): the kernel's plan, and the kernel
-against the plain loop on the same card.
+card (marked `gpu`, skipped elsewhere): the kernel's plan, the kernel
+against the plain loop on the same card, and the one launch that a replay of
+a pose program credits.
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -15,6 +17,7 @@ import torch
 
 from cppf2_torch.core.geometry import quat_to_matrix
 from cppf2_torch.infer import alignment
+from cppf2_torch.ops import _build
 
 
 def _plain_loss(pair_pts, pred, w, r0, trans, quat, up_sym, up_axis):
@@ -157,7 +160,7 @@ def test_kernel_matches_plain_loop_on_card(b, k, up_sym, up_axis):
     mean float64 loss reached no more than 0.1% above the plain loop's (at
     37 pairs too); `test_kernel_lands_where_the_plain_loop_does` holds the
     typical row. Two calls give the same bits, and the kernel's final loss
-    is the float64 loss at its pose to 1e-4. `launches` counts."""
+    is the float64 loss at its pose to 1e-4. The launch table counts both."""
     dev = _card()
     seed = 1000 * b + k + 7 * up_sym + up_axis
     real = _on_card(np.random.default_rng(seed), b, k, dev)
@@ -166,10 +169,10 @@ def test_kernel_matches_plain_loop_on_card(b, k, up_sym, up_axis):
         if b > 1:
             args[2][1] = 0.0
     for args, steps in ((real, 1), (real, 100), (smooth, 100)):
-        before = alignment.align_pose.launches
+        before = _build.launched("align")
         got = alignment.align_pose(*args, up_sym, up_axis, steps, 1e-2)
         again = alignment.align_pose(*args, up_sym, up_axis, steps, 1e-2)
-        assert alignment.align_pose.launches == before + 2
+        assert _build.launched("align") == before + 2
         for x, y in zip(got, again):
             assert torch.equal(x, y)
         loss_k = alignment._row_losses64(args, got, up_sym, up_axis)
@@ -236,15 +239,67 @@ def test_kernel_replays_in_a_graph():
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         alignment.align_pose(*args, False, 1, 100, 1e-2)   # warm-up on the side stream
-        before = alignment.align_pose.launches
+        before = _build.launched("align")
         with torch.cuda.graph(graph, stream=side):
             out = alignment.align_pose(*args, False, 1, 100, 1e-2)
-    assert alignment.align_pose.launches == before + 1
+    assert _build.launched("align") == before + 1
     for _ in range(2):
         graph.replay()
         torch.cuda.synchronize()
         for x, y in zip(out, eager):
             assert torch.equal(x, y)
+
+
+def _sphere_cap(h=480, w=640, radius=0.11, center=(0.05, -0.02, 0.82)):
+    """A 22 cm sphere cap at 0.8 m under the REAL275 intrinsics, about 25k
+    mask pixels, and a random RGB."""
+    from cppf2_torch.eval.driver import REAL275_INTRINSICS as k
+
+    rng = np.random.default_rng(0)
+    cx, cy, cz = center
+    ys, xs = np.mgrid[0:h, 0:w]
+    d2 = (xs - (k[0, 2] - k[0, 0] * cx / cz)) ** 2 + (ys - (k[1, 2] - k[1, 1] * cy / cz)) ** 2
+    mask = d2 < (radius * k[0, 0] / cz) ** 2
+    bump = np.sqrt(np.maximum(radius ** 2 - d2 * (cz / k[0, 0]) ** 2, 0.0))
+    depth = np.where(mask, cz - bump + rng.normal(0, 3e-4, (h, w)), 0.0).astype(np.float32)
+    return rng.integers(0, 256, size=(h, w, 3)).astype(np.uint8), depth, mask
+
+
+@pytest.mark.gpu
+def test_a_pose_program_replay_credits_one_launch():
+    """One replay of a category's pose program (the production
+    configuration, both branches as the two rows of one launch) credits
+    exactly one K4 launch to the launch table, as it credits K2's four; the
+    replay gives the first call's pose."""
+    dev = _card()
+    from cppf2_torch.config import PipelineConfig
+    from cppf2_torch.eval import driver, programs
+
+    ckpts = Path(__file__).resolve().parents[1] / "ckpts_r3"
+    models = driver.load_category_models(str(ckpts), ["mug"], torch.bfloat16, dev)["mug"]
+    pipe = PipelineConfig()
+    rgb, depth, mask = _sphere_cap()
+    draws = driver.draw_instance(depth.shape, mask, "mug", pipe, dev,
+                                 torch.Generator(device=dev).manual_seed(0))
+
+    def once():
+        est = driver.estimate_instance(rgb, depth, mask, driver.REAL275_INTRINSICS, models, "mug",
+                                       pipe, device=dev, draws=draws, use_visual=False)
+        torch.cuda.synchronize()
+        return est
+
+    with programs.recorded() as used:
+        first = once()   # warm-up, capture and a first replay of each program
+        before = _build.snapshot()
+        again = once()
+    poses = [p for p, *_ in used.values() if p.key[0][0] == "pose"]
+    assert len(poses) == 1 and poses[0].replays == 2
+    assert poses[0].credited("align") == poses[0].credited("align", "cppf2_align_pose") == 1
+    assert poses[0].credited("hist16", "cppf2_hist16_level_peak") == pipe.vote_levels
+    gained = _build.since(before)
+    assert gained[("align", "cppf2_align_pose")] == 1
+    assert gained[("hist16", "cppf2_hist16_level_peak")] == pipe.vote_levels
+    assert all(torch.equal(x, y) for x, y in zip(first, again))
 
 
 @pytest.mark.gpu
@@ -277,8 +332,8 @@ def test_kernel_refuses_other_dtypes_on_card():
     args = [x.to(dev) for x in alignment._synthetic_rows(np.random.default_rng(2), 2, 100)]
     narrow = alignment.align_pose(args[0], args[1].int(), *args[2:], False)
     assert all(torch.equal(x, y) for x, y in zip(narrow, alignment.align_pose(*args, False)))
-    before = alignment.align_pose.launches
+    before = _build.launched("align")
     with pytest.raises(ValueError, match="float32"):
         alignment.align_pose(*[a.double() if a.is_floating_point() else a for a in args], False)
-    assert alignment.align_pose.launches == before
+    assert _build.launched("align") == before
     assert math.isfinite(float(alignment.align_pose(*args, False).loss[0]))

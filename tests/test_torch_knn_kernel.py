@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cppf2_torch.ops import _build
 from cppf2_torch.ops import neighbors as nb
 
 RADIUS = 0.02
@@ -109,10 +110,10 @@ def test_kernel_matches_the_plain_route_on_card(b, n, k):
     points, valid = (x.to(dev) for x in _cloud(np.random.default_rng(n + k + b), b, n))
     pts, sq = _parked(points, valid)
     want = nb._plain_neighbors(pts, sq, RADIUS, k, False)
-    before = nb.knn_select.launches
+    before = _build.launched("knn")
     got = nb.knn_radius_neighbors(points, valid, RADIUS, k)
     torch.cuda.synchronize()
-    assert nb.knn_select.launches == before + 1
+    assert _build.launched("knn") == before + 1
     assert torch.equal(got.idx, want[0])
     assert torch.equal(got.dist, want[1]) and torch.equal(got.rel, want[2])
     assert torch.equal(got.valid, (want[1] <= RADIUS) & valid[..., None])
@@ -159,9 +160,9 @@ def test_a_program_replay_credits_one_launch():
 
     prog = programs.program(cache, "knn", body, (points, valid))
     first = prog(points, valid)   # warm-up, capture and a first replay
-    assert prog.credited(nb._SELECT) == 1
-    before = nb.knn_select.launches
+    assert prog.credited("knn") == 1
+    before = _build.launched("knn")
     for _ in range(3):
         again = prog(points, valid)
         assert torch.equal(again, first)
-    assert nb.knn_select.launches == before + 3
+    assert _build.launched("knn") == before + 3

@@ -16,6 +16,7 @@ import torch
 from cppf2_torch.models import dinov2 as tdino
 from cppf2_torch.models.layers import Dense, QDense, quantize_kernel
 from cppf2_torch.models.porting import load_vit, vit_to_tree
+from cppf2_torch.ops import _build
 from cppf2_tpu.models import dinov2 as jdino
 
 BF16_ULP = 2.0 ** -7   # one bf16 ulp relative to the value
@@ -103,10 +104,10 @@ def test_qdense_matches_jax(compute_dtype, d_in, d_out, in_bf16):
     xq = torch.clamp(torch.round(xt.float() / ax), -127, 127).to(torch.int8)
     np.testing.assert_array_equal(xq.numpy(), xq_j)
     np.testing.assert_array_equal(torch._int_mm(xq, lin.weight.t()).numpy(), y_j)
-    before = QDense.launches
+    before = _build.launched("qdense")
     with torch.no_grad():
         got = lin(xt)
-    assert QDense.launches == before + 1 and got.dtype == dt and got.shape == (37, d_out)
+    assert _build.launched("qdense") == before + 1 and got.dtype == dt and got.shape == (37, d_out)
     got = got.float().numpy()
     if compute_dtype == "float32":
         np.testing.assert_array_equal(got, want)
@@ -125,10 +126,10 @@ def test_float_qdense_is_dense():
         with torch.no_grad():
             q.qscale.fill_(3.0)
         x = torch.randn(5, 64)
-        before = QDense.launches
+        before = _build.launched("qdense")
         with torch.no_grad():
             assert torch.equal(q(x), d(x))
-        assert QDense.launches == before
+        assert _build.launched("qdense") == before
 
 
 def _int8_vits(compute_dtype, attn_impl, embed_dim=1024, depth=2, heads=16):
@@ -158,10 +159,10 @@ def test_int8_vit_matches_jax(compute_dtype, attn_impl, max_diff):
     jm, qp, tm, _, _ = _int8_vits(compute_dtype, attn_impl)
     img = _img()
     want = np.asarray(jm.apply(jax.tree.map(jnp.asarray, qp), jnp.asarray(img)))
-    before = QDense.launches
+    before = _build.launched("qdense")
     with torch.no_grad():
         got = tm(torch.from_numpy(img)).numpy()
-    assert QDense.launches == before + 8
+    assert _build.launched("qdense") == before + 8
     assert got.shape == want.shape == (4, 4, 1024)
     cos = np.sum(got * want, -1) / (np.linalg.norm(got, axis=-1) * np.linalg.norm(want, axis=-1))
     assert cos.min() >= 0.9999, cos.min()

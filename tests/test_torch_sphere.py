@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from cppf2_torch.core.geometry import fibonacci_sphere
-from cppf2_torch.ops import sphere, voting
+from cppf2_torch.ops import _build, sphere, voting
 from cppf2_tpu.ops import voting as jvoting
 from cppf2_tpu.ops.pallas_kernels import sphere_accumulate_pallas
 
@@ -64,7 +64,7 @@ def test_batch_rows_are_independent_calls():
     dirs = np.stack([_clustered_votes(rng, 2000, SPHERE[rng.integers(0, 720, 3)], 1.0)
                      for _ in range(3)])
     w = (rng.uniform(size=(3, 2000)) < 0.8).astype(np.float32)
-    before = sphere.sphere_accumulate.launches
+    before = _build.launched("sphere")
     batch = sphere.sphere_accumulate(torch.from_numpy(dirs), torch.from_numpy(w),
                                      torch.from_numpy(SPHERE), 1.0)
     for i in range(3):
@@ -72,7 +72,7 @@ def test_batch_rows_are_independent_calls():
                                        torch.from_numpy(SPHERE), 1.0)
         torch.testing.assert_close(batch[i:i + 1], row, atol=0, rtol=0)
     assert torch.equal(batch, torch.round(batch)) and float(batch.max()) > 50
-    assert sphere.sphere_accumulate.launches == before
+    assert _build.launched("sphere") == before
 
 
 def test_wrapper_checks_inputs():

@@ -22,7 +22,7 @@ from cppf2_torch.eval import driver
 from cppf2_torch.models import dinov2
 from cppf2_torch.models.dinov2 import DinoViT, ViTConfig
 from cppf2_torch.models.porting import load_vit, vit_to_tree
-from cppf2_torch.ops import swiglu
+from cppf2_torch.ops import _build, swiglu
 from cppf2_torch.reference import dinov2_reg
 from cppf2_torch.utils import profiling
 
@@ -335,10 +335,10 @@ def test_the_gate_kernel_matches_the_plain_formula_on_the_card(rows, h):
     gen = torch.Generator(device=dev).manual_seed(rows)
     for dtype in (torch.bfloat16, torch.float32):
         x = (4 * torch.randn((rows, 2 * h), generator=gen, device=dev)).to(dtype)
-        n0 = swiglu.gate.launches
+        n0 = _build.launched("swiglu")
         got = swiglu.gate(x)
         torch.cuda.synchronize()
-        assert swiglu.gate.launches == n0 + 1
+        assert _build.launched("swiglu") == n0 + 1
         want = swiglu.gate_plain(x)
         assert got.shape == want.shape == (rows, h) and got.dtype == dtype
         eps = 2 ** -7 if dtype == torch.bfloat16 else 2 * 2 ** -23
@@ -354,8 +354,8 @@ def test_the_gate_kernel_refuses_a_misaligned_input_on_the_card():
         pytest.skip("needs a CUDA card: the gate kernel has no CPU mode")
     dev = torch.device("cuda")
     skewed = torch.zeros(2 * 2 * 4096 + 1, dtype=torch.bfloat16, device=dev)[1:].view(2, 2 * 4096)
-    n0 = swiglu.gate.launches
+    n0 = _build.launched("swiglu")
     for x in (torch.zeros((3, 2 * 348), dtype=torch.bfloat16, device=dev), skewed):
         with pytest.raises(ValueError, match="16-byte"):
             swiglu.gate(x)
-    assert swiglu.gate.launches == n0
+    assert _build.launched("swiglu") == n0
